@@ -1,0 +1,629 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA device and ``nvcc``; without a device it exits non-zero and
+prints no result. It imports ``molecular_dynamics_tpu_torch`` only.
+
+Phases, one JSON line each on standard output:
+
+1. ``env``: versions and the card's name and power limit.
+2. ``build``: compiles every ``csrc/*.cu`` of the port (one ``nvcc`` each,
+   all at once).
+3. ``checks``: each kernel against its plain PyTorch version on the card, at
+   the shapes of the main path (1024 replicas x 104 atoms x 50 steps), with
+   the tolerances below; the thermostat generator's statistics.
+4. ``campaign``: the main path through the public entry points: load the
+   104-atom deca-alanine, FIRE-minimise, draw velocities, build the SMD bias
+   at the measured end-to-end distance, replicate to 1024, and run
+   ``simulate_ensemble`` for 2000 steps (40 launches of the campaign kernel)
+   with rigid X-H bonds. Then the pair kernel's own path (the same entry
+   point with ``fused_nonbonded``, 1024 replicas), each kernel's launch
+   count set to 0 just before its path and read just after, and a second,
+   timed campaign call for aggregate steps/s.
+5. ``profile``: the campaign call again under ``torch.profiler``: device
+   time summed over kernel rows, the device's busy and idle share.
+6. the card's name and power limit as ``nvidia-smi`` prints them, the
+   ``kernels`` line (per kernel: launches counted on the main path, error
+   against the plain version, time per launch, the plain version's time, and
+   the least time the card could take), and the final ``ok`` line.
+
+Any failed check ends the run with a non-zero exit code.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device; this script measures on the card only",
+          file=sys.stderr)
+    sys.exit(2)
+
+import molecular_dynamics_tpu_torch as mdx
+from molecular_dynamics_tpu_torch.bias import HarmonicSMDBias
+from molecular_dynamics_tpu_torch.constraints import hydrogen_bond_constraints
+from molecular_dynamics_tpu_torch.energy import (
+    REFERENCE_CONFIG,
+    _neg_grad,
+    energy_terms,
+    total_energy,
+)
+from molecular_dynamics_tpu_torch.examples import decaalanine_full, dialanine
+from molecular_dynamics_tpu_torch.integrate import (
+    initialize_forces,
+    maxwell_boltzmann,
+    minimize_fire,
+)
+from molecular_dynamics_tpu_torch.ops import _build
+from molecular_dynamics_tpu_torch.ops import fused_step, ring
+from molecular_dynamics_tpu_torch.sim import SimulationConfig, simulate_ensemble
+from molecular_dynamics_tpu_torch.system import replicate, system_init
+
+N_REPLICAS = 1024
+N_INNER = 50
+N_STEPS = 2000
+PAIR_PATH_STEPS = 4  # steps of the fused_nonbonded path, one pair_forces launch each
+SEED = 20240914
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
+# tensor cores, and HBM3 bandwidth. The kernels do float32 arithmetic only.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Operation counts read off csrc/pair_terms.cuh and csrc/campaign_advance.cu.
+# The bound counts what the function needs, not what the kernels do: every
+# unordered pair once (Newton's third law), its force added on both ends.
+# The kernels compute each pair from both ends, which is their design.
+FLOPS_PAIR_TEST = 9          # dx, dy, dz, d2 and the cutoff compare, every unordered pair
+FLOPS_PAIR_TERM = 52         # pair_term<false>, live unordered pairs
+FLOPS_PAIR_ACCUM = 6         # f -= coeff * (dx, dy, dz) on one end; two ends a pair
+FLOPS_PAIR_ENERGY = 12       # what pair_term<true> adds
+FLOPS_ANGLE = 80
+FLOPS_TORSION_BASE = 150
+FLOPS_TORSION_TERM = 12
+FLOPS_CONSTRAINT_SWEEP = 40  # one constraint in one SHAKE or RATTLE sweep, scatter included
+FLOPS_ATOM_STEP = 60         # kicks, drifts, O-step, Box-Muller, bias, per atom and step
+
+# Tolerances. The kernel and its plain version do the same float32 arithmetic
+# in another order (and rsqrtf/atan2f are 2-ulp functions), so they agree to
+# float32 rounding of the largest terms: stiff bonds of k ~ 300-500
+# kcal/mol/A^2 turn 1e-6 A into 1e-3 kcal/mol/A.
+TOL_PAIR_FORCE = 2e-3    # kcal/mol/A
+TOL_PAIR_ENERGY = 5e-3   # kcal/mol
+TOL_POS = 1e-4           # A, n_inner <= 5
+TOL_VEL = 5e-3           # A per AKMA time
+TOL_FRC = 0.15           # kcal/mol/A
+TOL_POS_50 = 1e-3        # A, n_inner = 50: float32 trajectories drift apart
+TOL_NOISE = 1e-4         # kernel normals vs the PyTorch Philox
+TOL_TABLES = 1e-4        # plain f64 vs autograd f64: the pair tables are float32
+
+
+def emit(name, **fields):
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def max_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def time_ms(fn, repeats, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def profile_call(fn):
+    """Run ``fn`` once under torch.profiler: wall seconds, device seconds
+    summed over kernel rows (an operator row repeats its kernels' time), the
+    device's busy and idle share of the wall time, the five longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(
+        (
+            (e.key, e.self_device_time_total / 1e6, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+        ),
+        key=lambda r: -r[1],
+    )
+    device_s = sum(r[1] for r in rows)
+    return {
+        "wall_seconds_under_profiler": wall, "device_seconds": device_s,
+        "device_busy_share": device_s / wall, "device_idle_share": 1.0 - device_s / wall,
+        "kernel_launches": sum(r[2] for r in rows),
+        "top_kernels": [
+            {"name": k[:60], "device_seconds": sec, "calls": c} for k, sec, c in rows[:5]
+        ],
+    }
+
+
+def live_pair_count(pos, tables, consts):
+    """Unordered pairs (r, i < j) that carry a term at these positions:
+    unmasked and inside the cutoff, or with a bond/1-4 entry."""
+    cutoff2 = consts[0]
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = tables.dense
+    special = (kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)
+    total = 0
+    for chunk in pos.split(128):
+        d2 = torch.cdist(chunk, chunk) ** 2
+        live = ((msym > 0) & (d2 <= cutoff2)) | special
+        total += int(live.sum())
+    return total // 2  # the tables are symmetric: both (i, j) and (j, i) counted
+
+
+def pair_flops(n_rep, n, live, with_energy):
+    return n_rep * (n * (n - 1) // 2) * FLOPS_PAIR_TEST + live * (
+        FLOPS_PAIR_TERM + 2 * FLOPS_PAIR_ACCUM
+        + (FLOPS_PAIR_ENERGY if with_energy else 0)
+    )
+
+
+def pair_bound_ms(n_rep, n, live, tables, with_energy):
+    flops = pair_flops(n_rep, n, live, with_energy)
+    table_bytes = sum(t.numel() * 4 for t in (tables.pack_a, tables.pack_b, tables.pack_c))
+    nbytes = 2 * n_rep * n * 12 + n_rep * 4 + table_bytes
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def campaign_bound_ms(n_rep, tab, live, n_inner, shake_iters, rattle_iters):
+    n = tab.n_atoms
+    per_step = (
+        pair_flops(n_rep, n, live, False)
+        + n_rep * (
+            tab.n_angles * FLOPS_ANGLE
+            + tab.n_tors * (FLOPS_TORSION_BASE + FLOPS_TORSION_TERM * tab.max_t)
+            + tab.n_cons * FLOPS_CONSTRAINT_SWEEP * (2 * shake_iters + 3 * rattle_iters)
+            + n * FLOPS_ATOM_STEP
+        )
+    )
+    flops = n_inner * per_step
+    table_bytes = sum(t.numel() * 4 for t in tab.tensors.values()) + sum(
+        t.numel() * 4 for t in (tab.pair.pack_a, tab.pair.pack_b, tab.pair.pack_c)
+    )
+    nbytes = 2 * 9 * n_rep * n * 4 + table_bytes
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def main():
+    t_script = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+    # -- build -------------------------------------------------------------
+    libs = _build.build_all(verbose=True)
+    emit("build", seconds=round(_build.last_build_seconds, 2),
+         libraries=sorted(libs), flags=" ".join(_build.NVCC_FLAGS))
+
+    # -- the system: minimised 104-atom deca-alanine -------------------------
+    ff, coords, _ = decaalanine_full()
+    n = ff.n_atoms
+    check(n == 104, f"expected the 104-atom system, got {n}")
+    force = mdx.force_fn(REFERENCE_CONFIG)
+    t0 = time.perf_counter()
+    pos_min = minimize_fire(
+        torch.as_tensor(coords, dtype=torch.float32, device=dev),
+        lambda p: force(p, ff), n_steps=500, dt_start=1e-3, dt_max=1e-2,
+    )
+    torch.cuda.synchronize()
+    fire_s = time.perf_counter() - t0
+    e_min = float(total_energy(pos_min, ff))
+    check(np.isfinite(e_min), "FIRE minimisation diverged")
+
+    d0 = float(torch.linalg.norm(pos_min[-1] - pos_min[0]))
+    bias = HarmonicSMDBias.create(
+        n_atoms=n, group1=[0], group2=[n - 1], fk=1.0,
+        cent_0=d0, cent_1=d0 + 22.0, T=500_000.0,
+    )
+    cons = hydrogen_bond_constraints(ff)
+    check(cons.n_constraints == 53, f"expected 53 X-H constraints, got {cons.n_constraints}")
+
+    rng = np.random.default_rng(SEED)
+    jitter = torch.as_tensor(
+        rng.normal(0.0, 0.02, (N_REPLICAS, n, 3)), dtype=torch.float32, device=dev
+    )
+    pos_pert = (pos_min[None] + jitter).contiguous()
+
+    checks = {}
+    kernels = {}
+
+    # -- K2: pair_forces ---------------------------------------------------
+    tables = ring.build_pair_tables(ff)
+    ff64 = ff.to(dtype=torch.float64)
+    pair_cases = {
+        "reference_9A_rf_sw7.5": dict(cutoff=9.0, switch_dist=7.5, rfa=True),
+        "gbis_16A_norf_sw15": dict(cutoff=16.0, switch_dist=15.0, rfa=False),
+    }
+    for name, kw in pair_cases.items():
+        e_k, f_k = ring.pair_forces(pos_pert, tables, **kw)
+        torch.cuda.synchronize()
+        e_p, f_p = ring.pair_forces_reference(pos_pert, tables, **kw)
+        e_d, f_d = ring.pair_forces_reference(pos_pert.double(), tables, **kw)
+        # the f64 autograd energy of the same 2-body terms, on a few replicas
+        ecfg = mdx.EnergyConfig(
+            terms=("electrostatics", "lj", "bonds", "dihedrals", "1-4"), **kw
+        )
+        sub = pos_pert[:8].double()
+
+        def two_body_energy(p):
+            terms = energy_terms(p, ff64, config=ecfg)
+            return sum(v for k, v in terms.items() if k != "dihedrals")
+
+        f_auto = _neg_grad(two_body_energy, sub)
+        res = {
+            "force_err_kernel_vs_plain": max_err(f_k, f_p),
+            "energy_err_kernel_vs_plain": max_err(e_k, e_p),
+            "force_err_plain_f32_vs_f64": max_err(f_p, f_d),
+            "energy_err_plain_f32_vs_f64": max_err(e_p, e_d),
+            "force_err_kernel_vs_f64": max_err(f_k, f_d),
+            "energy_err_kernel_vs_f64": max_err(e_k, e_d),
+            "force_err_plain_f64_vs_autograd": max_err(f_d[:8], f_auto),
+        }
+        checks[f"pair_forces[{name}]"] = res
+        check(bool(torch.isfinite(f_k).all()), f"pair_forces {name}: non-finite forces")
+        check(res["force_err_kernel_vs_plain"] <= TOL_PAIR_FORCE, f"pair_forces {name}: {res}")
+        check(res["energy_err_kernel_vs_plain"] <= TOL_PAIR_ENERGY, f"pair_forces {name}: {res}")
+        check(res["force_err_plain_f32_vs_f64"] <= TOL_PAIR_FORCE, f"pair plain f32/f64 {name}: {res}")
+        check(res["energy_err_plain_f32_vs_f64"] <= TOL_PAIR_ENERGY, f"pair plain f32/f64 {name}: {res}")
+        check(res["force_err_plain_f64_vs_autograd"] <= TOL_TABLES, f"pair plain vs autograd {name}: {res}")
+
+    ref_kw = pair_cases["reference_9A_rf_sw7.5"]
+    pair_consts = ring.pair_constants(9.0, 7.5, True, mdx.units.SOLVENT_DIELECTRIC)
+    live = live_pair_count(pos_pert, tables, pair_consts)
+    k2_ms = time_ms(lambda: ring.pair_forces(pos_pert, tables, **ref_kw), repeats=20)
+    k2_plain_ms = time_ms(lambda: ring.pair_forces_reference(pos_pert, tables, **ref_kw), repeats=3)
+    k2_bound, k2_by, k2_flops, k2_bytes = pair_bound_ms(N_REPLICAS, n, live, tables, True)
+    ref_res = checks["pair_forces[reference_9A_rf_sw7.5]"]
+    kernels["pair_forces"] = {
+        "name": "pair_forces", "route": "cuda",
+        "source": "molecular_dynamics_tpu_torch/csrc/pair_forces.cu",
+        "replaces": "molecular_dynamics_tpu/ops/ring.py:38",
+        "launches": 0,
+        "max_abs_err": max(ref_res["force_err_kernel_vs_plain"],
+                           checks["pair_forces[gbis_16A_norf_sw15]"]["force_err_kernel_vs_plain"]),
+        "tolerance": TOL_PAIR_FORCE,
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+        "bound_by": k2_by, "library_ms": None,
+        "shape": [N_REPLICAS, n, 3], "flops": k2_flops, "bytes": k2_bytes,
+        "live_unordered_pairs": live,
+    }
+
+    # -- K1: campaign_advance ----------------------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    std = torch.sqrt(mdx.units.BOLTZMANN * 300.0 / ff.masses)[None, :, None]
+    vel_b = (std * torch.randn((N_REPLICAS, n, 3), generator=gen, device=dev)).contiguous()
+    pos_b = (pos_min[None] + 0.5 * jitter).contiguous()  # sigma 0.01 A
+
+    def make_op(n_inner, temperature):
+        return fused_step.make_fused_campaign_op(
+            ff, n_inner=n_inner, dt_fs=2.0, temperature=temperature,
+            gamma_ps=1.0, bias=bias, constraints=cons,
+        )
+
+    op1 = make_op(1, 0.0)
+    tab = op1.tables
+    frc_b = fused_step.campaign_forces_reference(
+        pos_b, tab, op1.settings["pair_consts"], op1.settings["bias_consts"], 0
+    ).contiguous()
+
+    k1_err = {}
+    for n_inner in (1, 2, 5, N_INNER):
+        op = make_op(n_inner, 0.0)
+        out_k = op(pos_b, vel_b, frc_b, 0, 1)
+        torch.cuda.synchronize()
+        out_p = fused_step.campaign_advance_reference(
+            pos_b, vel_b, frc_b, 0, 1, tab, **op.settings
+        )
+        errs = [max_err(a, b) for a, b in zip(out_k, out_p)]
+        k1_err[n_inner] = errs
+        check(all(bool(torch.isfinite(t).all()) for t in out_k),
+              f"campaign_advance T=0 n_inner={n_inner}: non-finite output")
+        tol_pos = TOL_POS if n_inner <= 5 else TOL_POS_50
+        check(errs[0] <= tol_pos and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
+              f"campaign_advance T=0 n_inner={n_inner}: pos/vel/frc errors {errs}")
+    checks["campaign_advance[T=0]"] = {
+        f"n_inner={k}": dict(zip(("pos", "vel", "frc"), v)) for k, v in k1_err.items()
+    }
+
+    # one launch is reproducible, and 50 steps = 25 + 25
+    op50, op25 = make_op(N_INNER, 300.0), make_op(25, 300.0)
+    a = op50(pos_b, vel_b, frc_b, 100, 7)
+    b = op50(pos_b, vel_b, frc_b, 100, 7)
+    h = op25(pos_b, vel_b, frc_b, 100, 7)
+    c = op25(*h, 125, 7)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "campaign_advance: two equal launches differ")
+    check(all(torch.equal(x, y) for x, y in zip(a, c)),
+          "campaign_advance: one launch of 50 steps differs from 25 + 25")
+
+    # the generator
+    g = fused_step.campaign_noise(7, 100, N_INNER, N_REPLICAS, n)
+    g_two = torch.cat([
+        fused_step.campaign_noise(7, 100, 25, N_REPLICAS, n),
+        fused_step.campaign_noise(7, 125, 25, N_REPLICAS, n),
+    ])
+    g_other = fused_step.campaign_noise(8, 100, N_INNER, N_REPLICAS, n)
+    g_plain = fused_step.philox_normals(7, 100, N_INNER, N_REPLICAS, n, device=dev)
+    torch.cuda.synchronize()
+
+    def corr(x, y):
+        return float(torch.corrcoef(torch.stack([x.flatten(), y.flatten()]))[0, 1])
+
+    noise_res = {
+        "mean": float(g.mean()), "var": float(g.var()),
+        "corr_replicas_0_1": corr(g[:, 0], g[:, 1]),
+        "corr_steps_0_1": corr(g[0], g[1]),
+        "corr_components_x_y": corr(g[..., 0], g[..., 1]),
+        "max_abs": float(g.abs().max()),
+        "differs_for_other_seed": float((g - g_other).abs().max()),
+        "split_25_25_equal": bool(torch.equal(g, g_two)),
+        "err_vs_plain_philox": max_err(g, g_plain),
+    }
+    checks["noise"] = noise_res
+    check(abs(noise_res["mean"]) < 0.01, f"noise mean {noise_res}")
+    check(abs(noise_res["var"] - 1.0) < 0.02, f"noise variance {noise_res}")
+    for key in ("corr_replicas_0_1", "corr_steps_0_1", "corr_components_x_y"):
+        check(abs(noise_res[key]) < 0.05, f"noise {key} {noise_res}")
+    check(noise_res["differs_for_other_seed"] > 0.1, "noise: another seed gives the same numbers")
+    check(noise_res["split_25_25_equal"], "noise: 50 steps differ from 25 + 25")
+    check(noise_res["err_vs_plain_philox"] <= TOL_NOISE, f"noise vs plain Philox {noise_res}")
+
+    # T = 300 K from identical starts: replicas end apart, all finite
+    same_pos = pos_min[None].expand(N_REPLICAS, n, 3).contiguous()
+    same_vel = torch.zeros_like(same_pos)
+    same_frc = fused_step.campaign_forces_reference(
+        same_pos[:1], tab, op1.settings["pair_consts"], op1.settings["bias_consts"], 0
+    ).expand(N_REPLICAS, n, 3).contiguous()
+    hot = op50(same_pos, same_vel, same_frc, 0, 11)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in hot), "campaign_advance T=300: non-finite")
+    flat = hot[0].reshape(N_REPLICAS, -1)
+    spread = float((flat[1:] - flat[:-1]).abs().amax(dim=1).min())
+    check(spread > 1e-4, f"campaign_advance T=300: neighbouring replicas coincide ({spread})")
+
+    # T = 300 K: kernel with (seed, t0) vs plain fed the same normals, over
+    # 5 steps and over the main path's 50
+    for n_inner, op_hot, tols in (
+        (5, make_op(5, 300.0), (TOL_POS, TOL_VEL, TOL_FRC)),
+        (N_INNER, op50, (TOL_POS_50, TOL_VEL, TOL_FRC)),
+    ):
+        out_k = op_hot(pos_b, vel_b, frc_b, 40, 13)
+        noise_k = fused_step.campaign_noise(13, 40, n_inner, N_REPLICAS, n)
+        out_p = fused_step.campaign_advance_reference(
+            pos_b, vel_b, frc_b, 40, 13, op_hot.tables, noise=noise_k, **op_hot.settings
+        )
+        torch.cuda.synchronize()
+        errs = [max_err(x, y) for x, y in zip(out_k, out_p)]
+        checks[f"campaign_advance[T=300,n_inner={n_inner},same noise]"] = dict(
+            zip(("pos", "vel", "frc"), errs))
+        check(all(e <= tol for e, tol in zip(errs, tols)),
+              f"campaign_advance T=300 n_inner={n_inner} vs plain with the same noise: "
+              f"{errs} (bounds {tols})")
+    checks["campaign_advance[T=300]"] = {"min_neighbour_spread_A": spread}
+
+    k1_ms = time_ms(lambda: op50(pos_b, vel_b, frc_b, 0, 3), repeats=5)
+    # where a launch's time goes: the same 50 steps without SHAKE/RATTLE
+    op50_free = fused_step.make_fused_campaign_op(
+        ff, n_inner=N_INNER, dt_fs=2.0, temperature=300.0, gamma_ps=1.0, bias=bias
+    )
+    k1_free_ms = time_ms(lambda: op50_free(pos_b, vel_b, frc_b, 0, 3), repeats=5)
+    plain_settings = op50.settings
+    tab50 = op50.tables
+    k1_plain_ms = time_ms(
+        lambda: fused_step.campaign_advance_reference(
+            pos_b, vel_b, frc_b, 0, 3, tab50, **plain_settings),
+        repeats=1, warmup=0,
+    )
+    live_b = live_pair_count(pos_b, tables, pair_consts)
+    k1_bound, k1_by, k1_flops, k1_bytes = campaign_bound_ms(
+        N_REPLICAS, tab, live_b, N_INNER,
+        plain_settings["shake_iters"], plain_settings["rattle_iters"],
+    )
+    kernels["campaign_advance"] = {
+        "name": "campaign_advance", "route": "cuda",
+        "source": "molecular_dynamics_tpu_torch/csrc/campaign_advance.cu",
+        "replaces": "molecular_dynamics_tpu/ops/fused_step.py:775",
+        "launches": 0,
+        "max_abs_err": k1_err[N_INNER][0], "tolerance": TOL_POS_50,
+        "max_abs_err_what": "positions (A) after 50 steps at T=0 vs the plain version",
+        "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+        "bound_by": k1_by, "library_ms": None,
+        "shape": [N_REPLICAS, n, 3], "n_inner": N_INNER,
+        "ms_without_constraints": k1_free_ms,
+        "flops": k1_flops, "bytes": k1_bytes,
+        "live_unordered_pairs_at_entry": live_b,
+    }
+    # another shape through the same kernels: the 22-atom di-alanine
+    # (fewer atoms than a warp, its own term counts), 64 replicas, T = 0
+    ff2, coords2, _ = dialanine()
+    n2 = ff2.n_atoms
+    pos2 = (
+        torch.as_tensor(coords2, dtype=torch.float32, device=dev)[None]
+        + torch.as_tensor(rng.normal(0.0, 0.02, (64, n2, 3)), dtype=torch.float32, device=dev)
+    ).contiguous()
+    tables2 = ring.build_pair_tables(ff2)
+    e_k, f_k = ring.pair_forces(pos2, tables2)
+    e_p, f_p = ring.pair_forces_reference(pos2, tables2)
+    op2 = fused_step.make_fused_campaign_op(
+        ff2, n_inner=5, dt_fs=2.0, temperature=0.0,
+        constraints=hydrogen_bond_constraints(ff2),
+    )
+    vel2 = torch.zeros_like(pos2)
+    out_k = op2(pos2, vel2, f_p.contiguous(), 0, 1)
+    out_p = fused_step.campaign_advance_reference(
+        pos2, vel2, f_p, 0, 1, op2.tables, **op2.settings
+    )
+    torch.cuda.synchronize()
+    errs = [max_err(x, y) for x, y in zip(out_k, out_p)]
+    checks["dialanine_22_atoms"] = {
+        "pair_force_err": max_err(f_k, f_p), "pair_energy_err": max_err(e_k, e_p),
+        **dict(zip(("pos", "vel", "frc"), errs)),
+    }
+    check(max_err(f_k, f_p) <= TOL_PAIR_FORCE and max_err(e_k, e_p) <= TOL_PAIR_ENERGY,
+          f"pair_forces on di-alanine: {checks['dialanine_22_atoms']}")
+    check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
+          f"campaign_advance on di-alanine: {errs}")
+
+    emit("checks", fire_seconds=round(fire_s, 2), e_min=e_min, **checks)
+
+    # -- the main path -------------------------------------------------------
+    gen.manual_seed(0)
+    vel = maxwell_boltzmann(gen, ff.masses, 300.0)
+    state = system_init(pos_min, vel=vel, key=0)
+    state = initialize_forces(
+        state,
+        lambda p, box: _neg_grad(
+            lambda q: total_energy(q, ff, config=REFERENCE_CONFIG) + bias.energy(q, 0), p
+        ),
+    )
+    ens = replicate(state, N_REPLICAS, seed=1)
+    cfg = SimulationConfig(
+        dt_fs=2.0, temperature=300.0, fused_campaign=True, constrain_h_bonds=True
+    )
+
+    fused_step.campaign_advance.launches = 0
+    t0 = time.perf_counter()
+    final, frames, log = simulate_ensemble(
+        ens, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias
+    )
+    torch.cuda.synchronize()
+    launches_k1 = fused_step.campaign_advance.launches
+    first_s = time.perf_counter() - t0
+    kernels["campaign_advance"]["launches"] = launches_k1
+    kernels["campaign_advance"]["launches_of"] = (
+        f"simulate_ensemble(fused_campaign), {N_REPLICAS} replicas x {N_STEPS} steps")
+
+    # the pair kernel's own path: the same entry point with fused_nonbonded
+    # (2-body terms from one pair_forces launch a step, the rest from
+    # autograd), at the main shape
+    cfg_pair = SimulationConfig(
+        dt_fs=2.0, temperature=300.0, fused_nonbonded=True, constrain_h_bonds=True
+    )
+    ring.pair_forces.launches = 0
+    _, fr_pair, _ = simulate_ensemble(
+        ens, ff, n_steps=PAIR_PATH_STEPS, save_every=2, config=cfg_pair, bias=bias)
+    torch.cuda.synchronize()
+    launches_k2 = ring.pair_forces.launches
+    kernels["pair_forces"]["launches"] = launches_k2
+    kernels["pair_forces"]["launches_of"] = (
+        f"simulate_ensemble(fused_nonbonded), {N_REPLICAS} replicas x {PAIR_PATH_STEPS} steps")
+
+    n_saves = N_STEPS // N_INNER
+    check(tuple(frames.shape) == (n_saves, N_REPLICAS, n, 3), f"frames shape {tuple(frames.shape)}")
+    check(bool(torch.isfinite(frames).all()), "campaign: non-finite frames")
+    check(launches_k1 == n_saves, f"campaign kernel launched {launches_k1} times, expected {n_saves}")
+    pairs = cons.pairs
+    last = frames[-1]
+    bond = torch.linalg.norm(last[:, pairs[:, 0]] - last[:, pairs[:, 1]], dim=-1)
+    violation = float((bond - cons.lengths[None]).abs().max())
+    check(violation < 1e-5, f"max X-H constraint violation {violation} A")
+    t_mean = float(log["T"][-1].mean())
+    check(150.0 < t_mean < 350.0, f"ensemble-mean T of the last save {t_mean} K")
+    lag = float((log["colvar_value"][-1] - log["colvar_center"][-1]).abs().mean())
+    check(lag < 2.0, f"mean |colvar - centre| {lag} A")
+    flat = last.reshape(N_REPLICAS, -1)
+    spread = float((flat[1:] - flat[:-1]).abs().amax(dim=1).min())
+    check(spread > 1e-3, f"campaign: neighbouring replicas coincide ({spread})")
+    check(int(final.step[0]) == N_STEPS, f"final step {int(final.step[0])}")
+
+    cfg_auto = SimulationConfig(dt_fs=2.0, temperature=300.0, constrain_h_bonds=True)
+    _, fr_auto, _ = simulate_ensemble(
+        ens, ff, n_steps=PAIR_PATH_STEPS, save_every=2, config=cfg_auto, bias=bias)
+    torch.cuda.synchronize()
+    composed_err = max_err(fr_pair, fr_auto)
+    check(launches_k2 == PAIR_PATH_STEPS,
+          f"pair kernel launched {launches_k2} times, expected {PAIR_PATH_STEPS}")
+    check(composed_err < 1e-4, f"fused_nonbonded vs autograd composed path: {composed_err} A")
+
+    t0 = time.perf_counter()
+    final2, frames2, _ = simulate_ensemble(
+        final, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias
+    )
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(frames2).all()), "campaign (timed call): non-finite frames")
+    t0 = time.perf_counter()
+    simulate_ensemble(final2, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg,
+                      bias=bias, obs_every=n_saves)
+    torch.cuda.synchronize()
+    timed_sparse_obs_s = time.perf_counter() - t0
+
+    emit("campaign", replicas=N_REPLICAS, atoms=n, steps=N_STEPS, save_every=N_INNER,
+         frames=list(frames.shape), campaign_kernel_launches=launches_k1,
+         pair_kernel_launches=launches_k2,
+         max_constraint_violation_A=violation, T_last_mean_K=t_mean,
+         colvar_lag_A=lag, colvar_last_mean_A=float(log["colvar_value"][-1].mean()),
+         colvar_center_last_A=float(log["colvar_center"][-1].mean()),
+         min_neighbour_spread_A=spread,
+         fused_nonbonded_vs_autograd_A=composed_err,
+         first_call_seconds=first_s, timed_call_seconds=timed_s,
+         aggregate_steps_per_s=N_STEPS * N_REPLICAS / timed_s,
+         timed_call_obs_once_seconds=timed_sparse_obs_s,
+         aggregate_steps_per_s_obs_once=N_STEPS * N_REPLICAS / timed_sparse_obs_s,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+
+    # -- where the device's time goes in one campaign call ------------------
+    profile_res = {}
+    for label, every in (("obs_every_save", 1), ("obs_once", n_saves)):
+        res = profile_call(lambda: simulate_ensemble(
+            final2, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias,
+            obs_every=every))
+        check(res["device_seconds"] > 0.0,
+              "torch.profiler reported no device time: nothing was measured")
+        profile_res[label] = res
+    emit("profile", **profile_res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"kernels": [kernels["pair_forces"], kernels["campaign_advance"]]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,76 @@
+"""molecular_dynamics_tpu_torch — the PyTorch/CUDA port of ``mdx``.
+
+Same module and function names as ``molecular_dynamics_tpu`` (the JAX
+reference, which this package never imports), PyTorch idiom inside:
+dataclasses of tensors, plain functions on ``(..., N, 3)`` tensors, an
+explicit ``device``/``dtype``, and hand-written CUDA kernels (``csrc/``,
+bound in ``ops/``) where the reference used Pallas.
+
+Ported so far — the replica SMD campaign path:
+
+- ``units``, ``ff.params`` (``FFParams``), ``solvent`` (host tables only),
+  ``examples`` (the packaged 104-atom deca-alanine and 22-atom di-alanine)
+- ``energy`` (bonded terms, 1-4, switched LJ, reaction-field Coulomb,
+  Urey-Bradley; forces through ``torch.autograd``)
+- ``system``, ``bias``, ``integrate``, ``constraints``, ``sim``
+- ``ops.ring.pair_forces`` and ``ops.fused_step.make_fused_campaign_op``
+  (CUDA kernels with plain PyTorch versions beside them)
+- ``convert`` — numpy arrays into the port's objects
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
+"""
+
+import torch
+
+# Reduced-precision products silently cost kcal/mol in an energy; keep every
+# float32 product in full float32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from molecular_dynamics_tpu_torch import units
+from molecular_dynamics_tpu_torch.ff import FFParams
+from molecular_dynamics_tpu_torch.energy import (
+    EnergyConfig,
+    GBIS_CONFIG,
+    REFERENCE_CONFIG,
+    energy_terms,
+    total_energy,
+    force_fn,
+    energy_and_forces,
+)
+from molecular_dynamics_tpu_torch import solvent
+from molecular_dynamics_tpu_torch.system import MDState, system_init
+from molecular_dynamics_tpu_torch.integrate import (
+    velocity_verlet_step,
+    langevin_step,
+    maxwell_boltzmann,
+    kinetic_energy,
+    temperature,
+    minimize_fire,
+)
+from molecular_dynamics_tpu_torch.bias import HarmonicSMDBias
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "units",
+    "FFParams",
+    "EnergyConfig",
+    "GBIS_CONFIG",
+    "REFERENCE_CONFIG",
+    "solvent",
+    "energy_terms",
+    "total_energy",
+    "force_fn",
+    "energy_and_forces",
+    "MDState",
+    "system_init",
+    "velocity_verlet_step",
+    "langevin_step",
+    "maxwell_boltzmann",
+    "kinetic_energy",
+    "temperature",
+    "minimize_fire",
+    "HarmonicSMDBias",
+]

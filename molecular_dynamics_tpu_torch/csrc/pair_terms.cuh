@@ -1,0 +1,111 @@
+// Every 2-body term of the force field, for one pair: reaction-field Coulomb
+// and cubic-switched LJ 12-6 under the cutoff mask, harmonic bond /
+// Urey-Bradley springs k (d - d0)^2, and pre-scaled 1-4 LJ + plain Coulomb.
+// The physics lives here once; the standalone pair kernel and the campaign
+// kernel both go through atom_pair_sum().
+//
+// Table layout (built by ops/ring.py:pack_pair_tables from the nine dense
+// symmetric (N, N) tables). Entry [j * N + i] belongs to the pair (i, j):
+//   A: float4 (qq, lj_a, lj_b, w)   w = mask + 2 * special
+//   B: float4 (k_bond, d0, a14, b14)       read only where special
+//   C: float  qq14                          read only where special
+// Thread i walks j and reads entry [j * N + i], so a warp's loads are
+// contiguous. 92 % of the pairs of a peptide are plain nonbonded pairs and
+// need the 16 bytes of A alone.
+#pragma once
+
+struct PairConsts {
+  float cutoff2;          // cutoff^2 (1e30 = none)
+  float krf, crf;         // reaction field (0, 0 = plain Coulomb)
+  float switch_dist;      // LJ switch-on distance (1e15 = none)
+  float inv_switch_span;  // 1 / (cutoff - switch_dist)
+};
+
+// One pair at squared distance d2: F_i = -coeff * (r_i - r_j), and pot is
+// the pair's full energy.
+template <bool kEnergy>
+__device__ __forceinline__ void pair_term(
+    float d2, float qq, float aa, float bb, float msym, float kb, float d0,
+    float a14, float b14, float qq14, const PairConsts& c, float& coeff,
+    float& pot) {
+  const bool mb = kb > 0.f;
+  const float m = (d2 <= c.cutoff2) ? msym : 0.f;
+  // a masked pair never divides by zero: its distance is replaced by 1
+  const bool live = (m > 0.f) || mb || (qq14 != 0.f) || (a14 != 0.f);
+  const float safe = live ? d2 : 1.f;
+  // IEEE division and square root, not the 2-ulp rsqrtf: stiff bonds and
+  // r^-13 turn a relative error of rinv into kcal/mol/A
+  const float rinv = 1.0f / sqrtf(safe);
+  const float rinv2 = rinv * rinv;
+  const float d = d2 * rinv;  // == sqrt(d2) where live
+
+  // cutoff nonbonded: reaction-field Coulomb + switched LJ
+  const float coeff_e = qq * (2.f * c.krf - rinv2 * rinv);
+  const float rinv6 = rinv2 * rinv2 * rinv2;
+  const float a12 = aa * rinv6 * rinv6;
+  const float b6 = bb * rinv6;
+  float pot_l = a12 - b6;
+  const float dudr = (6.f * b6 - 12.f * a12) * rinv;
+  const float t = (d - c.switch_dist) * c.inv_switch_span;
+  const float sw = 1.f + t * t * t * (-10.f + t * (15.f - t * 6.f));
+  const float dsw = t * t * (-30.f + t * (60.f - t * 30.f)) * c.inv_switch_span;
+  const bool on = d > c.switch_dist;
+  const float coeff_l = on ? (dudr * sw + pot_l * dsw) * rinv : dudr * rinv;
+  coeff = m * (coeff_e + coeff_l);
+
+  // harmonic bond / Urey-Bradley pairs: E = k (d - d0)^2
+  const float delta = d - d0;
+  if (mb) coeff += 2.f * kb * delta * rinv;
+
+  // 1-4 scaled LJ + plain Coulomb
+  const float a14_12 = a14 * rinv6 * rinv6;
+  const float b14_6 = b14 * rinv6;
+  coeff += (6.f * b14_6 - 12.f * a14_12) * rinv2 - qq14 * rinv2 * rinv;
+
+  if (kEnergy) {
+    const float pot_e = qq * (rinv + c.krf * d2 - c.crf);
+    if (on) pot_l *= sw;
+    pot = m * (pot_e + pot_l);
+    if (mb) pot += kb * delta * delta;
+    pot += a14_12 - b14_6 + qq14 * rinv;
+  }
+}
+
+// Force on atom i (and, with kEnergy, the sum of its pair energies, each
+// pair counted in full: the caller halves the total) from all j != i.
+// sx/sy/sz hold the replica's coordinates in shared memory. Each thread sums
+// its own atom in a fixed order: no atomics, the same bits every run.
+template <bool kEnergy>
+__device__ __forceinline__ void atom_pair_sum(
+    int i, int n, const float* sx, const float* sy, const float* sz,
+    const float4* __restrict__ tab_a, const float4* __restrict__ tab_b,
+    const float* __restrict__ tab_c, const PairConsts& c, float& fx,
+    float& fy, float& fz, float& e) {
+  const float xi = sx[i], yi = sy[i], zi = sz[i];
+  fx = fy = fz = 0.f;
+  e = 0.f;
+  for (int j = 0; j < n; ++j) {
+    if (j == i) continue;
+    const float4 a = __ldg(&tab_a[j * n + i]);
+    const float dx = xi - sx[j];
+    const float dy = yi - sy[j];
+    const float dz = zi - sz[j];
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    float msym = a.w, kb = 0.f, d0 = 0.f, a14 = 0.f, b14 = 0.f, qq14 = 0.f;
+    if (a.w >= 2.f) {
+      const float4 b = __ldg(&tab_b[j * n + i]);
+      kb = b.x; d0 = b.y; a14 = b.z; b14 = b.w;
+      qq14 = __ldg(&tab_c[j * n + i]);
+      msym = a.w - 2.f;
+    } else if (msym == 0.f || d2 > c.cutoff2) {
+      continue;  // excluded or beyond the cutoff: contributes exactly zero
+    }
+    float coeff, pot = 0.f;
+    pair_term<kEnergy>(d2, a.x, a.y, a.z, msym, kb, d0, a14, b14, qq14, c,
+                       coeff, pot);
+    fx -= coeff * dx;
+    fy -= coeff * dy;
+    fz -= coeff * dz;
+    if (kEnergy) e += pot;
+  }
+}
