@@ -10,9 +10,11 @@ Phases, one JSON line each on standard output:
 1. ``env``: versions and the card's name and power limit.
 2. ``build``: compiles every ``csrc/*.cu`` of the port (one ``nvcc`` each,
    all at once).
-3. ``checks``: each kernel against its plain PyTorch version on the card, at
-   the shapes of the main path (1024 replicas x 104 atoms x 50 steps), with
-   the tolerances below; the thermostat generator's statistics.
+3. ``checks``: each of the four kernels against its plain PyTorch version on
+   the card, at the shapes of the main path (1024 replicas x 104 atoms x 50
+   steps), with the tolerances below; the thermostat generator's statistics;
+   the campaign kernel with GB and SASA on, at every step and at the
+   ``sasa_every`` / ``gb_every`` cadences.
 4. ``campaign``: the main path through the public entry points: load the
    104-atom deca-alanine, FIRE-minimise, draw velocities, build the SMD bias
    at the measured end-to-end distance, replicate to 1024, and run
@@ -21,6 +23,13 @@ Phases, one JSON line each on standard output:
    point with ``fused_nonbonded``, 1024 replicas), each kernel's launch
    count set to 0 just before its path and read just after, and a second,
    timed campaign call for aggregate steps/s.
+   ``gbis_campaign``: the implicit-solvent main path the same way: FIRE under
+   ``GBIS_CONFIG``, 1024 replicas, ``simulate_ensemble`` for 2000 steps with
+   GB-OBC II and LCPO SASA inside the campaign kernel, at ``sasa_every=1``
+   and ``sasa_every=5``; then the GB and SASA kernels' own path (the same
+   entry point on its composed per-step path, ``fused_campaign=False``,
+   whose GB and LCPO forces are one ``gb_forces`` and one ``sasa_forces``
+   launch a step).
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share.
 6. the card's name and power limit as ``nvidia-smi`` prints them, the
@@ -48,6 +57,7 @@ import molecular_dynamics_tpu_torch as mdx
 from molecular_dynamics_tpu_torch.bias import HarmonicSMDBias
 from molecular_dynamics_tpu_torch.constraints import hydrogen_bond_constraints
 from molecular_dynamics_tpu_torch.energy import (
+    GBIS_CONFIG,
     REFERENCE_CONFIG,
     _neg_grad,
     energy_terms,
@@ -60,7 +70,8 @@ from molecular_dynamics_tpu_torch.integrate import (
     minimize_fire,
 )
 from molecular_dynamics_tpu_torch.ops import _build
-from molecular_dynamics_tpu_torch.ops import fused_step, ring
+from molecular_dynamics_tpu_torch.ops import fused_step, gb, ring, sasa
+from molecular_dynamics_tpu_torch import solvent
 from molecular_dynamics_tpu_torch.sim import SimulationConfig, simulate_ensemble
 from molecular_dynamics_tpu_torch.system import replicate, system_init
 
@@ -68,6 +79,7 @@ N_REPLICAS = 1024
 N_INNER = 50
 N_STEPS = 2000
 PAIR_PATH_STEPS = 4  # steps of the fused_nonbonded path, one pair_forces launch each
+SOLVENT_PATH_STEPS = 4  # steps of the composed GBIS path, one gb_forces + one sasa_forces launch each
 SEED = 20240914
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
@@ -88,6 +100,22 @@ FLOPS_TORSION_BASE = 150
 FLOPS_TORSION_TERM = 12
 FLOPS_CONSTRAINT_SWEEP = 40  # one constraint in one SHAKE or RATTLE sweep, scatter included
 FLOPS_ATOM_STEP = 60         # kicks, drifts, O-step, Box-Muller, bias, per atom and step
+# csrc/gb_terms.cuh, per unordered pair (GB has no cutoff: every pair is live).
+# A division, a square root, an expf or a logf counts as one operation.
+FLOPS_GB_GEOMETRY = 10       # dx, dy, dz, d2, 1/sqrt, d: once a pair
+FLOPS_GB_HCT = 30            # hct_pair<false>, one direction (two a pair)
+FLOPS_GB_HCT_DERIV = 22      # what hct_pair<true> adds, one direction (two a pair)
+FLOPS_GB_STILL = 40          # the Still term with salt: expf twice, 1/sqrt, u, du, coeff
+FLOPS_GB_ACCUM = 10          # force on one end + its dE/dR share; two ends a pair
+FLOPS_GB_ENERGY = 3
+FLOPS_GB_ATOM = 40           # OBC tanh rescaling, self term, chain cotangent
+# csrc/sasa_terms.cuh
+FLOPS_SASA_GEOMETRY = 12     # per unordered pair of the compact set: distance and window test
+FLOPS_SASA_AREA = 8          # a_pq, per overlapping ordered pair
+FLOPS_SASA_PAIR = 30         # per overlapping ordered pair: area sum, W, da/dd, force
+FLOPS_SASA_B = 1             # per (p, q overlapping, k in N(p)): B_pq += a_qk
+FLOPS_SASA_G = 3             # per (p, q overlapping, i in N(p) and N(q)): the W sum
+FLOPS_SASA_ATOM = 10
 
 # Tolerances. The kernel and its plain version do the same float32 arithmetic
 # in another order (and rsqrtf/atan2f are 2-ulp functions), so they agree to
@@ -101,6 +129,15 @@ TOL_FRC = 0.15           # kcal/mol/A
 TOL_POS_50 = 1e-3        # A, n_inner = 50: float32 trajectories drift apart
 TOL_NOISE = 1e-4         # kernel normals vs the PyTorch Philox
 TOL_TABLES = 1e-4        # plain f64 vs autograd f64: the pair tables are float32
+# GB and SASA: forces of O(10) and O(0.1) kcal/mol/A, energies of O(50) and
+# O(5) kcal/mol; the far-pair cancellation of the HCT integral is what float32
+# costs (the JAX kernel is pinned 5.4e-4 from float64, bound 5e-3)
+TOL_GB_FORCE = 5e-4      # kernel vs plain float32
+TOL_GB_ENERGY = 2e-3
+TOL_SASA_FORCE = 1e-5
+TOL_SASA_ENERGY = 1e-4
+TOL_F32_VS_F64 = 5e-3    # plain float32 vs plain float64, forces and energies
+TOL_AUTOGRAD_F64 = 1e-7  # plain float64 vs autograd of the float64 energy
 
 
 def emit(name, **fields):
@@ -219,6 +256,51 @@ def campaign_bound_ms(n_rep, tab, live, n_inner, shake_iters, rattle_iters):
         t.numel() * 4 for t in (tab.pair.pack_a, tab.pair.pack_b, tab.pair.pack_c)
     )
     nbytes = 2 * 9 * n_rep * n * 4 + table_bytes
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def gb_bound_ms(n_rep, n, with_energy=True):
+    pairs = n * (n - 1) // 2
+    flops = n_rep * (
+        pairs * (
+            FLOPS_GB_GEOMETRY + 2 * FLOPS_GB_HCT + 2 * FLOPS_GB_HCT_DERIV
+            + FLOPS_GB_STILL + 2 * FLOPS_GB_ACCUM
+            + (FLOPS_GB_ENERGY if with_energy else 0)
+        )
+        + n * FLOPS_GB_ATOM
+    )
+    nbytes = n_rep * n * (12 + 12 + 4) + n_rep * 4 + n * 5 * 4
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def sasa_work(pos, tables):
+    """What the LCPO sums need at these positions, over all replicas:
+    overlapping ordered pairs, sum over p of |N(p)|^2 (the B sums), and the
+    triples (p, q, i) with i a neighbour of both (the W sums)."""
+    pairs = tri_b = tri_g = 0
+    for chunk in pos.split(256):
+        o = sasa.sasa_overlaps(chunk, tables).float()
+        nbr = o.sum(-1)
+        pairs += int(nbr.sum())
+        tri_b += int((nbr * nbr).sum())
+        tri_g += int(((o @ o) * o).sum())
+    return pairs, tri_b, tri_g
+
+
+def sasa_flops(n_rep, nc, work):
+    pairs, tri_b, tri_g = work
+    return (
+        n_rep * (nc * (nc - 1) // 2) * FLOPS_SASA_GEOMETRY
+        + pairs * (FLOPS_SASA_AREA + FLOPS_SASA_PAIR)
+        + tri_b * FLOPS_SASA_B + tri_g * FLOPS_SASA_G + n_rep * nc * FLOPS_SASA_ATOM
+    )
+
+
+def sasa_bound_ms(n_rep, n, nc, work):
+    flops = sasa_flops(n_rep, nc, work)
+    nbytes = n_rep * n * 24 + n_rep * 4 + nc * 24
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
@@ -507,6 +589,263 @@ def main():
     check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
           f"campaign_advance on di-alanine: {errs}")
 
+    # -- K3: gb_forces and K4: sasa_forces, standalone ----------------------
+    eps_s, salt, gamma = (GBIS_CONFIG.solvent_dielectric, GBIS_CONFIG.ion_concentration,
+                          GBIS_CONFIG.surface_tension)
+    gb_tab = gb.build_gb_tables(ff)
+    gb_consts = gb.gb_constants(eps_s, salt)
+    sasa_tab = sasa.build_sasa_tables(ff)
+    nc = sasa_tab.n_compact
+    check(nc == 51, f"expected 51 heavy atoms in the LCPO set, got {nc}")
+    sub = pos_pert[:8].double()
+
+    f_k, e_k, b_k = gb.gb_forces(pos_pert, gb_tab, gb_consts)
+    torch.cuda.synchronize()
+    f_p, e_p, b_p = gb.gb_forces_reference(pos_pert, gb_tab, gb_consts)
+    f_d, e_d, b_d = gb.gb_forces_reference(pos_pert.double(), gb_tab, gb_consts)
+    gb_energy = lambda p: solvent.gb_energy(p, ff64, eps_s, salt)
+    res = {
+        "force_err_kernel_vs_plain": max_err(f_k, f_p),
+        "energy_err_kernel_vs_plain": max_err(e_k, e_p),
+        "born_err_kernel_vs_plain": max_err(b_k, b_p),
+        "force_err_plain_f32_vs_f64": max_err(f_p, f_d),
+        "energy_err_plain_f32_vs_f64": max_err(e_p, e_d),
+        "force_err_kernel_vs_f64": max_err(f_k, f_d),
+        "energy_err_kernel_vs_f64": max_err(e_k, e_d),
+        "force_err_plain_f64_vs_autograd": max_err(f_d[:8], _neg_grad(gb_energy, sub)),
+        "energy_err_plain_f64_vs_autograd": max_err(e_d[:8], gb_energy(sub)),
+        "max_abs_force": float(f_d.abs().max()), "mean_energy": float(e_d.mean()),
+    }
+    checks["gb_forces"] = res
+    check(bool(torch.isfinite(f_k).all() and torch.isfinite(e_k).all()), "gb_forces: non-finite")
+    check(res["force_err_kernel_vs_plain"] <= TOL_GB_FORCE, f"gb_forces: {res}")
+    check(res["energy_err_kernel_vs_plain"] <= TOL_GB_ENERGY, f"gb_forces: {res}")
+    check(res["born_err_kernel_vs_plain"] <= 1e-4, f"gb_forces Born radii: {res}")
+    check(res["force_err_plain_f32_vs_f64"] <= TOL_F32_VS_F64, f"gb plain f32/f64: {res}")
+    check(res["energy_err_plain_f32_vs_f64"] <= TOL_F32_VS_F64, f"gb plain f32/f64: {res}")
+    check(res["force_err_kernel_vs_f64"] <= TOL_F32_VS_F64, f"gb kernel vs f64: {res}")
+    check(res["force_err_plain_f64_vs_autograd"] <= TOL_AUTOGRAD_F64, f"gb plain vs autograd: {res}")
+    check(res["energy_err_plain_f64_vs_autograd"] <= TOL_AUTOGRAD_F64, f"gb plain vs autograd: {res}")
+
+    k3_ms = time_ms(lambda: gb.gb_forces(pos_pert, gb_tab, gb_consts), repeats=20)
+    k3_plain_ms = time_ms(lambda: gb.gb_forces_reference(pos_pert, gb_tab, gb_consts), repeats=3)
+    k3_bound, k3_by, k3_flops, k3_bytes = gb_bound_ms(N_REPLICAS, n)
+    kernels["gb_forces"] = {
+        "name": "gb_forces", "route": "cuda",
+        "source": "molecular_dynamics_tpu_torch/csrc/gb_forces.cu",
+        "replaces": "molecular_dynamics_tpu/ops/fused_step.py:933",
+        "launches": 0,
+        "max_abs_err": res["force_err_kernel_vs_plain"], "tolerance": TOL_GB_FORCE,
+        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes GB-OBC II forces",
+        "shape": [N_REPLICAS, n, 3], "flops": k3_flops, "bytes": k3_bytes,
+    }
+
+    f_k, e_k = sasa.sasa_forces(pos_pert, sasa_tab, gamma)
+    torch.cuda.synchronize()
+    f_p, e_p = sasa.sasa_forces_reference(pos_pert, sasa_tab, gamma)
+    f_d, e_d = sasa.sasa_forces_reference(pos_pert.double(), sasa_tab, gamma)
+    sasa_energy = lambda p: solvent.sasa_energy(p, ff64, gamma)
+    gated = int((solvent.sasa(pos_pert, ff)[:, sasa_tab.idx.long()] <= 0).sum())
+    res = {
+        "force_err_kernel_vs_plain": max_err(f_k, f_p),
+        "energy_err_kernel_vs_plain": max_err(e_k, e_p),
+        "force_err_plain_f32_vs_f64": max_err(f_p, f_d),
+        "energy_err_plain_f32_vs_f64": max_err(e_p, e_d),
+        "force_err_kernel_vs_f64": max_err(f_k, f_d),
+        "force_err_plain_f64_vs_autograd": max_err(f_d[:8], _neg_grad(sasa_energy, sub)),
+        "energy_err_plain_f64_vs_autograd": max_err(e_d[:8], sasa_energy(sub)),
+        "max_abs_force": float(f_d.abs().max()), "mean_energy": float(e_d.mean()),
+        "atoms_gated_to_zero_area": gated,
+    }
+    # the packaged geometry gates no atom: cut P1 of every third heavy atom to
+    # a tenth, so that areas go negative and the kernel's gate is exercised
+    atom_gated = sasa_tab.atom.clone()
+    atom_gated[::3, 1] *= 0.1
+    atom64_gated = sasa_tab.atom64.clone()
+    atom64_gated[::3, 1] = atom_gated[::3, 1].double()
+    tab_gated = sasa.SasaTables(idx=sasa_tab.idx, atom=atom_gated.contiguous(),
+                                atom64=atom64_gated, n_atoms=n)
+    fg_k, eg_k = sasa.sasa_forces(pos_pert, tab_gated, gamma)
+    fg_p, eg_p = sasa.sasa_forces_reference(pos_pert, tab_gated, gamma)
+    res["gated_case_force_err_kernel_vs_plain"] = max_err(fg_k, fg_p)
+    res["gated_case_energy_err_kernel_vs_plain"] = max_err(eg_k, eg_p)
+    res["gated_case_force_differs_by"] = max_err(fg_p, f_p)
+    checks["sasa_forces"] = res
+    check(bool(torch.isfinite(f_k).all() and torch.isfinite(e_k).all()), "sasa_forces: non-finite")
+    check(res["force_err_kernel_vs_plain"] <= TOL_SASA_FORCE, f"sasa_forces: {res}")
+    check(res["energy_err_kernel_vs_plain"] <= TOL_SASA_ENERGY, f"sasa_forces: {res}")
+    check(res["gated_case_force_err_kernel_vs_plain"] <= TOL_SASA_FORCE, f"sasa_forces gated: {res}")
+    check(res["gated_case_energy_err_kernel_vs_plain"] <= TOL_SASA_ENERGY, f"sasa_forces gated: {res}")
+    check(res["gated_case_force_differs_by"] > 1e-3, f"sasa_forces: the gated case gates nothing: {res}")
+    check(res["force_err_plain_f32_vs_f64"] <= TOL_F32_VS_F64, f"sasa plain f32/f64: {res}")
+    check(res["energy_err_plain_f32_vs_f64"] <= TOL_F32_VS_F64, f"sasa plain f32/f64: {res}")
+    check(res["force_err_plain_f64_vs_autograd"] <= TOL_AUTOGRAD_F64, f"sasa plain vs autograd: {res}")
+    check(res["energy_err_plain_f64_vs_autograd"] <= TOL_AUTOGRAD_F64, f"sasa plain vs autograd: {res}")
+
+    k4_ms = time_ms(lambda: sasa.sasa_forces(pos_pert, sasa_tab, gamma), repeats=20)
+    k4_plain_ms = time_ms(lambda: sasa.sasa_forces_reference(pos_pert, sasa_tab, gamma), repeats=3)
+    work = sasa_work(pos_pert, sasa_tab)
+    k4_bound, k4_by, k4_flops, k4_bytes = sasa_bound_ms(N_REPLICAS, n, nc, work)
+    kernels["sasa_forces"] = {
+        "name": "sasa_forces", "route": "cuda",
+        "source": "molecular_dynamics_tpu_torch/csrc/sasa_forces.cu",
+        "replaces": "molecular_dynamics_tpu/ops/fused_step.py:1290",
+        "launches": 0,
+        "max_abs_err": res["force_err_kernel_vs_plain"], "tolerance": TOL_SASA_FORCE,
+        "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+        "library_ms": None,
+        "library_note": "the two (nc, nc) products alone could be torch.bmm; the function "
+                        "as a whole (overlap test, gate, cotangent, forces) has no single call",
+        "shape": [N_REPLICAS, n, 3], "compact_atoms": nc, "flops": k4_flops, "bytes": k4_bytes,
+        "overlapping_ordered_pairs": work[0], "b_sum_terms": work[1], "w_sum_terms": work[2],
+        "mean_neighbours_per_heavy_atom": work[0] / (N_REPLICAS * nc),
+    }
+
+    # -- K1 with GB and SASA on (GBIS_CONFIG) -------------------------------
+    def make_gbis_op(n_inner, temperature, constraints=cons, **kw):
+        return fused_step.make_fused_campaign_op(
+            ff, n_inner=n_inner, dt_fs=2.0, temperature=temperature, gamma_ps=1.0,
+            cutoff=GBIS_CONFIG.cutoff, switch_dist=GBIS_CONFIG.switch_dist,
+            rfa=GBIS_CONFIG.rfa, solvent_dielectric=eps_s, ion_concentration=salt,
+            surface_tension=gamma, bias=bias, constraints=constraints,
+            **{"gb": True, "sasa": True, **kw},
+        )
+
+    def against_plain(op, t0, seed, noise=None):
+        out_k = op(pos_b, vel_b, frc_g, t0, seed)
+        torch.cuda.synchronize()
+        out_p = fused_step.campaign_advance_reference(
+            pos_b, vel_b, frc_g, t0, seed, op.tables, noise=noise, **op.settings)
+        check(all(bool(torch.isfinite(x).all()) for x in out_k), "GBIS campaign_advance: non-finite")
+        return out_k, [max_err(x, y) for x, y in zip(out_k, out_p)]
+
+    def hold(name, errs, n_inner):
+        tols = (TOL_POS if n_inner <= 5 else TOL_POS_50, TOL_VEL, TOL_FRC)
+        checks[name] = dict(zip(("pos", "vel", "frc"), errs))
+        check(all(e <= tol for e, tol in zip(errs, tols)), f"{name}: {errs} (bounds {tols})")
+
+    g1 = make_gbis_op(1, 0.0)
+    gs = g1.settings
+    frc_g = fused_step.campaign_forces_reference(
+        pos_b, g1.tables, gs["pair_consts"], gs["bias_consts"], 0, gs["gb_consts"],
+        gs["surface_tension"]).contiguous()
+    kg_err = {}
+    for n_inner in (1, 2, 5, N_INNER):
+        _, errs = against_plain(make_gbis_op(n_inner, 0.0), 0, 1)
+        kg_err[n_inner] = errs
+        hold(f"campaign_advance[gbis,T=0,n_inner={n_inner}]", errs, n_inner)
+    g50 = make_gbis_op(N_INNER, 300.0)
+    noise_k = fused_step.campaign_noise(13, 40, N_INNER, N_REPLICAS, n)
+    _, errs = against_plain(g50, 40, 13, noise=noise_k)
+    hold(f"campaign_advance[gbis,T=300,n_inner={N_INNER},same noise]", errs, N_INNER)
+    g50_s5 = make_gbis_op(N_INNER, 300.0, sasa_every=5)
+    _, errs = against_plain(g50_s5, 40, 13, noise=noise_k)
+    hold(f"campaign_advance[gbis,sasa_every=5,T=300,n_inner={N_INNER},same noise]", errs, N_INNER)
+    _, errs = against_plain(make_gbis_op(N_INNER, 0.0, sasa_every=5), 0, 1)
+    hold(f"campaign_advance[gbis,sasa_every=5,T=0,n_inner={N_INNER}]", errs, N_INNER)
+    g50_g2 = make_gbis_op(N_INNER, 300.0, gb_every=2, sasa_every=2)
+    _, errs = against_plain(make_gbis_op(N_INNER, 0.0, gb_every=2, sasa_every=2), 0, 1)
+    hold(f"campaign_advance[gbis,gb_every=2,sasa_every=2,T=0,n_inner={N_INNER}]", errs, N_INNER)
+    _, errs = against_plain(make_gbis_op(10, 0.0, gb_every=2), 0, 1)
+    hold("campaign_advance[gbis,gb_every=2,sasa_every=1,T=0,n_inner=10]", errs, 10)
+
+    # one launch is reproducible and 50 steps = 25 + 25 bit for bit, with GB
+    # and SASA on every step and with the held SASA force. The impulse form
+    # takes the slow force off the carried force and puts it back in float32
+    # at every launch boundary, so there 25 + 25 agrees to rounding only.
+    for label, kw, exact in (("", {}, True), ("sasa_every=5", dict(sasa_every=5), True),
+                             ("gb_every=5", dict(gb_every=5, sasa_every=5), False)):
+        op_a, op_h = make_gbis_op(N_INNER, 300.0, **kw), make_gbis_op(25, 300.0, **kw)
+        a = op_a(pos_b, vel_b, frc_g, 100, 7)
+        b = op_a(pos_b, vel_b, frc_g, 100, 7)
+        c = op_h(*op_h(pos_b, vel_b, frc_g, 100, 7), 125, 7)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"GBIS campaign_advance {label}: two equal launches differ")
+        split = [max_err(x, y) for x, y in zip(a, c)]
+        checks[f"campaign_advance[gbis,{label}] 50 vs 25+25"] = dict(zip(("pos", "vel", "frc"), split))
+        if exact:
+            check(all(torch.equal(x, y) for x, y in zip(a, c)),
+                  f"GBIS campaign_advance {label}: 50 steps differ from 25 + 25: {split}")
+        else:
+            check(split[0] <= TOL_POS_50 and split[1] <= TOL_VEL and split[2] <= TOL_FRC,
+                  f"GBIS campaign_advance {label}: 50 steps vs 25 + 25: {split}")
+
+    variants = {
+        "vacuum_16A": make_gbis_op(N_INNER, 300.0, gb=False, sasa=False),
+        "gb": make_gbis_op(N_INNER, 300.0, sasa=False),
+        "gb+sasa": g50,
+        "gb+sasa,sasa_every=5": g50_s5,
+        "gb+sasa,gb_every=2,sasa_every=2": g50_g2,
+        "gb+sasa,no_constraints": make_gbis_op(N_INNER, 300.0, constraints=None),
+        "vacuum_16A,no_constraints": make_gbis_op(N_INNER, 300.0, constraints=None, gb=False, sasa=False),
+    }
+    gbis_ms = {name: time_ms(lambda op=op: op(pos_b, vel_b, frc_g, 0, 3), repeats=3)
+               for name, op in variants.items()}
+    kg_plain_ms = time_ms(
+        lambda: fused_step.campaign_advance_reference(
+            pos_b, vel_b, frc_g, 0, 3, g50.tables, **g50.settings),
+        repeats=1, warmup=0,
+    )
+    pair_consts_g = gs["pair_consts"]
+    live_g = live_pair_count(pos_b, tables, pair_consts_g)
+    work_b = sasa_work(pos_b, sasa_tab)
+    _, _, vac_flops, kg_bytes = campaign_bound_ms(
+        N_REPLICAS, g1.tables, live_g, N_INNER, gs["shake_iters"], gs["rattle_iters"])
+    kg_flops = vac_flops + N_INNER * (
+        gb_bound_ms(N_REPLICAS, n, with_energy=False)[2] + sasa_flops(N_REPLICAS, nc, work_b))
+    kg_bytes += n * 5 * 4 + nc * 24
+    kg_bound = 1e3 * max(kg_flops / PEAK_F32_FLOPS, kg_bytes / PEAK_BYTES_PER_S)
+    kernels["campaign_advance[gbis]"] = {
+        "name": "campaign_advance[gbis]", "route": "cuda",
+        "source": "molecular_dynamics_tpu_torch/csrc/campaign_advance.cu",
+        "replaces": "molecular_dynamics_tpu/ops/fused_step.py:775",
+        "launches": 0,
+        "max_abs_err": kg_err[N_INNER][0], "tolerance": TOL_POS_50,
+        "max_abs_err_what": "positions (A) after 50 steps at T=0 with GB and SASA vs the plain version",
+        "ms": gbis_ms["gb+sasa"], "plain_ms": kg_plain_ms, "bound_ms": kg_bound,
+        "bound_by": "operations" if kg_flops / PEAK_F32_FLOPS >= kg_bytes / PEAK_BYTES_PER_S else "bytes",
+        "library_ms": None,
+        "shape": [N_REPLICAS, n, 3], "n_inner": N_INNER, "flops": kg_flops, "bytes": kg_bytes,
+        "ms_by_variant": gbis_ms, "shared_bytes": g50.shared_bytes,
+        "shared_bytes_with_cadence": g50_s5.shared_bytes,
+        "live_unordered_pairs_at_entry": live_g,
+    }
+
+    # the 22-atom di-alanine (10 heavy atoms: one mask word, fewer atoms than
+    # a warp) through K3, K4 and the GBIS campaign kernel, 64 replicas, T = 0
+    gb_tab2, sasa_tab2 = gb.build_gb_tables(ff2), sasa.build_sasa_tables(ff2)
+    f_k, e_k, _ = gb.gb_forces(pos2, gb_tab2, gb_consts)
+    f_p, e_p, _ = gb.gb_forces_reference(pos2, gb_tab2, gb_consts)
+    s_k, se_k = sasa.sasa_forces(pos2, sasa_tab2, gamma)
+    s_p, se_p = sasa.sasa_forces_reference(pos2, sasa_tab2, gamma)
+    res = {"gb_force_err": max_err(f_k, f_p), "gb_energy_err": max_err(e_k, e_p),
+           "sasa_force_err": max_err(s_k, s_p), "sasa_energy_err": max_err(se_k, se_p)}
+    check(res["gb_force_err"] <= TOL_GB_FORCE and res["gb_energy_err"] <= TOL_GB_ENERGY
+          and res["sasa_force_err"] <= TOL_SASA_FORCE and res["sasa_energy_err"] <= TOL_SASA_ENERGY,
+          f"gb_forces / sasa_forces on di-alanine: {res}")
+    for label, kw in (("", {}), (",sasa_every=5", dict(sasa_every=5)),
+                      (",gb_every=5", dict(gb_every=5, sasa_every=5))):
+        op2g = fused_step.make_fused_campaign_op(
+            ff2, n_inner=5, dt_fs=2.0, temperature=0.0, cutoff=GBIS_CONFIG.cutoff,
+            switch_dist=GBIS_CONFIG.switch_dist, rfa=GBIS_CONFIG.rfa, solvent_dielectric=eps_s,
+            ion_concentration=salt, surface_tension=gamma,
+            constraints=hydrogen_bond_constraints(ff2), gb=True, sasa=True, **kw)
+        s2 = op2g.settings
+        frc2 = fused_step.campaign_forces_reference(
+            pos2, op2g.tables, s2["pair_consts"], s2["bias_consts"], 0, s2["gb_consts"],
+            s2["surface_tension"]).contiguous()
+        out_k = op2g(pos2, vel2, frc2, 0, 1)
+        out_p = fused_step.campaign_advance_reference(pos2, vel2, frc2, 0, 1, op2g.tables, **s2)
+        torch.cuda.synchronize()
+        errs = [max_err(x, y) for x, y in zip(out_k, out_p)]
+        res[f"campaign{label}"] = dict(zip(("pos", "vel", "frc"), errs))
+        check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
+              f"GBIS campaign_advance{label} on di-alanine: {errs}")
+    checks["dialanine_22_atoms[gbis]"] = res
+
     emit("checks", fire_seconds=round(fire_s, 2), e_min=e_min, **checks)
 
     # -- the main path -------------------------------------------------------
@@ -606,6 +945,126 @@ def main():
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
 
+    # -- the implicit-solvent main path: the GBIS campaign ---------------------
+    force_g = mdx.force_fn(GBIS_CONFIG)
+    t0 = time.perf_counter()
+    pos_g = minimize_fire(
+        torch.as_tensor(coords, dtype=torch.float32, device=dev),
+        lambda p: force_g(p, ff), n_steps=500, dt_start=1e-3, dt_max=1e-2,
+    )
+    torch.cuda.synchronize()
+    fire_g_s = time.perf_counter() - t0
+    terms_g = {k: float(v) for k, v in energy_terms(pos_g, ff, config=GBIS_CONFIG).items()}
+    check(all(np.isfinite(v) for v in terms_g.values()), "FIRE under GBIS_CONFIG diverged")
+    check(terms_g["gb"] < 0.0 < terms_g["sasa"], f"GBIS energy terms {terms_g}")
+    d0_g = float(torch.linalg.norm(pos_g[-1] - pos_g[0]))
+    bias_g = HarmonicSMDBias.create(
+        n_atoms=n, group1=[0], group2=[n - 1], fk=1.0,
+        cent_0=d0_g, cent_1=d0_g + 22.0, T=500_000.0,
+    )
+    gen.manual_seed(0)
+    state_g = system_init(pos_g, vel=maxwell_boltzmann(gen, ff.masses, 300.0), key=0)
+    state_g = initialize_forces(
+        state_g,
+        lambda p, box: _neg_grad(
+            lambda q: total_energy(q, ff, config=GBIS_CONFIG) + bias_g.energy(q, 0), p
+        ),
+    )
+    ens_g = replicate(state_g, N_REPLICAS, seed=1)
+    gbis_runs = {}
+    finals_g = {}
+    for every in (1, 5):
+        cfg_g = SimulationConfig(
+            dt_fs=2.0, temperature=300.0, energy=GBIS_CONFIG, fused_campaign=True,
+            constrain_h_bonds=True, sasa_every=every,
+        )
+        fused_step.campaign_advance.launches = 0
+        t0 = time.perf_counter()
+        final_g, frames_g, log_g = simulate_ensemble(
+            ens_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g)
+        torch.cuda.synchronize()
+        launches_g = fused_step.campaign_advance.launches
+        first_g_s = time.perf_counter() - t0
+        tag = f"GBIS campaign sasa_every={every}"
+        check(tuple(frames_g.shape) == (n_saves, N_REPLICAS, n, 3), f"{tag}: frames {tuple(frames_g.shape)}")
+        check(bool(torch.isfinite(frames_g).all()), f"{tag}: non-finite frames")
+        check(launches_g == n_saves, f"{tag}: kernel launched {launches_g} times, expected {n_saves}")
+        last = frames_g[-1]
+        bond = torch.linalg.norm(last[:, pairs[:, 0]] - last[:, pairs[:, 1]], dim=-1)
+        violation_g = float((bond - cons.lengths[None]).abs().max())
+        check(violation_g < 1e-5, f"{tag}: max X-H constraint violation {violation_g} A")
+        t_g = float(log_g["T"][-1].mean())
+        check(150.0 < t_g < 350.0, f"{tag}: ensemble-mean T of the last save {t_g} K")
+        lag_g = float((log_g["colvar_value"][-1] - log_g["colvar_center"][-1]).abs().mean())
+        check(lag_g < 2.0, f"{tag}: mean |colvar - centre| {lag_g} A")
+        flat = last.reshape(N_REPLICAS, -1)
+        spread_g = float((flat[1:] - flat[:-1]).abs().amax(dim=1).min())
+        check(spread_g > 1e-3, f"{tag}: neighbouring replicas coincide ({spread_g})")
+        check(int(final_g.step[0]) == N_STEPS, f"{tag}: final step {int(final_g.step[0])}")
+        t0 = time.perf_counter()
+        final_g2, frames_g2, _ = simulate_ensemble(
+            final_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g)
+        torch.cuda.synchronize()
+        timed_g_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(frames_g2).all()), f"{tag} (timed call): non-finite frames")
+        t0 = time.perf_counter()
+        simulate_ensemble(final_g2, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g,
+                          bias=bias_g, obs_every=n_saves)
+        torch.cuda.synchronize()
+        timed_g_sparse_s = time.perf_counter() - t0
+        finals_g[every] = (cfg_g, final_g2)
+        gbis_runs[f"sasa_every={every}"] = dict(
+            campaign_kernel_launches=launches_g, max_constraint_violation_A=violation_g,
+            T_last_mean_K=t_g, colvar_lag_A=lag_g, min_neighbour_spread_A=spread_g,
+            epot_last_mean=float(log_g["epot"][-1].mean()),
+            first_call_seconds=first_g_s, timed_call_seconds=timed_g_s,
+            aggregate_steps_per_s=N_STEPS * N_REPLICAS / timed_g_s,
+            timed_call_obs_once_seconds=timed_g_sparse_s,
+            aggregate_steps_per_s_obs_once=N_STEPS * N_REPLICAS / timed_g_sparse_s,
+        )
+        if every == 1:
+            kernels["campaign_advance[gbis]"]["launches"] = launches_g
+            kernels["campaign_advance[gbis]"]["launches_of"] = (
+                f"simulate_ensemble(fused_campaign, GBIS_CONFIG), {N_REPLICAS} replicas x "
+                f"{N_STEPS} steps; as many again at sasa_every=5")
+
+    # the GB and SASA kernels' own path: the same entry point on its composed
+    # per-step path (GB and LCPO forces from one gb_forces and one
+    # sasa_forces launch a step, the rest from autograd), at the main shape
+    cfg_solv = SimulationConfig(
+        dt_fs=2.0, temperature=300.0, energy=GBIS_CONFIG, constrain_h_bonds=True)
+    gb.gb_forces.launches = 0
+    sasa.sasa_forces.launches = 0
+    final_solv, fr_solv, _ = simulate_ensemble(
+        ens_g, ff, n_steps=SOLVENT_PATH_STEPS, save_every=2, config=cfg_solv, bias=bias_g)
+    torch.cuda.synchronize()
+    launches_k3, launches_k4 = gb.gb_forces.launches, sasa.sasa_forces.launches
+    for name, count in (("gb_forces", launches_k3), ("sasa_forces", launches_k4)):
+        kernels[name]["launches"] = count
+        kernels[name]["launches_of"] = (
+            f"simulate_ensemble(GBIS_CONFIG) on the composed path, {N_REPLICAS} replicas x "
+            f"{SOLVENT_PATH_STEPS} steps; inside the campaign kernel it runs as a device "
+            f"function every step")
+        check(count == SOLVENT_PATH_STEPS,
+              f"{name} launched {count} times, expected {SOLVENT_PATH_STEPS}")
+    check(bool(torch.isfinite(fr_solv).all()), "composed GBIS path: non-finite frames")
+    # the force the path carries is the all-autograd force at its positions
+    step_solv = int(final_solv.step[0])
+    auto_solv = _neg_grad(
+        lambda q: total_energy(q, ff, config=GBIS_CONFIG) + bias_g.energy(q, step_solv - 1),
+        final_solv.pos)
+    solvent_path_err = max_err(final_solv.forces, auto_solv)
+    check(solvent_path_err < TOL_F32_VS_F64,
+          f"composed GBIS path, carried force vs autograd: {solvent_path_err} kcal/mol/A")
+
+    emit("gbis_campaign", replicas=N_REPLICAS, atoms=n, steps=N_STEPS, save_every=N_INNER,
+         fire_seconds=round(fire_g_s, 2), energy_terms_at_minimum=terms_g,
+         end_to_end_distance_A=d0_g, **gbis_runs,
+         gb_kernel_launches=launches_k3, sasa_kernel_launches=launches_k4,
+         composed_path_force_vs_autograd=solvent_path_err,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}
     for label, every in (("obs_every_save", 1), ("obs_once", n_saves)):
@@ -615,11 +1074,19 @@ def main():
         check(res["device_seconds"] > 0.0,
               "torch.profiler reported no device time: nothing was measured")
         profile_res[label] = res
+    for every, (cfg_g, start_g) in finals_g.items():
+        res = profile_call(lambda: simulate_ensemble(
+            start_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g))
+        check(res["device_seconds"] > 0.0,
+              "torch.profiler reported no device time: nothing was measured")
+        profile_res[f"gbis_sasa_every={every}_obs_every_save"] = res
     emit("profile", **profile_res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
 
     print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"kernels": [kernels["pair_forces"], kernels["campaign_advance"]]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernels[k] for k in ("pair_forces", "campaign_advance", "gb_forces", "sasa_forces",
+                             "campaign_advance[gbis]")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

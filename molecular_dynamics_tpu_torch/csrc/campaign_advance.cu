@@ -2,7 +2,9 @@
 // launch, with positions, velocities and forces resident in shared memory.
 //
 // Replaces: molecular_dynamics_tpu/ops/fused_step.py make_fused_campaign_op
-// -> kernel, vacuum branch (step_body, forces, shake, rattle, gaussians).
+// -> kernel (step_body, forces, shake, rattle, gaussians, and the gb_every /
+// sasa_every cadence blocks); the implicit-solvent passes it calls are in
+// gb_terms.cuh and sasa_terms.cuh.
 // Bound on an H100: float32 arithmetic, not memory. Global memory sees the
 // state once at entry and once at exit (9*N floats each way per replica),
 // while each of the n_inner steps needs N*(N-1)/2 pairs of ~60 flops (the
@@ -23,11 +25,24 @@
 // Jacobi sweeps: every constraint reads the same iterate, a barrier, then
 // all corrections are added.
 // Noise: Philox4x32-10 keyed on (seed, replica, t0 + i, atom), philox.cuh.
+// Implicit solvent (use_gb, n_sasa): the GB-OBC II and LCPO forces are added
+// to the per-step force by the device functions the standalone kernels use.
+// Their cadences follow the reference step for step. sasa_every = k > 1
+// (held force): the LCPO force is evaluated at the entry positions of each
+// k-step block and added unchanged to every force evaluation of the block;
+// the carried force stays the total. gb_every = k > 1 (impulse, Verlet-I):
+// the slow force (GB, and LCPO when its cadence is k too) is evaluated once
+// a block and enters as velocity kicks of k dt / 2 at the block's ends, each
+// followed by RATTLE; inside the block the per-step force is the fast one.
+// The carried force is the total at launch entry and exit: the slow part is
+// taken off on the way in and put back on the way out.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gb_terms.cuh"
 #include "pair_terms.cuh"
 #include "philox.cuh"
+#include "sasa_terms.cuh"
 
 namespace {
 
@@ -47,6 +62,7 @@ enum Slot {
   kAngStart, kAngSrc, kAngW,
   kTorStart, kTorSrc, kTorW,
   kConsStart, kConsSrc, kConsW,
+  kGbAtom, kSasaIdx, kSasaAtom,
   kNumSlots
 };
 
@@ -62,18 +78,29 @@ struct Tables {
   const int* ang_start; const int* ang_src; const float* ang_w;
   const int* tor_start; const int* tor_src; const float* tor_w;
   const int* cons_start; const int* cons_src; const float* cons_w;
+  const float* gb_atom; const int* sasa_idx; const float* sasa_atom;
 };
 
 // Order of the integers (DIM_SLOTS in the wrapper).
 struct Dims {
   int n_atoms, n_angles, n_tors, max_t, n_cons, n_bias, n_inner, shake_iters,
       rattle_iters, use_noise;
+  int use_gb;      // GB-OBC II polar force on
+  int n_sasa;      // heavy atoms of the LCPO set, 0 = LCPO off
+  int sasa_every;  // LCPO cadence (1 = every step)
+  int gb_every;    // GB cadence (1 = every step)
 };
+
+__host__ __device__ inline bool has_slow_buffer(const Dims& d) {
+  return (d.use_gb && d.gb_every > 1) || (d.n_sasa && d.sasa_every > 1);
+}
 
 // Order of the floats (CONST_SLOTS in the wrapper).
 struct Consts {
   float half_dt, c1, bias_fk, bias_c0, bias_slope, bias_tmax;
   PairConsts pair;
+  GbConsts gb;
+  float sasa_gamma;  // surface tension
 };
 
 struct Shared {
@@ -83,6 +110,9 @@ struct Shared {
   float* rdir;  // n_cons 3-vectors: SHAKE reference directions
   float* dhat;  // n_cons 3-vectors: RATTLE unit bond vectors
   float* cbuf;  // n_cons 3-vectors: this sweep's corrections
+  float *born, *ce;       // GB: Born radii, chain cotangents
+  float *slx, *sly, *slz;  // the slow (held or impulse) force of a block
+  SasaShared sasa;
 };
 
 // Sum of w[e] * buf[src[e]] over atom a's entries, in list order.
@@ -275,9 +305,13 @@ __device__ __forceinline__ void torsion_forces(const Shared& s,
 
 // Total force on every atom at the positions in shared memory; the SMD
 // centre is evaluated at t_step. Expects a barrier before (positions
-// complete) and leaves one behind (forces complete).
+// complete) and leaves one behind (forces complete). kSolvent = false
+// compiles the implicit-solvent calls out, so the vacuum kernel keeps the
+// registers (and the CTAs an SM) it had without them.
+template <bool kSolvent>
 __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
-                       const Consts& k, float t_step) {
+                       const Consts& k, float t_step, bool with_gb,
+                       bool with_sasa, bool add_held) {
   const int tid = threadIdx.x;
   angle_forces(s, t, d);
   torsion_forces(s, t, d);
@@ -311,8 +345,52 @@ __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
     s.fx[a] += ax + bx - coefb * comx * wd;
     s.fy[a] += ay + by - coefb * comy * wd;
     s.fz[a] += az + bz - coefb * comz * wd;
+    if (kSolvent && add_held) {
+      s.fx[a] += s.slx[a];
+      s.fy[a] += s.sly[a];
+      s.fz[a] += s.slz[a];
+    }
   }
   __syncthreads();
+  if (!kSolvent) return;
+  if (with_gb)
+    gb_forces_add<kThreads>(d.n_atoms, s.x, s.y, s.z, s.born, s.ce, t.gb_atom,
+                            k.gb, s.fx, s.fy, s.fz);
+  if (with_sasa)
+    sasa_forces_add<kThreads, false>(d.n_sasa, t.sasa_idx, t.sasa_atom,
+                                     k.sasa_gamma, s.x, s.y, s.z, s.sasa, s.fx,
+                                     s.fy, s.fz);
+}
+
+// The slow force of a cadence block at the positions in shared memory, into
+// (slx, sly, slz): GB when its cadence is > 1, LCPO when its cadence is > 1.
+// Expects a barrier before and leaves one behind.
+__device__ void slow_force(const Shared& s, const Tables& t, const Dims& d,
+                           const Consts& k) {
+  for (int a = threadIdx.x; a < d.n_atoms; a += kThreads)
+    s.slx[a] = s.sly[a] = s.slz[a] = 0.f;
+  __syncthreads();
+  if (d.use_gb && d.gb_every > 1)
+    gb_forces_add<kThreads>(d.n_atoms, s.x, s.y, s.z, s.born, s.ce, t.gb_atom,
+                            k.gb, s.slx, s.sly, s.slz);
+  if (d.n_sasa && d.sasa_every > 1)
+    sasa_forces_add<kThreads, false>(d.n_sasa, t.sasa_idx, t.sasa_atom,
+                                     k.sasa_gamma, s.x, s.y, s.z, s.sasa,
+                                     s.slx, s.sly, s.slz);
+}
+
+// Half-block impulse of the slow force: v += (k dt / 2) F_slow / m, then
+// RATTLE on the constrained components.
+__device__ void slow_kick(const Shared& s, const Tables& t, const Dims& d,
+                          const Consts& k) {
+  const float hk = k.half_dt * static_cast<float>(d.gb_every);
+  for (int a = threadIdx.x; a < d.n_atoms; a += kThreads) {
+    const float h = hk * t.minv[a];
+    s.vx[a] += h * s.slx[a];
+    s.vy[a] += h * s.sly[a];
+    s.vz[a] += h * s.slz[a];
+  }
+  if (d.n_cons > 0) rattle(s, t, d, false);
 }
 
 __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
@@ -326,15 +404,84 @@ __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
   s.tbuf = p; p += 9 * d.n_tors;
   s.rdir = p; p += 3 * d.n_cons;
   s.dhat = p; p += 3 * d.n_cons;
-  s.cbuf = p;
+  s.cbuf = p; p += 3 * d.n_cons;
+  s.born = s.ce = s.slx = s.sly = s.slz = nullptr;
+  if (d.use_gb) {
+    s.born = p; p += n;
+    s.ce = p; p += n;
+  }
+  if (has_slow_buffer(d)) {
+    s.slx = p; p += n; s.sly = p; p += n; s.slz = p; p += n;
+  }
+  s.sasa = sasa_carve(p, d.n_sasa);
   return s;
 }
 
+// ops/fused_step.py campaign_shared_bytes says the same.
 __host__ __device__ inline size_t shared_floats(const Dims& d) {
   return 9 * static_cast<size_t>(d.n_atoms) + 6 * d.n_angles + 9 * d.n_tors +
-         9 * d.n_cons;
+         9 * d.n_cons + (d.use_gb ? 2 * d.n_atoms : 0) +
+         (has_slow_buffer(d) ? 3 * d.n_atoms : 0) +
+         (d.n_sasa ? sasa_shared_words(d.n_sasa) : 0);
 }
 
+// One BAOAB step; the SMD centre of its force evaluation is that of t_abs.
+template <bool kSolvent>
+__device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
+                           const Consts& k, int rep, long long t_abs,
+                           unsigned long long seed, bool with_gb,
+                           bool with_sasa, bool add_held) {
+  const int tid = threadIdx.x;
+  const int n = d.n_atoms;
+  const bool cons = d.n_cons > 0;
+  // B: half kick with the stored forces
+  for (int a = tid; a < n; a += kThreads) {
+    const float h = k.half_dt * t.minv[a];
+    s.vx[a] += h * s.fx[a];
+    s.vy[a] += h * s.fy[a];
+    s.vz[a] += h * s.fz[a];
+  }
+  if (cons) rattle(s, t, d, true);
+  // A: half drift
+  for (int a = tid; a < n; a += kThreads) {
+    s.x[a] += k.half_dt * s.vx[a];
+    s.y[a] += k.half_dt * s.vy[a];
+    s.z[a] += k.half_dt * s.vz[a];
+  }
+  if (cons) shake(s, t, d);
+  // O: exact Ornstein-Uhlenbeck solve
+  for (int a = tid; a < n; a += kThreads) {
+    float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+    if (d.use_noise) thermostat_normals(seed, rep, t_abs, a, g0, g1, g2);
+    const float c2 = t.c2[a];
+    s.vx[a] = k.c1 * s.vx[a] + c2 * g0;
+    s.vy[a] = k.c1 * s.vy[a] + c2 * g1;
+    s.vz[a] = k.c1 * s.vz[a] + c2 * g2;
+  }
+  if (cons) rattle(s, t, d, true);
+  // A: half drift
+  for (int a = tid; a < n; a += kThreads) {
+    s.x[a] += k.half_dt * s.vx[a];
+    s.y[a] += k.half_dt * s.vy[a];
+    s.z[a] += k.half_dt * s.vz[a];
+  }
+  if (cons) shake(s, t, d);
+  __syncthreads();
+  // B: half kick with the new forces, SMD centre at the step's start index
+  forces<kSolvent>(s, t, d, k, static_cast<float>(t_abs), with_gb, with_sasa,
+                   add_held);
+  for (int a = tid; a < n; a += kThreads) {
+    const float h = k.half_dt * t.minv[a];
+    s.vx[a] += h * s.fx[a];
+    s.vy[a] += h * s.fy[a];
+    s.vz[a] += h * s.fz[a];
+  }
+  if (cons) rattle(s, t, d, false);
+}
+
+// kSolvent: the instantiation that carries GB / LCPO and their cadences;
+// the wrapper picks it when dims ask for either.
+template <bool kSolvent>
 __global__ void __launch_bounds__(kThreads)
 campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
                 const float* __restrict__ frc, float* __restrict__ opos,
@@ -346,7 +493,6 @@ campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
   const int rep = blockIdx.x;
   const int n = d.n_atoms;
   const size_t base = static_cast<size_t>(rep) * n * 3;
-  const bool cons = d.n_cons > 0;
 
   for (int a = tid; a < n; a += kThreads) {
     s.x[a] = pos[base + 3 * a];
@@ -360,50 +506,46 @@ campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
     s.fz[a] = frc[base + 3 * a + 2];
   }
 
-  for (int step = 0; step < d.n_inner; ++step) {
-    const long long t_abs = t0 + step;
-    // B: half kick with the stored forces
+  __syncthreads();
+
+  const bool impulse = kSolvent && d.use_gb && d.gb_every > 1;
+  const bool held = kSolvent && !impulse && d.n_sasa && d.sasa_every > 1;
+  const bool gb_each = d.use_gb && !impulse;
+  const bool sasa_each = d.n_sasa && d.sasa_every == 1;
+  if (impulse) {
+    // the carried force is the fast one inside this mode
+    slow_force(s, t, d, k);
     for (int a = tid; a < n; a += kThreads) {
-      const float h = k.half_dt * t.minv[a];
-      s.vx[a] += h * s.fx[a];
-      s.vy[a] += h * s.fy[a];
-      s.vz[a] += h * s.fz[a];
+      s.fx[a] -= s.slx[a];
+      s.fy[a] -= s.sly[a];
+      s.fz[a] -= s.slz[a];
     }
-    if (cons) rattle(s, t, d, true);
-    // A: half drift
+    for (int j = 0; j < d.n_inner / d.gb_every; ++j) {
+      slow_kick(s, t, d, k);
+      for (int i = 0; i < d.gb_every; ++i)
+        baoab_step<kSolvent>(s, t, d, k, rep, t0 + j * d.gb_every + i, seed,
+                             false, sasa_each, false);
+      __syncthreads();
+      slow_force(s, t, d, k);
+      slow_kick(s, t, d, k);
+    }
     for (int a = tid; a < n; a += kThreads) {
-      s.x[a] += k.half_dt * s.vx[a];
-      s.y[a] += k.half_dt * s.vy[a];
-      s.z[a] += k.half_dt * s.vz[a];
+      s.fx[a] += s.slx[a];
+      s.fy[a] += s.sly[a];
+      s.fz[a] += s.slz[a];
     }
-    if (cons) shake(s, t, d);
-    // O: exact Ornstein-Uhlenbeck solve
-    for (int a = tid; a < n; a += kThreads) {
-      float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-      if (d.use_noise) thermostat_normals(seed, rep, t_abs, a, g0, g1, g2);
-      const float c2 = t.c2[a];
-      s.vx[a] = k.c1 * s.vx[a] + c2 * g0;
-      s.vy[a] = k.c1 * s.vy[a] + c2 * g1;
-      s.vz[a] = k.c1 * s.vz[a] + c2 * g2;
+  } else if (held) {
+    for (int j = 0; j < d.n_inner / d.sasa_every; ++j) {
+      __syncthreads();
+      slow_force(s, t, d, k);
+      for (int i = 0; i < d.sasa_every; ++i)
+        baoab_step<kSolvent>(s, t, d, k, rep, t0 + j * d.sasa_every + i, seed,
+                             gb_each, false, true);
     }
-    if (cons) rattle(s, t, d, true);
-    // A: half drift
-    for (int a = tid; a < n; a += kThreads) {
-      s.x[a] += k.half_dt * s.vx[a];
-      s.y[a] += k.half_dt * s.vy[a];
-      s.z[a] += k.half_dt * s.vz[a];
-    }
-    if (cons) shake(s, t, d);
-    __syncthreads();
-    // B: half kick with the new forces, SMD centre at the step's start index
-    forces(s, t, d, k, static_cast<float>(t_abs));
-    for (int a = tid; a < n; a += kThreads) {
-      const float h = k.half_dt * t.minv[a];
-      s.vx[a] += h * s.fx[a];
-      s.vy[a] += h * s.fy[a];
-      s.vz[a] += h * s.fz[a];
-    }
-    if (cons) rattle(s, t, d, false);
+  } else {
+    for (int step = 0; step < d.n_inner; ++step)
+      baoab_step<kSolvent>(s, t, d, k, rep, t0 + step, seed, gb_each,
+                           sasa_each, false);
   }
   __syncthreads();
 
@@ -444,7 +586,8 @@ __global__ void noise_kernel(float* __restrict__ out, int n_replicas,
 
 // Advance (R, N, 3) pos/vel/frc by dims[6] steps into opos/ovel/ofrc.
 // `ptrs` holds kNumSlots device pointers in Slot order, `dims` the integers
-// of Dims, `consts` the floats of Consts (all host arrays).
+// of Dims, `consts` the floats of Consts (all host arrays). The cadences
+// must divide dims[6]; the wrapper checks that.
 // Returns cudaGetLastError(), or -1 when the shared memory does not fit.
 extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
                                     const void* frc, void* opos, void* ovel,
@@ -481,9 +624,12 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   t.cons_start = static_cast<const int*>(ptrs[kConsStart]);
   t.cons_src = static_cast<const int*>(ptrs[kConsSrc]);
   t.cons_w = static_cast<const float*>(ptrs[kConsW]);
+  t.gb_atom = static_cast<const float*>(ptrs[kGbAtom]);
+  t.sasa_idx = static_cast<const int*>(ptrs[kSasaIdx]);
+  t.sasa_atom = static_cast<const float*>(ptrs[kSasaAtom]);
 
-  Dims d{dims[0], dims[1], dims[2], dims[3], dims[4],
-         dims[5], dims[6], dims[7], dims[8], dims[9]};
+  Dims d{dims[0], dims[1], dims[2],  dims[3],  dims[4],  dims[5],  dims[6],
+         dims[7], dims[8], dims[9], dims[10], dims[11], dims[12], dims[13]};
   Consts k;
   k.half_dt = consts[0];
   k.c1 = consts[1];
@@ -492,11 +638,14 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   k.bias_slope = consts[4];
   k.bias_tmax = consts[5];
   k.pair = PairConsts{consts[6], consts[7], consts[8], consts[9], consts[10]};
+  k.gb = GbConsts{consts[11], consts[12], consts[13], consts[14], consts[15]};
+  k.sasa_gamma = consts[16];
 
   const size_t shmem = shared_floats(d) * sizeof(float);
   if (shmem > 48 * 1024) return -1;
-  campaign_kernel<<<n_replicas, kThreads, shmem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = (d.use_gb || d.n_sasa) ? campaign_kernel<true>
+                                       : campaign_kernel<false>;
+  kernel<<<n_replicas, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(vel),
       static_cast<const float*>(frc), static_cast<float*>(opos),
       static_cast<float*>(ovel), static_cast<float*>(ofrc), t, d, k, t0, seed);

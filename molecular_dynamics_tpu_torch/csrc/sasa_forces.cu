@@ -1,0 +1,84 @@
+// LCPO SASA kernel: nonpolar solvation energy and forces, one CTA per
+// replica.
+//
+// Replaces: molecular_dynamics_tpu/ops/fused_step.py _sasa_tables and
+// sasa_pass / _sasa_chunk (the dense (CH, lc, lc) pass with its MXU
+// products).
+// Bound on an H100: float32 arithmetic, not memory. A replica moves N*3*4
+// bytes in and N*3*4+4 out; it needs nc(nc-1)/2 pair geometries (a square
+// root and a division each) and, for every overlapping ordered pair, two sums
+// over the first atom's overlapping neighbours.
+// Design: see sasa_terms.cuh. Coordinates and the pass's scratch (two
+// (nc, nc) matrices and the overlap bit masks) in shared memory, every sum a
+// gather in a fixed order, no atomics.
+#include <cuda_runtime.h>
+
+#include "sasa_terms.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
+                   float* __restrict__ energy, const int* __restrict__ idx,
+                   const float* __restrict__ atom, int n, int nc,
+                   float gamma) {
+  extern __shared__ float smem[];
+  float* sx = smem;
+  float* sy = sx + n;
+  float* sz = sy + n;
+  float* fx = sz + n;
+  float* fy = fx + n;
+  float* fz = fy + n;
+  const SasaShared w = sasa_carve(fz + n, nc);
+  __shared__ float warp_sum[kThreads / 32];
+
+  const int tid = threadIdx.x;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * 3;
+  for (int a = tid; a < n; a += kThreads) {
+    sx[a] = pos[base + 3 * a + 0];
+    sy[a] = pos[base + 3 * a + 1];
+    sz[a] = pos[base + 3 * a + 2];
+    fx[a] = fy[a] = fz[a] = 0.f;
+  }
+  __syncthreads();
+
+  float e_thread = sasa_forces_add<kThreads, true>(nc, idx, atom, gamma, sx,
+                                                   sy, sz, w, fx, fy, fz);
+  for (int a = tid; a < n; a += kThreads) {
+    frc[base + 3 * a + 0] = fx[a];
+    frc[base + 3 * a + 1] = fy[a];
+    frc[base + 3 * a + 2] = fz[a];
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    e_thread += __shfl_down_sync(0xffffffffu, e_thread, off);
+  if ((tid & 31) == 0) warp_sum[tid >> 5] = e_thread;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int wp = 0; wp < kThreads / 32; ++wp) total += warp_sum[wp];
+    energy[blockIdx.x] = total;
+  }
+}
+
+}  // namespace
+
+// pos (R, N, 3) -> frc (R, N, 3), energy (R,); idx (nc,) int32 and atom
+// (nc, 5) in SasaColumn order. Returns cudaGetLastError(), or -1 when the
+// shared memory does not fit.
+extern "C" int mdx_sasa_forces(const void* pos, void* frc, void* energy,
+                               const void* idx, const void* atom,
+                               int n_replicas, int n_atoms, int n_compact,
+                               float gamma, void* stream) {
+  const size_t shmem =
+      (6 * static_cast<size_t>(n_atoms) + sasa_shared_words(n_compact)) *
+      sizeof(float);
+  if (shmem > 48 * 1024) return -1;
+  sasa_forces_kernel<<<n_replicas, kThreads, shmem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pos), static_cast<float*>(frc),
+      static_cast<float*>(energy), static_cast<const int*>(idx),
+      static_cast<const float*>(atom), n_atoms, n_compact, gamma);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -14,9 +14,12 @@ over dense tensors:
 Periodic boundaries use minimum-image wrapping over a rectangular box; pass
 ``box=None`` (or zeros) for vacuum.
 
-Not ported yet: ``gb``/``sasa`` (implicit-solvent slice), ``cmap`` and the
-``repulsion``/``repulsioncg`` variants (I/O and training slices). Asking for
-one raises ``NotImplementedError``.
+The implicit-solvent terms ``gb`` (GB-OBC II) and ``sasa`` (LCPO) come from
+``solvent`` and need the GB tables on the ``FFParams``
+(``solvent.attach_gb_params``).
+
+Not ported yet: ``cmap`` and the ``repulsion``/``repulsioncg`` variants (I/O
+and training slices). Asking for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,8 +53,6 @@ DEFAULT_TERMS = (
 #: terms the configs may name but this port does not evaluate yet, with the
 #: slice that brings each
 _DEFERRED_TERMS = {
-    "gb": "the implicit-solvent slice (GB-OBC)",
-    "sasa": "the implicit-solvent slice (LCPO SASA)",
     "cmap": "the host I/O slice (CMAP tables)",
     "repulsion": "the training slice (CG repulsion variants)",
     "repulsioncg": "the training slice (CG repulsion variants)",
@@ -351,6 +352,26 @@ def energy_terms(
 
     if resolve_urey_bradley(cfg, ff):
         out["urey_bradley"] = _urey_bradley_energy(pos, ff, box)
+
+    if "gb" in cfg.terms or "sasa" in cfg.terms:
+        from molecular_dynamics_tpu_torch import solvent
+
+        if not ff.has_gb:
+            raise ValueError(
+                "GB/SASA terms requested but the FFParams carry no GB "
+                "tables: attach them with solvent.attach_gb_params(ff)"
+            )
+        if "gb" in cfg.terms:
+            out["gb"] = solvent.gb_energy(
+                pos,
+                ff,
+                solvent_dielectric=cfg.solvent_dielectric,
+                ion_concentration=cfg.ion_concentration,
+            )
+        if "sasa" in cfg.terms:
+            out["sasa"] = solvent.sasa_energy(
+                pos, ff, surface_tension=cfg.surface_tension
+            )
 
     if external is not None:
         out["external"] = external(pos)

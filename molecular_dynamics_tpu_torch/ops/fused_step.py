@@ -5,15 +5,19 @@ seed) -> (pos, vel, forces)``. One call advances every replica ``n_inner``
 steps: pair terms, analytic angle and torsion/improper forces, the moving
 harmonic SMD bias, optional SHAKE/RATTLE on a constraint set (g-BAOAB
 ordering: velocities re-projected after every kick and the O-step, positions
-after every drift) and the thermostat noise. Simulation only: not
-differentiable.
+after every drift) and the thermostat noise. ``gb=True`` adds the GB-OBC II
+polar solvation force (``ops.gb``) and ``sasa=True`` the LCPO nonpolar force
+(``ops.sasa``): together the physics of NAMD's ``gbis on`` + ``sasa on``.
+``sasa_every``/``gb_every`` evaluate them at the reference's r-RESPA
+cadences (held force, and impulse). Simulation only: not differentiable.
 
 Kernel note. On CUDA tensors ``advance`` launches ``csrc/campaign_advance.cu``
 (CUDA C++, sm_90a). It replaces the JAX package's
 ``molecular_dynamics_tpu/ops/fused_step.py`` ``make_fused_campaign_op`` ->
-``kernel`` (vacuum branch). What suited the TPU stays behind: lane padding,
-the +-1 difference matrices that turned gathers and scatters into matmuls,
-the atan2 polynomial, the on-core PRNG. On an H100 the work is bound by
+``kernel`` with its cadence blocks; the implicit-solvent passes it calls are
+described in ``ops.gb`` and ``ops.sasa``. What suited the TPU stays behind:
+lane padding, the +-1 difference matrices that turned gathers and scatters
+into matmuls, the atan2 polynomial, the on-core PRNG. On an H100 the work is bound by
 float32 arithmetic, not memory: global memory sees the state once per launch
 while every step needs N*(N-1)/2 pairs (evaluated from both ends, twice
 that) and the bonded terms. The
@@ -43,6 +47,12 @@ import torch
 
 from molecular_dynamics_tpu_torch import units
 from molecular_dynamics_tpu_torch.ff.params import FFParams
+from molecular_dynamics_tpu_torch.ops.gb import (
+    GBTables,
+    build_gb_tables,
+    gb_constants,
+    gb_forces_reference,
+)
 from molecular_dynamics_tpu_torch.ops.nonbonded import _np
 from molecular_dynamics_tpu_torch.ops.ring import (
     PairTables,
@@ -50,6 +60,12 @@ from molecular_dynamics_tpu_torch.ops.ring import (
     check_kernel_input,
     dense_pair_math,
     pair_constants,
+)
+from molecular_dynamics_tpu_torch.ops.sasa import (
+    SasaTables,
+    build_sasa_tables,
+    sasa_forces_reference,
+    sasa_shared_bytes,
 )
 
 Tensor = torch.Tensor
@@ -69,14 +85,27 @@ TABLE_SLOTS = (
     "ang_start", "ang_src", "ang_w",
     "tor_start", "tor_src", "tor_w",
     "cons_start", "cons_src", "cons_w",
+    "gb_atom", "sasa_idx", "sasa_atom",
 )
 
 
-def campaign_shared_bytes(n_atoms: int, n_angles: int, n_tors: int, n_cons: int) -> int:
+def campaign_shared_bytes(
+    n_atoms: int, n_angles: int, n_tors: int, n_cons: int,
+    gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
+) -> int:
     """Shared memory one CTA of the campaign kernel needs: the 9 state
     vectors, the angle (2 vectors a term) and torsion (3) force buffers, and
-    3 vectors a constraint."""
-    return 4 * (9 * n_atoms + 6 * n_angles + 9 * n_tors + 9 * n_cons)
+    3 vectors a constraint; with ``gb`` the Born radii and chain cotangents;
+    with ``n_sasa`` heavy atoms the LCPO pass's scratch; with a cadence > 1
+    (``slow_buffer``) the block's slow force."""
+    need = 4 * (9 * n_atoms + 6 * n_angles + 9 * n_tors + 9 * n_cons)
+    if gb:
+        need += 4 * 2 * n_atoms
+    if slow_buffer:
+        need += 4 * 3 * n_atoms
+    if n_sasa:
+        need += sasa_shared_bytes(n_sasa)
+    return need
 
 
 def _csr(n_atoms: int, atoms: np.ndarray, src: np.ndarray, weights: np.ndarray):
@@ -103,6 +132,9 @@ class CampaignTables:
     max_t: int
     n_cons: int
     n_bias: int
+    #: the implicit-solvent tables, where the op was built with them
+    gb: Optional[GBTables] = None
+    sasa: Optional[SasaTables] = None
 
     def pointer_array(self):
         named = dict(
@@ -155,6 +187,8 @@ def build_campaign_tables(
     include_ub=None,
     bias=None,
     constraints=None,
+    gb: bool = False,
+    sasa: bool = False,
 ) -> CampaignTables:
     """Host-side table building for the campaign op (numpy, then one copy
     to the device of ``ff``)."""
@@ -243,11 +277,19 @@ def build_campaign_tables(
         k: torch.as_tensor(np.ascontiguousarray(v), device=device)
         for k, v in arrays.items()
     }
+    gb_tab = build_gb_tables(ff) if gb else None
+    sasa_tab = build_sasa_tables(ff) if sasa else None
+    no_f = torch.zeros(0, dtype=torch.float32, device=device)
+    tensors["gb_atom"] = gb_tab.atom if gb else no_f
+    tensors["sasa_atom"] = sasa_tab.atom if sasa else no_f
+    tensors["sasa_idx"] = (
+        sasa_tab.idx if sasa else torch.zeros(0, dtype=torch.int32, device=device)
+    )
     return CampaignTables(
         pair=build_pair_tables(ff, include_ub=include_ub),
         tensors=tensors,
         n_atoms=n, n_angles=n_a, n_tors=n_t, max_t=max_t, n_cons=n_c,
-        n_bias=len(bias_idx),
+        n_bias=len(bias_idx), gb=gb_tab, sasa=sasa_tab,
     )
 
 
@@ -326,9 +368,12 @@ def _gather_pairs(p: Tensor, idx: Tensor, a: int, b: int) -> Tensor:
 
 def campaign_forces_reference(
     pos: Tensor, tab: CampaignTables, pair_consts, bias_consts, t_step,
+    gb_consts=None, surface_tension: Optional[float] = None,
 ) -> Tensor:
     """Total force ``(R, N, 3)`` as the campaign kernel evaluates it: pair
-    terms + analytic angle and torsion forces + the SMD bias at ``t_step``."""
+    terms + analytic angle and torsion forces + the SMD bias at ``t_step``;
+    with ``gb_consts`` the GB-OBC II force, with ``surface_tension`` the LCPO
+    force (each needs its tables on ``tab``)."""
     tt = tab.tensors
     dt = pos.dtype
     _, f = dense_pair_math(pos, tab.pair.dense, pair_consts)
@@ -398,6 +443,21 @@ def campaign_forces_reference(
         center = c0 + slope * min(float(t_step), tmax)
         coefb = fk * (dist - center) / dist
         f = f - (coefb.unsqueeze(-1) * com).unsqueeze(-2) * wdiff[:, None]
+    return f + campaign_solvent_forces_reference(pos, tab, gb_consts, surface_tension)
+
+
+def campaign_solvent_forces_reference(
+    pos: Tensor, tab: CampaignTables, gb_consts=None,
+    surface_tension: Optional[float] = None,
+) -> Tensor:
+    """The implicit-solvent part of the campaign force: GB-OBC II where
+    ``gb_consts`` is given plus LCPO where ``surface_tension`` is (zeros
+    where neither is)."""
+    f = torch.zeros_like(pos)
+    if gb_consts is not None:
+        f = f + gb_forces_reference(pos, tab.gb, gb_consts)[0]
+    if surface_tension is not None:
+        f = f + sasa_forces_reference(pos, tab.sasa, surface_tension)[0]
     return f
 
 
@@ -442,9 +502,20 @@ def campaign_advance_reference(
     tab: CampaignTables, *, n_inner: int, dt_fs: float, c1: float,
     use_noise: bool, pair_consts, bias_consts,
     shake_iters: int = 6, rattle_iters: int = 3,
+    gb_consts=None, surface_tension: Optional[float] = None,
+    sasa_every: int = 1, gb_every: int = 1,
     noise: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the campaign kernel, step for step.
+
+    ``gb_consts`` / ``surface_tension`` switch the GB and LCPO forces on.
+    ``sasa_every = k > 1`` holds the LCPO force of each k-step block's entry
+    positions through the block (the carried force stays the total).
+    ``gb_every = k > 1`` is the impulse form: the slow force (GB, and LCPO
+    when its cadence is k too) is taken off the incoming total force, kicks
+    the velocities by ``k dt / 2`` at both ends of every block (RATTLE after
+    each kick), and is put back on the way out; in between the per-step force
+    is the fast one.
 
     ``noise`` ``(n_inner, R, N, 3)``, when given, replaces the Philox draws
     (``philox_normals(seed, t0, ...)``) of a run with ``use_noise``.
@@ -459,7 +530,27 @@ def campaign_advance_reference(
         noise = philox_normals(
             seed, t0, n_inner, pos.shape[0], tab.n_atoms, device=pos.device, dtype=dt
         )
-    for i in range(n_inner):
+    use_gb = gb_consts is not None
+    use_sasa = surface_tension is not None
+    impulse = use_gb and gb_every > 1
+    slow_sasa = use_sasa and sasa_every > 1
+    held = slow_sasa and not impulse
+
+    def fast_forces(p, i, extra=None):
+        f = campaign_forces_reference(
+            p, tab, pair_consts, bias_consts, t0 + i,
+            gb_consts if use_gb and not impulse else None,
+            surface_tension if use_sasa and not slow_sasa else None,
+        )
+        return f if extra is None else f + extra
+
+    def slow_forces(p):
+        return campaign_solvent_forces_reference(
+            p, tab, gb_consts if impulse else None,
+            surface_tension if slow_sasa else None,
+        )
+
+    def step(pos, vel, frc, i, extra=None):
         # B: half kick with the stored forces
         vel = vel + half * frc * minv
         if cons:
@@ -479,10 +570,34 @@ def campaign_advance_reference(
         new = pos + half * vel
         pos = _shake(new, ref, tt, shake_iters) if cons else new
         # B: half kick with the new forces, SMD centre at the start index
-        frc = campaign_forces_reference(pos, tab, pair_consts, bias_consts, t0 + i)
+        frc = fast_forces(pos, i, extra)
         vel = vel + half * frc * minv
         if cons:
             vel = _rattle(vel, pos, tt, rattle_iters)
+        return pos, vel, frc
+
+    def slow_kick(pos, vel, slow):
+        vel = vel + (gb_every * half) * slow * minv
+        return _rattle(vel, pos, tt, rattle_iters) if cons else vel
+
+    if impulse:
+        slow = slow_forces(pos)
+        frc = frc - slow  # the carried force is the fast one in this mode
+        for j in range(n_inner // gb_every):
+            vel = slow_kick(pos, vel, slow)
+            for i in range(gb_every):
+                pos, vel, frc = step(pos, vel, frc, j * gb_every + i)
+            slow = slow_forces(pos)
+            vel = slow_kick(pos, vel, slow)
+        frc = frc + slow
+    elif held:
+        for j in range(n_inner // sasa_every):
+            slow = slow_forces(pos)
+            for i in range(sasa_every):
+                pos, vel, frc = step(pos, vel, frc, j * sasa_every + i, slow)
+    else:
+        for i in range(n_inner):
+            pos, vel, frc = step(pos, vel, frc, i)
     return pos, vel, frc
 
 
@@ -584,7 +699,11 @@ def make_fused_campaign_op(
     shake_iters: int = 6,
     rattle_iters: int = 3,
     gb: bool = False,
+    ion_concentration: float = 0.0,
     sasa: bool = False,
+    surface_tension: float = 0.005,
+    sasa_every: int = 1,
+    gb_every: int = 1,
 ):
     """Build ``advance(pos, vel, forces, t0, seed, noise=None) -> (pos, vel,
     frc)``.
@@ -594,30 +713,59 @@ def make_fused_campaign_op(
     the moving-centre schedule evaluated at ``t0 + i``. ``constraints``
     enables SHAKE/RATTLE (rigid-bond protocol); X-H star clusters converge
     geometrically, so the default sweep counts sit at the float32 noise
-    floor. Arrays are ``(R, N, 3)``; ``t0`` and ``seed`` are Python ints.
+    floor. ``gb=True`` adds the GB-OBC II polar force (needs the GB tables
+    on ``ff``; ``solvent_dielectric`` and ``ion_concentration`` feed the
+    Debye-screened prefactor), ``sasa=True`` the LCPO nonpolar force with
+    ``surface_tension``. ``sasa_every = k`` evaluates the LCPO force once per
+    k-step block and holds it; ``gb_every = k`` applies the whole GB force
+    (and the LCPO force when ``sasa_every`` is k too) as impulses at the block
+    ends. Both must divide ``n_inner`` and be equal when both exceed 1.
+    Arrays are ``(R, N, 3)``; ``t0`` and ``seed`` are Python ints.
 
     CUDA tensors (float32, contiguous) go through ``campaign_advance``, the
     kernel's wrapper, which counts its launches; CPU tensors take
     ``campaign_advance_reference``. ``noise`` is taken by the plain version
     only.
     """
-    if gb or sasa:
-        term = "gb" if gb else "sasa"
-        raise NotImplementedError(
-            f"campaign op: {term}=True (in-kernel GB-OBC / LCPO SASA) is not "
-            "ported yet; it comes with the implicit-solvent slice"
+    use_gb, use_sasa = bool(gb), bool(sasa)
+    sasa_every = int(sasa_every) if use_sasa else 1
+    if sasa_every < 1:
+        raise ValueError(f"sasa_every must be >= 1, got {sasa_every}")
+    if sasa_every > 1 and n_inner % sasa_every:
+        raise ValueError(
+            f"sasa_every={sasa_every} must divide n_inner={n_inner} "
+            "(the held-force blocks tile the launch exactly)"
         )
+    gb_every = int(gb_every) if use_gb else 1
+    if gb_every < 1:
+        raise ValueError(f"gb_every must be >= 1, got {gb_every}")
+    if gb_every > 1:
+        if n_inner % gb_every:
+            raise ValueError(
+                f"gb_every={gb_every} must divide n_inner={n_inner} "
+                "(the impulse blocks tile the launch exactly)"
+            )
+        if use_sasa and sasa_every > 1 and sasa_every != gb_every:
+            raise ValueError(
+                f"combined cadences must align: sasa_every={sasa_every} "
+                f"!= gb_every={gb_every} (one shared block structure)"
+            )
     tab = build_campaign_tables(
         ff, dt_fs, temperature, gamma_ps, include_ub=include_ub, bias=bias,
-        constraints=constraints,
+        constraints=constraints, gb=use_gb, sasa=use_sasa,
     )
-    need = campaign_shared_bytes(tab.n_atoms, tab.n_angles, tab.n_tors, tab.n_cons)
+    n_sasa = tab.sasa.n_compact if use_sasa else 0
+    slow_buffer = gb_every > 1 or sasa_every > 1
+    need = campaign_shared_bytes(
+        tab.n_atoms, tab.n_angles, tab.n_tors, tab.n_cons,
+        gb=use_gb, n_sasa=n_sasa, slow_buffer=slow_buffer,
+    )
     if need > SHARED_LIMIT_BYTES:
         raise ValueError(
             f"campaign op: this system needs {need} bytes of shared memory a "
             f"replica ({tab.n_atoms} atoms, {tab.n_angles} angles, "
-            f"{tab.n_tors} torsions, {tab.n_cons} constraints); the kernel "
-            f"holds {SHARED_LIMIT_BYTES}"
+            f"{tab.n_tors} torsions, {tab.n_cons} constraints, gb={use_gb}, "
+            f"{n_sasa} LCPO atoms); the kernel holds {SHARED_LIMIT_BYTES}"
         )
     pair_consts = pair_constants(cutoff, switch_dist, rfa, solvent_dielectric)
     dt = dt_fs / units.TIMEFACTOR
@@ -632,15 +780,24 @@ def make_fused_campaign_op(
     else:
         bias_consts = (0.0, 0.0, 0.0, 0.0)
 
-    dims = (ctypes.c_int * 10)(
+    gb_consts = gb_constants(solvent_dielectric, ion_concentration) if use_gb else None
+    gamma_sasa = float(surface_tension) if use_sasa else None
+
+    dims = (ctypes.c_int * 14)(
         tab.n_atoms, tab.n_angles, tab.n_tors, tab.max_t, tab.n_cons,
         tab.n_bias, n_inner, shake_iters, rattle_iters, int(use_noise),
+        int(use_gb), n_sasa, sasa_every, gb_every,
     )
-    consts = (ctypes.c_float * 11)(0.5 * dt, c1, *bias_consts, *pair_consts)
+    consts = (ctypes.c_float * 17)(
+        0.5 * dt, c1, *bias_consts, *pair_consts,
+        *(gb_consts or (0.0,) * 5), gamma_sasa or 0.0,
+    )
     settings = dict(
         n_inner=n_inner, dt_fs=dt_fs, c1=c1, use_noise=use_noise,
         pair_consts=pair_consts, bias_consts=bias_consts,
         shake_iters=shake_iters, rattle_iters=rattle_iters,
+        gb_consts=gb_consts, surface_tension=gamma_sasa,
+        sasa_every=sasa_every, gb_every=gb_every,
     )
 
     def advance(pos, vel, frc, t0, seed, noise=None):
@@ -662,6 +819,7 @@ def make_fused_campaign_op(
         return campaign_advance(pos, vel, frc, int(t0), int(seed), tab, dims, consts)
 
     advance.n_inner = n_inner
+    advance.shared_bytes = need
     advance.tables = tab
     #: keyword arguments that make campaign_advance_reference this op
     advance.settings = settings

@@ -4,7 +4,8 @@ A rollout advances ``save_every`` integrator steps per emitted frame; a
 replica ensemble is a leading axis on every state field, so 1024 replicas
 advance in one device program. With ``SimulationConfig.fused_campaign`` a
 whole ``save_every``-step segment is one launch of the campaign kernel
-(``ops.fused_step``).
+(``ops.fused_step``), in vacuum or with the GBIS implicit solvent (GB-OBC II
++ LCPO SASA) evaluated inside it.
 
 Output: strided coordinate frames ``(frames, [replicas,] atoms, 3)``,
 per-frame energy/temperature logs and colvar centre/value traces.
@@ -75,9 +76,13 @@ class SimulationConfig:
     #: in the kernel on the campaign path, batched projection steps on the
     #: composed path.
     constrain_h_bonds: bool = False
-    #: slow-force cadences of the implicit-solvent campaign (LCPO SASA held
-    #: force, GB impulse r-RESPA). Kept for that slice; must be 1 until then.
+    #: campaign path only: evaluate the LCPO SASA force once per this many
+    #: steps and hold it (r-RESPA held-force cadence; 1 = every step). Must
+    #: divide ``save_every``.
     sasa_every: int = 1
+    #: campaign path only: apply the whole GB polar force (and the LCPO force
+    #: when ``sasa_every`` equals it) as Verlet-I impulses once per this many
+    #: steps (1 = every step). Must divide ``save_every``.
     gb_every: int = 1
 
 
@@ -109,10 +114,25 @@ def make_step_fn(
     return make_ensemble_step_fn(ff, config, bias)
 
 
-def _require_kernel_coverage(flag: str, config: SimulationConfig, langevin_only: bool):
+#: term sets the campaign kernel covers beyond the default one; both need
+#: the GB tables on the force field
+_CAMPAIGN_SOLVENT_TERM_SETS = (
+    frozenset(DEFAULT_TERMS + ("gb",)),
+    frozenset(DEFAULT_TERMS + ("gb", "sasa")),
+)
+
+
+def _require_kernel_coverage(
+    flag: str, config: SimulationConfig, langevin_only: bool, ff: FFParams
+):
     """Raise where ``config`` asks for a kernel path (``flag``) together with
     an option that kernel does not cover. A kernel flag never gives way to
-    the autograd path: that path is taken only when the flag is off."""
+    the autograd path: that path is taken only when the flag is off.
+
+    ``fused_nonbonded`` covers the default term set. ``fused_campaign``
+    (``langevin_only``) covers exactly three: the default set, the default
+    set + ``gb``, and the default set + ``gb`` + ``sasa``, the last two only
+    where ``ff`` carries the GB tables."""
     if config.pbc:
         raise ValueError(f"{flag}=True does not cover pbc=True: the kernel has no box")
     if langevin_only and config.integrator != "langevin":
@@ -120,14 +140,23 @@ def _require_kernel_coverage(flag: str, config: SimulationConfig, langevin_only:
             f"{flag}=True covers integrator='langevin' only, "
             f"got {config.integrator!r}"
         )
-    term_set = set(config.energy.terms)
-    if term_set != set(DEFAULT_TERMS) and not (
-        langevin_only and {"gb", "sasa"} & term_set
-    ):
-        raise ValueError(
-            f"{flag}=True covers the default term set {sorted(DEFAULT_TERMS)}, "
-            f"got {sorted(term_set)}"
-        )
+    term_set = frozenset(config.energy.terms)
+    if term_set == frozenset(DEFAULT_TERMS):
+        return
+    if langevin_only and term_set in _CAMPAIGN_SOLVENT_TERM_SETS:
+        if not ff.has_gb:
+            raise ValueError(
+                f"{flag}=True with the term set {sorted(term_set)} needs GB "
+                "tables on the FFParams (solvent.attach_gb_params)"
+            )
+        return
+    covered = "the default term set" + (
+        ", alone or with gb or gb + sasa" if langevin_only else ""
+    )
+    raise ValueError(
+        f"{flag}=True covers {covered} ({sorted(DEFAULT_TERMS)}), "
+        f"got the term set {sorted(term_set)}"
+    )
 
 
 def make_ensemble_step_fn(
@@ -139,20 +168,28 @@ def make_ensemble_step_fn(
 
     With ``config.fused_nonbonded`` the 2-body forces come from the pair
     kernel (one pass over all replicas) while angles, torsions and the bias
-    stay on the autograd path; otherwise every force is autograd of the total
-    energy. The flag with PBC or a reduced term set raises: the kernel covers
-    neither. ``step_fn(states, noise=None, generator=None)``.
+    stay on the autograd path; otherwise the forces are autograd of the total
+    energy, except those of the ``gb`` and ``sasa`` terms, which are analytic
+    (``ops.gb.gb_forces``, ``ops.sasa.sasa_forces``: their kernels on a CUDA
+    state, float32 only) wherever the step need not be differentiated
+    through. Positions that carry a graph keep every force on autograd.
+    ``fused_nonbonded`` with PBC or a term set its kernel does not cover
+    raises. ``step_fn(states, noise=None, generator=None)``.
     """
     potential = _potential(ff, config, bias)
     use_fused = config.fused_nonbonded
+    ecfg = config.energy
+    # without the GB tables the energy itself raises, at the first step
+    solvent_terms = (
+        tuple(t for t in ecfg.terms if t in ("gb", "sasa")) if ff.has_gb else ()
+    )
     if use_fused:
-        _require_kernel_coverage("fused_nonbonded", config, langevin_only=False)
+        _require_kernel_coverage("fused_nonbonded", config, langevin_only=False, ff=ff)
         from molecular_dynamics_tpu_torch.ops.ring import (
             build_pair_tables,
             pair_forces,
         )
 
-        ecfg = config.energy
         tables = build_pair_tables(
             ff, include_ub=resolve_urey_bradley(ecfg, ff)
         )
@@ -160,6 +197,21 @@ def make_ensemble_step_fn(
             ecfg,
             terms=tuple(t for t in ecfg.terms if t not in _PAIR_KERNEL_TERMS),
             urey_bradley=False,
+        )
+    elif solvent_terms:
+        # neither term sees the box, so this holds with PBC too
+        from molecular_dynamics_tpu_torch.ops.gb import (
+            build_gb_tables,
+            gb_constants,
+            gb_forces,
+        )
+        from molecular_dynamics_tpu_torch.ops.sasa import build_sasa_tables, sasa_forces
+
+        gb_tables = build_gb_tables(ff) if "gb" in solvent_terms else None
+        gb_consts = gb_constants(ecfg.solvent_dielectric, ecfg.ion_concentration)
+        sasa_tables = build_sasa_tables(ff) if "sasa" in solvent_terms else None
+        rest_cfg = dataclasses.replace(
+            ecfg, terms=tuple(t for t in ecfg.terms if t not in solvent_terms)
         )
 
     cons = hydrogen_bond_constraints(ff) if config.constrain_h_bonds else None
@@ -177,6 +229,18 @@ def make_ensemble_step_fn(
                 )[1].reshape(pos.shape)
                 rest = _neg_grad(lambda p: potential(p, box, step, rest_cfg), pos)
                 return pair.to(pos.dtype) + rest
+            if solvent_terms and not (torch.is_grad_enabled() and pos.requires_grad):
+                # the analytic forces carry no graph: positions that are
+                # differentiated through stay on autograd below
+                flat = pos.reshape(-1, *pos.shape[-2:]).contiguous()
+                rest = _neg_grad(lambda p: potential(p, box, step, rest_cfg), pos)
+                if gb_tables is not None:
+                    rest = rest + gb_forces(flat, gb_tables, gb_consts)[0].reshape(pos.shape)
+                if sasa_tables is not None:
+                    rest = rest + sasa_forces(
+                        flat, sasa_tables, ecfg.surface_tension
+                    )[0].reshape(pos.shape)
+                return rest
             return _neg_grad(lambda p: potential(p, box, step), pos)
 
         if config.integrator == "nve":
@@ -276,12 +340,7 @@ def _campaign_advance_fn(ff: FFParams, save_every: int, config: SimulationConfig
     cover it (there is no second path to fall to)."""
     from molecular_dynamics_tpu_torch.ops.fused_step import make_fused_campaign_op
 
-    _require_kernel_coverage("fused_campaign", config, langevin_only=True)
-    if config.sasa_every != 1 or config.gb_every != 1:
-        raise NotImplementedError(
-            "sasa_every/gb_every belong to the implicit-solvent campaign, "
-            "which is not ported yet"
-        )
+    _require_kernel_coverage("fused_campaign", config, langevin_only=True, ff=ff)
     cons = None
     if config.constrain_h_bonds:
         hb = hydrogen_bond_constraints(ff)
@@ -301,7 +360,11 @@ def _campaign_advance_fn(ff: FFParams, save_every: int, config: SimulationConfig
         bias=bias,
         constraints=cons,
         gb="gb" in term_set,
+        ion_concentration=config.energy.ion_concentration,
         sasa="sasa" in term_set,
+        surface_tension=config.energy.surface_tension,
+        sasa_every=config.sasa_every,
+        gb_every=config.gb_every,
     )
 
 
@@ -319,9 +382,12 @@ def simulate_ensemble(
 
     With ``config.fused_campaign`` every ``save_every``-step segment is one
     launch of the campaign kernel. It covers Langevin dynamics without PBC on
-    the default term set; any other integrator, PBC, a reduced term set or a
-    system the kernel cannot hold raises. The composed per-step path runs
-    only when the flag is off. Each segment's thermostat seed
+    the default term set, alone or with ``gb`` or ``gb`` + ``sasa``
+    (``GBIS_POLAR_CONFIG``, ``GBIS_CONFIG``; ``config.sasa_every`` and
+    ``config.gb_every`` set their cadences and must divide ``save_every``);
+    any other integrator, PBC, another term set, a force field without GB
+    tables or a system the kernel cannot hold raises. The composed per-step
+    path runs only when the flag is off. Each segment's thermostat seed
     is derived from the first replica's ``(key, step)``, so two segments
     never reuse a noise stream.
 
@@ -402,9 +468,8 @@ def smd_campaign_config(
 
     ``implicit_solvent=True`` switches the energy to the NAMD-campaign
     physics (GBIS with 0.1 M salt, rigid H bonds) instead of the vacuum
-    config; ``sasa=True`` (default) adds the LCPO nonpolar term. Those two
-    variants need the implicit-solvent terms, which are not ported yet:
-    the config is returned, running it raises.
+    config; ``sasa=True`` (default) adds the LCPO nonpolar term. Both run
+    through the campaign kernel (``fused_campaign``).
     """
     if implicit_solvent:
         e_cfg = GBIS_CONFIG if sasa else GBIS_POLAR_CONFIG

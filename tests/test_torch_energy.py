@@ -137,8 +137,20 @@ def test_wrap_displacement_matches_jax():
 
 @pytest.mark.parametrize("term", ["gb", "sasa", "cmap", "repulsion", "repulsioncg"])
 def test_deferred_terms_raise_by_name(term):
+    """A term the port does not evaluate yet raises by name; ``gb`` and
+    ``sasa`` are evaluated now, and raise by name only where the force field
+    carries no GB tables."""
     tff, coords = torch_system("diala")
     terms = ("dihedrals", term)
+    if term in ("gb", "sasa"):
+        bare = dataclasses.replace(
+            tff, gb_radii=None, gb_screen=None, sasa_radii=None, sasa_params=None
+        )
+        with pytest.raises(ValueError, match="(?i)" + term):
+            tenergy.energy_terms(t(coords), bare, config=tenergy.EnergyConfig(terms=terms))
+        out = tenergy.energy_terms(t(coords), tff, config=tenergy.EnergyConfig(terms=terms))
+        assert np.isfinite(float(out[term])) and float(out[term]) != 0.0
+        return
     with pytest.raises(NotImplementedError, match=term):
         tenergy.energy_terms(t(coords), tff, config=tenergy.EnergyConfig(terms=terms))
 

@@ -386,8 +386,18 @@ def test_campaign_noise_argument_and_default_stream(sysm):
 
 @pytest.mark.parametrize("flag", ["gb", "sasa"])
 def test_campaign_solvent_flags_raise(sysm, flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        tfused.make_fused_campaign_op(sysm["tff"], **{flag: True})
+    """``gb=True`` / ``sasa=True`` raise by name where the force field has no
+    GB tables, and build the op where it has them."""
+    import dataclasses
+
+    bare = dataclasses.replace(
+        sysm["tff"], gb_radii=None, gb_screen=None, sasa_radii=None, sasa_params=None
+    )
+    with pytest.raises(ValueError, match=f"{flag}=True needs"):
+        tfused.make_fused_campaign_op(bare, **{flag: True})
+    adv = tfused.make_fused_campaign_op(sysm["tff"], **{flag: True})
+    assert (adv.tables.gb is not None) == (flag == "gb")
+    assert (adv.tables.sasa is not None) == (flag == "sasa")
 
 
 def test_campaign_shared_memory_limit_raises(sysm, monkeypatch):

@@ -143,13 +143,18 @@ def test_campaign_path_raises_instead_of_falling_back(world, monkeypatch):
     with pytest.raises(ValueError, match="shared memory"):
         tsim.simulate_ensemble(world["tens"], world["tff"], n_steps=2, save_every=2, config=cfg)
     monkeypatch.undo()
+    # the implicit-solvent campaign: no GB tables, or a cadence that does not
+    # tile the segment, raises; nothing runs the composed path instead
     gb_cfg = tsim.SimulationConfig(fused_campaign=True, energy=tenergy.GBIS_CONFIG)
-    with pytest.raises(NotImplementedError, match="gb"):
-        tsim.simulate_ensemble(world["tens"], world["tff"], n_steps=2, save_every=2, config=gb_cfg)
-    with pytest.raises(NotImplementedError, match="sasa_every"):
+    bare = dataclasses.replace(
+        world["tff"], gb_radii=None, gb_screen=None, sasa_radii=None, sasa_params=None
+    )
+    with pytest.raises(ValueError, match="gb"):
+        tsim.simulate_ensemble(world["tens"], bare, n_steps=2, save_every=2, config=gb_cfg)
+    with pytest.raises(ValueError, match="sasa_every"):
         tsim.simulate_ensemble(
             world["tens"], world["tff"], n_steps=2, save_every=2,
-            config=dataclasses.replace(cfg, sasa_every=5),
+            config=dataclasses.replace(gb_cfg, sasa_every=5),
         )
 
 
