@@ -10,19 +10,26 @@ Phases, one JSON line each on standard output:
 1. ``env``: versions and the card's name and power limit.
 2. ``build``: compiles every ``csrc/*.cu`` of the port (one ``nvcc`` each,
    all at once).
-3. ``checks``: each of the four kernels against its plain PyTorch version on
-   the card, at the shapes of the main path (1024 replicas x 104 atoms x 50
-   steps), with the tolerances below; the thermostat generator's statistics;
-   the campaign kernel with GB and SASA on, at every step and at the
-   ``sasa_every`` / ``gb_every`` cadences.
+3. ``checks``: each kernel against its plain PyTorch version on the card, at
+   the shapes of the main path (1024 replicas x 104 atoms x 50 steps), with
+   the tolerances below; the thermostat generator's statistics; the campaign
+   kernel with GB and SASA on, at every step and at the ``sasa_every`` /
+   ``gb_every`` cadences; the two pair-op kernels (dense ``nonbonded_rows``
+   and each-pair-once ``pair_tiles``) at 104 x 1024, 416 x 192 and 1,040 x
+   96, at 9 A with the reaction field and at 16 A without it, and the pair
+   ops' backward at 8 x 416; the SASA kernel also above 48 KB of shared
+   memory (two tiled copies, where it opts in to more).
 4. ``campaign``: the main path through the public entry points: load the
    104-atom deca-alanine, FIRE-minimise, draw velocities, build the SMD bias
    at the measured end-to-end distance, replicate to 1024, and run
    ``simulate_ensemble`` for 2000 steps (40 launches of the campaign kernel)
-   with rigid X-H bonds. Then the pair kernel's own path (the same entry
-   point with ``fused_nonbonded``, 1024 replicas), each kernel's launch
-   count set to 0 just before its path and read just after, and a second,
-   timed campaign call for aggregate steps/s.
+   with rigid X-H bonds. Then the composed pair-op path at the same shape
+   (the same entry point with ``fused_nonbonded``, 4 steps, one
+   ``pair_tiles`` launch a step) against the all-autograd path, each
+   kernel's launch count set to 0 just before its path and read just after,
+   and a second, timed campaign call for aggregate steps/s. The standalone
+   ``pair_forces`` kernel has no path of its own: its device function is the
+   campaign kernel's pair loop, and its line reports those launches.
    ``gbis_campaign``: the implicit-solvent main path the same way: FIRE under
    ``GBIS_CONFIG``, 1024 replicas, ``simulate_ensemble`` for 2000 steps with
    GB-OBC II and LCPO SASA inside the campaign kernel, at ``sasa_every=1``
@@ -30,8 +37,20 @@ Phases, one JSON line each on standard output:
    entry point on its composed per-step path, ``fused_campaign=False``,
    whose GB and LCPO forces are one ``gb_forces`` and one ``sasa_forces``
    launch a step).
+   ``tiers``: the composed, differentiable pair-op path at the system sizes
+   of the tier table: ``tiled_decaalanine(m)`` for m = 1, 4, 8, 10 at 768, 192,
+   96 and 96 replicas, FIRE, then 500 steps of 1 fs at 300 K, unconstrained,
+   through ``simulate_ensemble`` with ``fused_nonbonded`` at both
+   ``kernel_variant``s and with ``fused_campaign`` (above 104 atoms after a
+   check of the campaign kernel against its plain version there): aggregate
+   steps/s and each kernel's launches per (size, path), then each kernel's
+   time a launch at each size.
+   ``grad``: gradients through 10 steps of the composed path (ring, dense)
+   against the all-autograd path, 416 atoms x 8 replicas.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
-   time summed over kernel rows, the device's busy and idle share.
+   time summed over kernel rows, the device's busy and idle share; the same
+   for 50 steps of the composed pair-op path at 416 x 192, with the kernels
+   it launches a step.
 6. the card's name and power limit as ``nvidia-smi`` prints them, the
    ``kernels`` line (per kernel: launches counted on the main path, error
    against the plain version, time per launch, the plain version's time, and
@@ -63,24 +82,38 @@ from molecular_dynamics_tpu_torch.energy import (
     energy_terms,
     total_energy,
 )
-from molecular_dynamics_tpu_torch.examples import decaalanine_full, dialanine
+from molecular_dynamics_tpu_torch.examples import decaalanine_full, dialanine, tiled_decaalanine
 from molecular_dynamics_tpu_torch.integrate import (
     initialize_forces,
     maxwell_boltzmann,
     minimize_fire,
 )
 from molecular_dynamics_tpu_torch.ops import _build
-from molecular_dynamics_tpu_torch.ops import fused_step, gb, ring, sasa
+from molecular_dynamics_tpu_torch.ops import fused_step, gb, nonbonded, ring, sasa
 from molecular_dynamics_tpu_torch import solvent
-from molecular_dynamics_tpu_torch.sim import SimulationConfig, simulate_ensemble
-from molecular_dynamics_tpu_torch.system import replicate, system_init
+from molecular_dynamics_tpu_torch.sim import (
+    SimulationConfig,
+    make_ensemble_step_fn,
+    simulate_ensemble,
+)
+from molecular_dynamics_tpu_torch.system import MDState, replicate, system_init
 
 N_REPLICAS = 1024
 N_INNER = 50
 N_STEPS = 2000
-PAIR_PATH_STEPS = 4  # steps of the fused_nonbonded path, one pair_forces launch each
+PAIR_PATH_STEPS = 4  # steps of the fused_nonbonded path, one pair_tiles launch each
 SOLVENT_PATH_STEPS = 4  # steps of the composed GBIS path, one gb_forces + one sasa_forces launch each
 SEED = 20240914
+# the composed pair-op path at the system sizes of the JAX package's tier
+# table (scripts/bench_tiers.py): m tiled copies of the 104-atom system and
+# the replicas of each, 768/m as there, and 1,040 atoms x 96 replicas
+TIERS = ((1, 768), (4, 192), (8, 96), (10, 96))
+# the shapes K5 and K6 are checked at: the main path's, and the tier table's
+# 416 x 192 and 1,040 x 96
+PAIR_OP_SHAPES = ((1, 1024), (4, 192), (10, 96))
+TIER_STEPS = 500
+TIER_SAVE = 50
+GRAD_STEPS = 10  # the grad phase: 416 atoms x 8 replicas, T = 0
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth. The kernels do float32 arithmetic only.
@@ -138,6 +171,14 @@ TOL_SASA_FORCE = 1e-5
 TOL_SASA_ENERGY = 1e-4
 TOL_F32_VS_F64 = 5e-3    # plain float32 vs plain float64, forces and energies
 TOL_AUTOGRAD_F64 = 1e-7  # plain float64 vs autograd of the float64 energy
+# the pair ops' backward against autograd of their float32 reference: the
+# same arithmetic, so only the order of a few sums differs
+TOL_BACKWARD = 1e-3      # relative to the largest gradient entry
+# the grad phase: gradients through GRAD_STEPS float32 steps of the composed
+# path (ring, dense) against the all-autograd path; the forward forces of
+# the three differ by float32 rounding (TOL_PAIR_FORCE), which the
+# Hessian-vector products of the backward carry into the gradient
+TOL_GRAD = 1e-3          # relative to the largest gradient entry
 
 
 def emit(name, **fields):
@@ -232,10 +273,23 @@ def pair_flops(n_rep, n, live, with_energy):
     )
 
 
-def pair_bound_ms(n_rep, n, live, tables, with_energy):
+def pair_table_bytes(tables, each_pair_once):
+    """Bytes of the packed pair tables one launch reads (pair_at in
+    csrc/pair_terms.cuh): table A's 16 bytes for every ordered pair i != j
+    (K1, K2, K5: each pair from both ends) or for every unordered pair once
+    (K6), and tables B and C's 20 bytes only where A marks a bond, UB or 1-4
+    entry. Replicas share the tables, so they count once a launch."""
+    n = tables.pack_a.shape[0]
+    entries = n * (n - 1)
+    special = int((tables.pack_a[..., 3] >= 2.0).sum())  # symmetric, off the diagonal
+    if each_pair_once:
+        entries, special = entries // 2, special // 2
+    return entries * 16 + special * 20
+
+
+def pair_bound_ms(n_rep, n, live, tables, with_energy, each_pair_once):
     flops = pair_flops(n_rep, n, live, with_energy)
-    table_bytes = sum(t.numel() * 4 for t in (tables.pack_a, tables.pack_b, tables.pack_c))
-    nbytes = 2 * n_rep * n * 12 + n_rep * 4 + table_bytes
+    nbytes = 2 * n_rep * n * 12 + n_rep * 4 + pair_table_bytes(tables, each_pair_once)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
@@ -252,9 +306,8 @@ def campaign_bound_ms(n_rep, tab, live, n_inner, shake_iters, rattle_iters):
         )
     )
     flops = n_inner * per_step
-    table_bytes = sum(t.numel() * 4 for t in tab.tensors.values()) + sum(
-        t.numel() * 4 for t in (tab.pair.pack_a, tab.pair.pack_b, tab.pair.pack_c)
-    )
+    table_bytes = sum(t.numel() * 4 for t in tab.tensors.values()) + pair_table_bytes(
+        tab.pair, each_pair_once=False)
     nbytes = 2 * 9 * n_rep * n * 4 + table_bytes
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
@@ -305,6 +358,255 @@ def sasa_bound_ms(n_rep, n, nc, work):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+PAIR_CASES = {
+    "9A_rf": (9.0, 7.5, True, mdx.units.SOLVENT_DIELECTRIC),
+    "16A_norf": (16.0, 15.0, False, GBIS_CONFIG.solvent_dielectric),
+}
+PAIR_OP_KERNELS = {"nonbonded_rows": nonbonded.nonbonded_rows, "pair_tiles": ring.pair_tiles}
+
+
+def jittered(coords, n_rep, rng, sigma=0.02):
+    """``n_rep`` copies of ``coords`` jittered by ``sigma`` A, on the card."""
+    return torch.as_tensor(
+        np.asarray(coords)[None] + rng.normal(0.0, sigma, (n_rep,) + np.shape(coords)),
+        dtype=torch.float32, device="cuda",
+    ).contiguous()
+
+
+def cutoff_clear(pos, tables, cutoff, margin=5e-6):
+    """Replicas with no unmasked pair within ``margin`` A of the cutoff. The
+    energy (plain Coulomb) or the force (reaction field) of a pair jumps
+    there, so a pair that float32 and float64, or two orders of the same
+    float32 sums, put on either side of it measures the jump (up to
+    qq / cutoff, 0.6 kcal/mol at 16 A), not the arithmetic; float32 places
+    a distance near 16 A to about 2e-6 A."""
+    unmasked = tables.dense[3] > 0
+    keep = [
+        ~(((torch.cdist(chunk, chunk, compute_mode="donot_use_mm_for_euclid_dist") - cutoff).abs()
+            < margin) & unmasked).flatten(1).any(1)
+        for chunk in pos.split(128)
+    ]
+    return torch.cat(keep)
+
+
+def pair_op_checks(rng, checks):
+    """K5 and K6 against their plain version (float32) at PAIR_OP_SHAPES, at
+    9 A with the reaction field and at 16 A without it (the halfway pairs of
+    a diagonal tile live there); the plain version in float32 against
+    float64; two launches give the same bits; the ops' backward against
+    autograd of their float32 reference at 8 replicas x 416 atoms, for the
+    energy's and the forces' cotangent. Returns the largest force error of
+    each kernel."""
+    worst = {name: 0.0 for name in PAIR_OP_KERNELS}
+    for m, n_rep in PAIR_OP_SHAPES:
+        ff_m, coords_m, _ = tiled_decaalanine(m)
+        pos = jittered(coords_m, n_rep, rng)
+        tabs = nonbonded.build_pair_tables(ff_m)
+        for cname, c in PAIR_CASES.items():
+            consts = nonbonded.pair_constants(*c)
+            keep = cutoff_clear(pos, tabs, c[0])
+            e_p, f_p = nonbonded.dense_pair_math(pos, tabs.dense, consts)
+            e_d, f_d = nonbonded.dense_pair_math(pos.double(), tabs.dense, consts)
+            res = {"replicas_compared": int(keep.sum()),
+                   "force_err_plain_f32_vs_f64": max_err(f_p[keep], f_d[keep]),
+                   "energy_err_plain_f32_vs_f64": max_err(e_p[keep], e_d[keep])}
+            tag = f"pair_ops[{ff_m.n_atoms}x{n_rep},{cname}]"
+            check(res["replicas_compared"] >= 0.75 * n_rep, f"{tag}: {res}")
+            check(res["force_err_plain_f32_vs_f64"] <= TOL_PAIR_FORCE
+                  and res["energy_err_plain_f32_vs_f64"] <= m * TOL_PAIR_ENERGY,
+                  f"{tag} plain f32 vs f64: {res}")
+            for name, fn in PAIR_OP_KERNELS.items():
+                e_k, f_k = fn(pos, tabs, consts)
+                e_k2, f_k2 = fn(pos, tabs, consts)
+                torch.cuda.synchronize()
+                r = {"force_err_kernel_vs_plain": max_err(f_k[keep], f_p[keep]),
+                     "energy_err_kernel_vs_plain": max_err(e_k[keep], e_p[keep]),
+                     "force_err_kernel_vs_f64": max_err(f_k[keep], f_d[keep]),
+                     "energy_err_kernel_vs_f64": max_err(e_k[keep], e_d[keep]),
+                     "reproducible": bool(torch.equal(f_k, f_k2) and torch.equal(e_k, e_k2))}
+                res[name] = r
+                check(bool(torch.isfinite(f_k).all() and torch.isfinite(e_k).all()),
+                      f"{tag} {name}: non-finite output")
+                check(r["force_err_kernel_vs_plain"] <= TOL_PAIR_FORCE
+                      and r["energy_err_kernel_vs_plain"] <= m * TOL_PAIR_ENERGY,
+                      f"{tag} {name} vs plain: {r}")
+                check(r["reproducible"], f"{tag} {name}: two launches differ")
+                worst[name] = max(worst[name], r["force_err_kernel_vs_plain"])
+            checks[tag] = res
+            del e_p, f_p, e_d, f_d
+
+    ff4, coords4, _ = tiled_decaalanine(4)
+    pos = jittered(coords4, 8, rng)
+    w_e = torch.as_tensor(rng.normal(size=8), dtype=torch.float32, device="cuda")
+    w_f = torch.as_tensor(rng.normal(size=tuple(pos.shape)), dtype=torch.float32, device="cuda")
+    for name, make in (("nonbonded_rows", nonbonded.make_nonbonded_op),
+                       ("pair_tiles", ring.make_pair_ring_op)):
+        op = make(ff4)
+        for cot in ("energy", "forces"):
+            loss = (lambda e, f: (e * w_e).sum()) if cot == "energy" else (lambda e, f: (f * w_f).sum())
+            p = pos.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(loss(*op(p)), p)
+            q = pos.clone().requires_grad_(True)
+            (g_ref,) = torch.autograd.grad(loss(op.reference_energy(q), op.reference_forces(q)), q)
+            scale = float(g_ref.abs().max())
+            rel = max_err(g, g_ref) / scale
+            checks[f"pair_op_backward[{name},{cot},8x416]"] = {
+                "max_abs_err": max_err(g, g_ref), "max_abs_grad": scale, "relative": rel}
+            check(bool(torch.isfinite(g).all()) and scale > 0.0 and rel <= TOL_BACKWARD,
+                  f"{name} backward, {cot} cotangent: {rel} of {scale}")
+    return worst
+
+
+def minimised_ensemble(ff_m, coords_m, n_rep, seed):
+    """The tiers' start: FIRE under REFERENCE_CONFIG, Maxwell-Boltzmann
+    velocities at 300 K, forces, ``n_rep`` replicas."""
+    force = mdx.force_fn(REFERENCE_CONFIG)
+    pos0 = minimize_fire(
+        torch.as_tensor(coords_m, dtype=torch.float32, device="cuda"),
+        lambda p: force(p, ff_m), n_steps=500, dt_start=1e-3, dt_max=1e-2,
+    )
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = system_init(pos0, vel=maxwell_boltzmann(gen, ff_m.masses, 300.0), key=seed)
+    state = initialize_forces(state, lambda p, box: force(p, ff_m))
+    return pos0, replicate(state, n_rep, seed=1)
+
+
+def tiers_phase():
+    """The composed pair-op path (``fused_nonbonded`` at both
+    ``kernel_variant``s) and the campaign kernel where it holds the system,
+    at every TIERS size: aggregate steps/s and each kernel's launches, its
+    counter set to 0 just before the path and read just after; then each
+    kernel's time a launch at the tier's shape and positions. Above 104
+    atoms, first the campaign kernel against its plain version."""
+    counters = {"nonbonded_rows": nonbonded.nonbonded_rows, "pair_tiles": ring.pair_tiles,
+                "campaign_advance": fused_step.campaign_advance}
+    path_kernel = {"ring": "pair_tiles", "dense": "nonbonded_rows", "campaign": "campaign_advance"}
+    rows, times, starts, k1_checks = {}, {}, {}, {}
+    for m, n_rep in TIERS:
+        ff_m, coords_m, _ = tiled_decaalanine(m)
+        n_m = ff_m.n_atoms
+        pos0, ens = minimised_ensemble(ff_m, coords_m, n_rep, seed=m)
+        starts[m] = (ff_m, pos0, ens)
+        if m > 1:
+            # the campaign kernel holds this system: 5 steps at T = 0 against
+            # its plain version, 8 replicas near the minimum
+            op5 = fused_step.make_fused_campaign_op(ff_m, n_inner=5, dt_fs=1.0, temperature=0.0)
+            s5 = op5.settings
+            pos_c = (pos0[None] + 0.01 * torch.randn(
+                (8, n_m, 3), generator=torch.Generator(device="cuda").manual_seed(m),
+                device="cuda")).contiguous()
+            vel_c = torch.zeros_like(pos_c)
+            frc_c = fused_step.campaign_forces_reference(
+                pos_c, op5.tables, s5["pair_consts"], s5["bias_consts"], 0).contiguous()
+            out_k = op5(pos_c, vel_c, frc_c, 0, 1)
+            out_p = fused_step.campaign_advance_reference(
+                pos_c, vel_c, frc_c, 0, 1, op5.tables, **s5)
+            torch.cuda.synchronize()
+            errs = [max_err(a, b) for a, b in zip(out_k, out_p)]
+            k1_checks[f"{n_m}x8"] = {**dict(zip(("pos", "vel", "frc"), errs)),
+                                     "shared_bytes": op5.shared_bytes}
+            check(all(bool(torch.isfinite(x).all()) for x in out_k)
+                  and errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
+                  f"campaign_advance at {n_m} atoms, T=0, 5 steps vs plain: {errs}")
+        base = dict(dt_fs=1.0, temperature=300.0, gamma_ps=1.0, energy=REFERENCE_CONFIG)
+        paths = {
+            "ring": SimulationConfig(fused_nonbonded=True, kernel_variant="ring", **base),
+            "dense": SimulationConfig(fused_nonbonded=True, kernel_variant="dense", **base),
+        }
+        k1_op = fused_step.make_fused_campaign_op(
+            ff_m, n_inner=TIER_SAVE, dt_fs=1.0, temperature=300.0, gamma_ps=1.0)
+        paths["campaign"] = SimulationConfig(fused_campaign=True, **base)
+        for path, cfg in paths.items():
+            # one save first, so that the timed call sees built tables
+            simulate_ensemble(ens, ff_m, n_steps=TIER_SAVE, save_every=TIER_SAVE, config=cfg)
+            torch.cuda.synchronize()
+            for counter in counters.values():
+                counter.launches = 0
+            t0 = time.perf_counter()
+            final, frames, log = simulate_ensemble(
+                ens, ff_m, n_steps=TIER_STEPS, save_every=TIER_SAVE, config=cfg,
+                obs_every=TIER_STEPS // TIER_SAVE)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            tag = f"tiers {n_m}x{n_rep} {path}"
+            t_last = float(log["T"][-1].mean())
+            check(bool(torch.isfinite(frames).all()), f"{tag}: non-finite frames")
+            check(150.0 < t_last < 400.0, f"{tag}: ensemble-mean T of the last save {t_last} K")
+            want = TIER_STEPS if path != "campaign" else TIER_STEPS // TIER_SAVE
+            check(launches[path_kernel[path]] == want,
+                  f"{tag}: {path_kernel[path]} launched {launches[path_kernel[path]]} times, expected {want}")
+            rows[f"{n_m}x{n_rep}/{path}"] = {
+                "atoms": n_m, "replicas": n_rep, "steps": TIER_STEPS, "seconds": seconds,
+                "aggregate_steps_per_s": TIER_STEPS * n_rep / seconds,
+                "atom_steps_per_s": TIER_STEPS * n_rep * n_m / seconds,
+                "launches": launches, "T_last_mean_K": t_last,
+            }
+
+        # each kernel at this shape, at the positions the run ended at
+        pos = final.pos.contiguous()
+        tabs = nonbonded.build_pair_tables(ff_m)
+        consts = nonbonded.pair_constants(*PAIR_CASES["9A_rf"])
+        live = live_pair_count(pos, tabs, consts)
+        plain_ms = time_ms(lambda: nonbonded.dense_pair_math(pos, tabs.dense, consts), repeats=2)
+        shape = f"{n_m}x{n_rep}"
+        for name, fn in PAIR_OP_KERNELS.items():
+            bound, by, flops, nbytes = pair_bound_ms(
+                n_rep, n_m, live, tabs, True, each_pair_once=name == "pair_tiles")
+            times.setdefault(name, {})[shape] = {
+                "ms": time_ms(lambda fn=fn: fn(pos, tabs, consts), repeats=20),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "flops": flops, "bytes": nbytes, "live_unordered_pairs": live,
+                "launches": rows[f"{shape}/{'ring' if name == 'pair_tiles' else 'dense'}"]["launches"][name],
+            }
+        vel = final.vel.contiguous()
+        frc = final.forces.contiguous()
+        times.setdefault("campaign_advance", {})[shape] = {
+            "ms": time_ms(lambda: k1_op(pos, vel, frc, 0, 3), repeats=3),
+            "n_inner": TIER_SAVE, "shared_bytes": k1_op.shared_bytes,
+            "launches": rows[f"{shape}/campaign"]["launches"]["campaign_advance"],
+        }
+        del tabs, final, frames
+    return rows, times, starts, k1_checks
+
+
+def grad_phase(ff4, pos_min4, rng):
+    """Gradients through GRAD_STEPS steps of the composed path (ring, dense)
+    and of the all-autograd path, at 416 atoms x 8 replicas, T = 0: the loss
+    is a fixed weighted sum of the final positions and velocities."""
+    n_rep, n4 = 8, ff4.n_atoms
+    pos0 = (pos_min4[None] + torch.as_tensor(
+        rng.normal(0.0, 0.02, (n_rep, n4, 3)), dtype=torch.float32, device="cuda")).contiguous()
+    std = torch.sqrt(mdx.units.BOLTZMANN * 300.0 / ff4.masses)[None, :, None]
+    vel0 = std * torch.as_tensor(rng.normal(size=(n_rep, n4, 3)), dtype=torch.float32, device="cuda")
+    frc0 = mdx.force_fn(REFERENCE_CONFIG)(pos0, ff4).detach()
+    w_pos, w_vel = (torch.as_tensor(rng.normal(size=(n_rep, n4, 3)), dtype=torch.float32,
+                                    device="cuda") for _ in range(2))
+    grads = {}
+    for label, kw in (("ring", dict(fused_nonbonded=True, kernel_variant="ring")),
+                      ("dense", dict(fused_nonbonded=True, kernel_variant="dense")),
+                      ("autograd", {})):
+        step_fn = make_ensemble_step_fn(ff4, SimulationConfig(dt_fs=1.0, temperature=0.0, **kw))
+        p = pos0.clone().requires_grad_(True)
+        st = MDState(pos=p, vel=vel0, forces=frc0,
+                     box=torch.zeros((n_rep, 3), device="cuda"),
+                     key=torch.zeros(n_rep, dtype=torch.int64, device="cuda"),
+                     step=torch.zeros(n_rep, dtype=torch.int64, device="cuda"))
+        for _ in range(GRAD_STEPS):
+            st = step_fn(st)
+        loss = (w_pos * st.pos).sum() + (w_vel * st.vel).sum()
+        (grads[label],) = torch.autograd.grad(loss, p)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(grads[label]).all()), f"grad {label}: non-finite gradient")
+    scale = float(grads["autograd"].abs().max())
+    res = {"max_abs_grad_autograd": scale}
+    for a, b in (("ring", "autograd"), ("dense", "autograd"), ("ring", "dense")):
+        res[f"{a}_vs_{b}_relative"] = max_err(grads[a], grads[b]) / scale
+        check(res[f"{a}_vs_{b}_relative"] <= TOL_GRAD, f"grad {a} vs {b}: {res}")
+    return res
+
+
 def main():
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -352,7 +654,7 @@ def main():
     kernels = {}
 
     # -- K2: pair_forces ---------------------------------------------------
-    tables = ring.build_pair_tables(ff)
+    tables = nonbonded.build_pair_tables(ff)
     ff64 = ff.to(dtype=torch.float64)
     pair_cases = {
         "reference_9A_rf_sw7.5": dict(cutoff=9.0, switch_dist=7.5, rfa=True),
@@ -392,11 +694,12 @@ def main():
         check(res["force_err_plain_f64_vs_autograd"] <= TOL_TABLES, f"pair plain vs autograd {name}: {res}")
 
     ref_kw = pair_cases["reference_9A_rf_sw7.5"]
-    pair_consts = ring.pair_constants(9.0, 7.5, True, mdx.units.SOLVENT_DIELECTRIC)
+    pair_consts = nonbonded.pair_constants(9.0, 7.5, True, mdx.units.SOLVENT_DIELECTRIC)
     live = live_pair_count(pos_pert, tables, pair_consts)
     k2_ms = time_ms(lambda: ring.pair_forces(pos_pert, tables, **ref_kw), repeats=20)
     k2_plain_ms = time_ms(lambda: ring.pair_forces_reference(pos_pert, tables, **ref_kw), repeats=3)
-    k2_bound, k2_by, k2_flops, k2_bytes = pair_bound_ms(N_REPLICAS, n, live, tables, True)
+    k2_bound, k2_by, k2_flops, k2_bytes = pair_bound_ms(
+        N_REPLICAS, n, live, tables, True, each_pair_once=False)
     ref_res = checks["pair_forces[reference_9A_rf_sw7.5]"]
     kernels["pair_forces"] = {
         "name": "pair_forces", "route": "cuda",
@@ -566,7 +869,7 @@ def main():
         torch.as_tensor(coords2, dtype=torch.float32, device=dev)[None]
         + torch.as_tensor(rng.normal(0.0, 0.02, (64, n2, 3)), dtype=torch.float32, device=dev)
     ).contiguous()
-    tables2 = ring.build_pair_tables(ff2)
+    tables2 = nonbonded.build_pair_tables(ff2)
     e_k, f_k = ring.pair_forces(pos2, tables2)
     e_p, f_p = ring.pair_forces_reference(pos2, tables2)
     op2 = fused_step.make_fused_campaign_op(
@@ -672,6 +975,21 @@ def main():
     res["gated_case_force_err_kernel_vs_plain"] = max_err(fg_k, fg_p)
     res["gated_case_energy_err_kernel_vs_plain"] = max_err(eg_k, eg_p)
     res["gated_case_force_differs_by"] = max_err(fg_p, f_p)
+    # above 48 KB of shared memory, where the kernel opts in to more: two
+    # tiled copies, 102 heavy atoms, 64 replicas
+    ff_t2, coords_t2, _ = tiled_decaalanine(2)
+    tab_t2 = sasa.build_sasa_tables(ff_t2)
+    pos_t2 = jittered(coords_t2, 64, np.random.default_rng(SEED + 2))
+    ft_k, et_k = sasa.sasa_forces(pos_t2, tab_t2, gamma)
+    ft_p, et_p = sasa.sasa_forces_reference(pos_t2, tab_t2, gamma)
+    torch.cuda.synchronize()
+    res["tiled_2_shared_bytes"] = sasa.sasa_shared_bytes(tab_t2.n_compact) + 24 * ff_t2.n_atoms
+    res["tiled_2_force_err_kernel_vs_plain"] = max_err(ft_k, ft_p)
+    res["tiled_2_energy_err_kernel_vs_plain"] = max_err(et_k, et_p)
+    check(res["tiled_2_shared_bytes"] > 48 * 1024, f"sasa_forces tiled: {res}")
+    check(res["tiled_2_force_err_kernel_vs_plain"] <= TOL_SASA_FORCE
+          and res["tiled_2_energy_err_kernel_vs_plain"] <= 2 * TOL_SASA_ENERGY,
+          f"sasa_forces above 48 KB of shared memory: {res}")
     checks["sasa_forces"] = res
     check(bool(torch.isfinite(f_k).all() and torch.isfinite(e_k).all()), "sasa_forces: non-finite")
     check(res["force_err_kernel_vs_plain"] <= TOL_SASA_FORCE, f"sasa_forces: {res}")
@@ -846,6 +1164,9 @@ def main():
               f"GBIS campaign_advance{label} on di-alanine: {errs}")
     checks["dialanine_22_atoms[gbis]"] = res
 
+    # -- K5: nonbonded_rows and K6: pair_tiles -------------------------------
+    pair_op_err = pair_op_checks(rng, checks)
+
     emit("checks", fire_seconds=round(fire_s, 2), e_min=e_min, **checks)
 
     # -- the main path -------------------------------------------------------
@@ -864,6 +1185,7 @@ def main():
     )
 
     fused_step.campaign_advance.launches = 0
+    ring.pair_forces.launches = 0
     t0 = time.perf_counter()
     final, frames, log = simulate_ensemble(
         ens, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias
@@ -875,20 +1197,24 @@ def main():
     kernels["campaign_advance"]["launches_of"] = (
         f"simulate_ensemble(fused_campaign), {N_REPLICAS} replicas x {N_STEPS} steps")
 
-    # the pair kernel's own path: the same entry point with fused_nonbonded
-    # (2-body terms from one pair_forces launch a step, the rest from
-    # autograd), at the main shape
+    # B2 runs as the device function atom_pair_sum (csrc/pair_terms.cuh) inside
+    # every step of every launch above; the standalone pair_forces kernel has
+    # no path of its own since fused_nonbonded takes the pair ops (K5, K6)
+    kernels["pair_forces"]["device_function_in"] = (
+        f"campaign_advance: its {launches_k1} launches on the main path run "
+        f"atom_pair_sum every step")
+
+    # the composed pair-op path at the main shape: the same entry point with
+    # fused_nonbonded (2-body terms from one pair_tiles launch a step, angles
+    # and torsions from the angle-torsion op, the bias from autograd)
     cfg_pair = SimulationConfig(
         dt_fs=2.0, temperature=300.0, fused_nonbonded=True, constrain_h_bonds=True
     )
-    ring.pair_forces.launches = 0
+    ring.pair_tiles.launches = 0
     _, fr_pair, _ = simulate_ensemble(
         ens, ff, n_steps=PAIR_PATH_STEPS, save_every=2, config=cfg_pair, bias=bias)
     torch.cuda.synchronize()
-    launches_k2 = ring.pair_forces.launches
-    kernels["pair_forces"]["launches"] = launches_k2
-    kernels["pair_forces"]["launches_of"] = (
-        f"simulate_ensemble(fused_nonbonded), {N_REPLICAS} replicas x {PAIR_PATH_STEPS} steps")
+    launches_k6_main = ring.pair_tiles.launches
 
     n_saves = N_STEPS // N_INNER
     check(tuple(frames.shape) == (n_saves, N_REPLICAS, n, 3), f"frames shape {tuple(frames.shape)}")
@@ -912,9 +1238,14 @@ def main():
     _, fr_auto, _ = simulate_ensemble(
         ens, ff, n_steps=PAIR_PATH_STEPS, save_every=2, config=cfg_auto, bias=bias)
     torch.cuda.synchronize()
+    # the standalone kernel's own count over the campaign phase's three paths
+    kernels["pair_forces"]["launches"] = ring.pair_forces.launches
+    kernels["pair_forces"]["launches_of"] = (
+        "simulate_ensemble: fused_campaign, fused_nonbonded and autograd at the main "
+        "shape; none of them launches the standalone kernel")
     composed_err = max_err(fr_pair, fr_auto)
-    check(launches_k2 == PAIR_PATH_STEPS,
-          f"pair kernel launched {launches_k2} times, expected {PAIR_PATH_STEPS}")
+    check(launches_k6_main == PAIR_PATH_STEPS,
+          f"pair_tiles launched {launches_k6_main} times, expected {PAIR_PATH_STEPS}")
     check(composed_err < 1e-4, f"fused_nonbonded vs autograd composed path: {composed_err} A")
 
     t0 = time.perf_counter()
@@ -932,7 +1263,7 @@ def main():
 
     emit("campaign", replicas=N_REPLICAS, atoms=n, steps=N_STEPS, save_every=N_INNER,
          frames=list(frames.shape), campaign_kernel_launches=launches_k1,
-         pair_kernel_launches=launches_k2,
+         pair_tiles_launches=launches_k6_main,
          max_constraint_violation_A=violation, T_last_mean_K=t_mean,
          colvar_lag_A=lag, colvar_last_mean_A=float(log["colvar_value"][-1].mean()),
          colvar_center_last_A=float(log["colvar_center"][-1].mean()),
@@ -1065,6 +1396,39 @@ def main():
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
 
+    # -- the composed pair-op path at the tier sizes ---------------------------
+    tier_rows, tier_times, starts, k1_checks = tiers_phase()
+    emit("tiers", **tier_rows, campaign_advance_vs_plain=k1_checks,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+    for name, variant, replaces in (
+        ("nonbonded_rows", "dense", "molecular_dynamics_tpu/ops/nonbonded.py:274"),
+        ("pair_tiles", "ring", "molecular_dynamics_tpu/ops/ring.py:419"),
+    ):
+        by_shape = tier_times[name]
+        at = by_shape[f"{104 * TIERS[-1][0]}x{TIERS[-1][1]}"]
+        kernels[name] = {
+            "name": name, "route": "cuda",
+            "source": f"molecular_dynamics_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": sum(v["launches"] for v in by_shape.values()),
+            "launches_of": (f"simulate_ensemble(fused_nonbonded, kernel_variant={variant!r}), "
+                            f"{TIER_STEPS} steps at each of " + ", ".join(by_shape)),
+            "max_abs_err": pair_op_err[name], "tolerance": TOL_PAIR_FORCE,
+            "max_abs_err_what": "forces (kcal/mol/A) vs the plain float32 version, "
+                                "at every checked shape and both cutoffs",
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": None,
+            "shape": [TIERS[-1][1], 104 * TIERS[-1][0], 3], "by_shape": by_shape,
+        }
+    kernels["campaign_advance"]["by_tier"] = tier_times["campaign_advance"]
+
+    ff4, pos_min4, ens4 = starts[4]
+    grad_res = grad_phase(ff4, pos_min4, rng)
+    emit("grad", replicas=8, atoms=ff4.n_atoms, steps=GRAD_STEPS, tolerance=TOL_GRAD,
+         **grad_res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}
     for label, every in (("obs_every_save", 1), ("obs_once", n_saves)):
@@ -1074,6 +1438,14 @@ def main():
         check(res["device_seconds"] > 0.0,
               "torch.profiler reported no device time: nothing was measured")
         profile_res[label] = res
+    # the composed pair-op path at 416 x 192: how much of a step the device
+    # works, and how many kernels a step launches
+    cfg_ring = SimulationConfig(dt_fs=1.0, temperature=300.0, fused_nonbonded=True)
+    res = profile_call(lambda: simulate_ensemble(
+        ens4, ff4, n_steps=TIER_SAVE, save_every=TIER_SAVE, config=cfg_ring))
+    check(res["device_seconds"] > 0.0, "torch.profiler reported no device time: nothing was measured")
+    res["kernel_launches_per_step"] = res["kernel_launches"] / TIER_SAVE
+    profile_res[f"composed_ring_{ff4.n_atoms}x{ens4.pos.shape[0]}_{TIER_SAVE}_steps"] = res
     for every, (cfg_g, start_g) in finals_g.items():
         res = profile_call(lambda: simulate_ensemble(
             start_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g))
@@ -1086,7 +1458,8 @@ def main():
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": [
         kernels[k] for k in ("pair_forces", "campaign_advance", "gb_forces", "sasa_forces",
-                             "campaign_advance[gbis]")]}), flush=True)
+                             "campaign_advance[gbis]", "nonbonded_rows", "pair_tiles")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,14 +6,18 @@ dataclasses of tensors, plain functions on ``(..., N, 3)`` tensors, an
 explicit ``device``/``dtype``, and hand-written CUDA kernels (``csrc/``,
 bound in ``ops/``) where the reference used Pallas.
 
-Ported so far — the replica SMD campaign path:
+Ported so far — the replica SMD campaign path and the composed,
+differentiable force path:
 
-- ``units``, ``ff.params`` (``FFParams``), ``solvent`` (host tables only),
-  ``examples`` (the packaged 104-atom deca-alanine and 22-atom di-alanine)
+- ``units``, ``ff.params`` (``FFParams``, ``tile_ff_params``), ``solvent``,
+  ``examples`` (the packaged 104-atom deca-alanine, 22-atom di-alanine and
+  ``tiled_decaalanine``)
 - ``energy`` (bonded terms, 1-4, switched LJ, reaction-field Coulomb,
-  Urey-Bradley; forces through ``torch.autograd``)
+  Urey-Bradley, GB, SASA; forces through ``torch.autograd``)
 - ``system``, ``bias``, ``integrate``, ``constraints``, ``sim``
-- ``ops.ring.pair_forces`` and ``ops.fused_step.make_fused_campaign_op``
+- ``ops``: ``make_nonbonded_op`` and ``make_pair_ring_op`` (differentiable
+  pair ops), ``bonded.make_angle_torsion_op``, ``pair_forces``,
+  ``gb.gb_forces``, ``sasa.sasa_forces`` and ``make_fused_campaign_op``
   (CUDA kernels with plain PyTorch versions beside them)
 - ``convert`` — numpy arrays into the port's objects
 

@@ -43,6 +43,7 @@
 #include "pair_terms.cuh"
 #include "philox.cuh"
 #include "sasa_terms.cuh"
+#include "shared_memory.cuh"
 
 namespace {
 
@@ -588,7 +589,8 @@ __global__ void noise_kernel(float* __restrict__ out, int n_replicas,
 // `ptrs` holds kNumSlots device pointers in Slot order, `dims` the integers
 // of Dims, `consts` the floats of Consts (all host arrays). The cadences
 // must divide dims[6]; the wrapper checks that.
-// Returns cudaGetLastError(), or -1 when the shared memory does not fit.
+// Returns cudaGetLastError(), or the error that refused the shared memory
+// (the wrapper checks it against SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
                                     const void* frc, void* opos, void* ovel,
                                     void* ofrc, const void* const* ptrs,
@@ -642,9 +644,10 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   k.sasa_gamma = consts[16];
 
   const size_t shmem = shared_floats(d) * sizeof(float);
-  if (shmem > 48 * 1024) return -1;
-  auto kernel = (d.use_gb || d.n_sasa) ? campaign_kernel<true>
-                                       : campaign_kernel<false>;
+  const bool solvent = d.use_gb || d.n_sasa;
+  auto kernel = solvent ? campaign_kernel<true> : campaign_kernel<false>;
+  const int err = allow_dynamic_shared(kernel, shmem);
+  if (err != 0) return err;
   kernel<<<n_replicas, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(vel),
       static_cast<const float*>(frc), static_cast<float*>(opos),

@@ -1,8 +1,9 @@
 // Every 2-body term of the force field, for one pair: reaction-field Coulomb
 // and cubic-switched LJ 12-6 under the cutoff mask, harmonic bond /
 // Urey-Bradley springs k (d - d0)^2, and pre-scaled 1-4 LJ + plain Coulomb.
-// The physics lives here once; the standalone pair kernel and the campaign
-// kernel both go through atom_pair_sum().
+// The physics lives here once: the campaign kernel, the standalone pair
+// kernel and the dense kernel go through atom_pair_sum(), the pair-tile
+// kernel through pair_at().
 //
 // Table layout (built by ops/ring.py:pack_pair_tables from the nine dense
 // symmetric (N, N) tables). Entry [j * N + i] belongs to the pair (i, j):
@@ -71,6 +72,32 @@ __device__ __forceinline__ void pair_term(
   }
 }
 
+// The pair whose tables sit at entry idx (j * N + i, or i * N + j: the
+// tables are symmetric), at squared distance d2. Returns false where the pair
+// carries no term (excluded, or beyond the cutoff without a bond/1-4 entry:
+// it contributes exactly zero); otherwise F_i = -coeff * (r_i - r_j) and,
+// with kEnergy, pot is the pair's full energy.
+template <bool kEnergy>
+__device__ __forceinline__ bool pair_at(
+    int idx, float d2, const float4* __restrict__ tab_a,
+    const float4* __restrict__ tab_b, const float* __restrict__ tab_c,
+    const PairConsts& c, float& coeff, float& pot) {
+  const float4 a = __ldg(&tab_a[idx]);
+  float msym = a.w, kb = 0.f, d0 = 0.f, a14 = 0.f, b14 = 0.f, qq14 = 0.f;
+  if (a.w >= 2.f) {
+    const float4 b = __ldg(&tab_b[idx]);
+    kb = b.x; d0 = b.y; a14 = b.z; b14 = b.w;
+    qq14 = __ldg(&tab_c[idx]);
+    msym = a.w - 2.f;
+  } else if (msym == 0.f || d2 > c.cutoff2) {
+    return false;
+  }
+  pot = 0.f;
+  pair_term<kEnergy>(d2, a.x, a.y, a.z, msym, kb, d0, a14, b14, qq14, c,
+                     coeff, pot);
+  return true;
+}
+
 // Force on atom i (and, with kEnergy, the sum of its pair energies, each
 // pair counted in full: the caller halves the total) from all j != i.
 // sx/sy/sz hold the replica's coordinates in shared memory. Each thread sums
@@ -86,23 +113,13 @@ __device__ __forceinline__ void atom_pair_sum(
   e = 0.f;
   for (int j = 0; j < n; ++j) {
     if (j == i) continue;
-    const float4 a = __ldg(&tab_a[j * n + i]);
     const float dx = xi - sx[j];
     const float dy = yi - sy[j];
     const float dz = zi - sz[j];
     const float d2 = dx * dx + dy * dy + dz * dz;
-    float msym = a.w, kb = 0.f, d0 = 0.f, a14 = 0.f, b14 = 0.f, qq14 = 0.f;
-    if (a.w >= 2.f) {
-      const float4 b = __ldg(&tab_b[j * n + i]);
-      kb = b.x; d0 = b.y; a14 = b.z; b14 = b.w;
-      qq14 = __ldg(&tab_c[j * n + i]);
-      msym = a.w - 2.f;
-    } else if (msym == 0.f || d2 > c.cutoff2) {
-      continue;  // excluded or beyond the cutoff: contributes exactly zero
-    }
-    float coeff, pot = 0.f;
-    pair_term<kEnergy>(d2, a.x, a.y, a.z, msym, kb, d0, a14, b14, qq14, c,
-                       coeff, pot);
+    float coeff, pot;
+    if (!pair_at<kEnergy>(j * n + i, d2, tab_a, tab_b, tab_c, c, coeff, pot))
+      continue;
     fx -= coeff * dx;
     fy -= coeff * dy;
     fz -= coeff * dz;

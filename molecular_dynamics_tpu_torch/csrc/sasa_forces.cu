@@ -14,6 +14,7 @@
 #include <cuda_runtime.h>
 
 #include "sasa_terms.cuh"
+#include "shared_memory.cuh"
 
 namespace {
 
@@ -65,8 +66,9 @@ sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
 }  // namespace
 
 // pos (R, N, 3) -> frc (R, N, 3), energy (R,); idx (nc,) int32 and atom
-// (nc, 5) in SasaColumn order. Returns cudaGetLastError(), or -1 when the
-// shared memory does not fit.
+// (nc, 5) in SasaColumn order. Returns cudaGetLastError(), or the error that
+// refused the shared memory (the wrapper checks it against
+// SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_sasa_forces(const void* pos, void* frc, void* energy,
                                const void* idx, const void* atom,
                                int n_replicas, int n_atoms, int n_compact,
@@ -74,7 +76,8 @@ extern "C" int mdx_sasa_forces(const void* pos, void* frc, void* energy,
   const size_t shmem =
       (6 * static_cast<size_t>(n_atoms) + sasa_shared_words(n_compact)) *
       sizeof(float);
-  if (shmem > 48 * 1024) return -1;
+  const int err = allow_dynamic_shared(sasa_forces_kernel, shmem);
+  if (err != 0) return err;
   sasa_forces_kernel<<<n_replicas, kThreads, shmem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<float*>(frc),

@@ -1,5 +1,5 @@
 """Force-field parameter containers."""
 
-from molecular_dynamics_tpu_torch.ff.params import FFParams
+from molecular_dynamics_tpu_torch.ff.params import FFParams, tile_ff_params
 
-__all__ = ["FFParams"]
+__all__ = ["FFParams", "tile_ff_params"]

@@ -101,3 +101,66 @@ class FFParams:
             else:
                 out[f.name] = v.to(device=device, dtype=dtype)
         return FFParams(**out)
+
+
+def tile_ff_params(ff: FFParams, m: int) -> FFParams:
+    """Tile a system ``m`` times into one composite ``FFParams``.
+
+    Every bonded table is repeated with per-copy atom-index offsets; the
+    nonbonded pair tables tile as ``(m*N, m*N)`` blocks (cross-copy entries
+    are the true type-pair LJ/Coulomb values, which depend only on the two
+    atoms), and the exclusion mask excludes nothing between copies. The
+    GB/SASA per-atom tables tile alongside. With copies placed far apart
+    the composite energy is ``m`` times the single copy's, an exact oracle
+    at ``m``-fold atom count. CMAP is not ported: a force field that
+    carries it raises.
+    """
+    if ff.has_cmap:
+        raise NotImplementedError(
+            "tile_ff_params: CMAP tables are not ported yet"
+        )
+    if m < 1:
+        raise ValueError(f"m must be >= 1, got {m}")
+    n = ff.n_atoms
+
+    def tile_idx(tab):
+        if tab.shape[0] == 0:
+            return tab
+        return torch.cat([tab + k * n for k in range(m)])
+
+    def tile_rows(tab):
+        return torch.cat([tab] * m) if tab.shape[0] else tab
+
+    nb = torch.ones((m * n, m * n), dtype=torch.bool, device=ff.device).triu(1)
+    for k in range(m):
+        nb[k * n : (k + 1) * n, k * n : (k + 1) * n] = ff.nb_mask
+
+    solvent = {
+        name: tile_rows(getattr(ff, name))
+        for name in ("gb_radii", "gb_screen", "sasa_radii", "sasa_params")
+        if getattr(ff, name) is not None
+    }
+    return dataclasses.replace(
+        ff,
+        masses=tile_rows(ff.masses),
+        charges=tile_rows(ff.charges),
+        bonds=tile_idx(ff.bonds),
+        bond_params=tile_rows(ff.bond_params),
+        angles=tile_idx(ff.angles),
+        angle_params=tile_rows(ff.angle_params),
+        dihedrals=tile_idx(ff.dihedrals),
+        dihedral_params=tile_rows(ff.dihedral_params),
+        dihedral_term_mask=tile_rows(ff.dihedral_term_mask),
+        impropers=tile_idx(ff.impropers),
+        improper_params=tile_rows(ff.improper_params),
+        improper_term_mask=tile_rows(ff.improper_term_mask),
+        idx14=tile_idx(ff.idx14),
+        nb14_params=tile_rows(ff.nb14_params),
+        lj_a_pair=ff.lj_a_pair.tile((m, m)),
+        lj_b_pair=ff.lj_b_pair.tile((m, m)),
+        qq_pair=ff.qq_pair.tile((m, m)),
+        nb_mask=nb,
+        ub_bonds=tile_idx(ff.ub_bonds),
+        ub_params=tile_rows(ff.ub_params),
+        **solvent,
+    )

@@ -26,6 +26,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the most shared memory one CTA may opt in to on sm_90 (227 KB), less a
+#: kernel's static shared memory; the kernels that may need more than 48 KB
+#: opt in (csrc/shared_memory.cuh), and their wrappers check this limit
+SHARED_OPT_IN_BYTES = 232448
+
 _libraries: Dict[str, ctypes.CDLL] = {}
 #: wall seconds the last call of :func:`build_all` spent compiling
 last_build_seconds = 0.0
@@ -97,3 +102,13 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libraries:
         _libraries[name] = ctypes.CDLL(str(build_all()[name]))
     return _libraries[name]
+
+
+def kernel_function(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of the library built from ``csrc/<name>.cu``,
+    with its argument types set and an int (the CUDA error) as its result."""
+    fn = getattr(load(name), symbol)
+    if not fn.argtypes:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

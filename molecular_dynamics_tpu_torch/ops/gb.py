@@ -46,8 +46,8 @@ import torch
 
 from molecular_dynamics_tpu_torch import solvent, units
 from molecular_dynamics_tpu_torch.ff.params import FFParams
-from molecular_dynamics_tpu_torch.ops.nonbonded import _np
-from molecular_dynamics_tpu_torch.ops.ring import check_kernel_input
+from molecular_dynamics_tpu_torch.ops._build import kernel_function
+from molecular_dynamics_tpu_torch.ops.nonbonded import _np, check_kernel_input
 
 Tensor = torch.Tensor
 
@@ -216,19 +216,6 @@ def gb_forces_reference(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, 
     return forces, energy, born
 
 
-def _library():
-    from molecular_dynamics_tpu_torch.ops import _build
-
-    fn = _build.load("gb_forces").mdx_gb_forces
-    if not fn.argtypes:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-            + [ctypes.c_float] * 5 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Tensor]:
     """``pos (R, N, 3) -> (forces (R, N, 3), energy (R,), born (R, N))``,
     ``consts`` from :func:`gb_constants`.
@@ -252,7 +239,10 @@ def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Te
             f"gb_forces: {n} atoms need {need} bytes of shared memory "
             "a replica; the kernel holds 49152"
         )
-    fn = _library()
+    fn = kernel_function(
+        "gb_forces", "mdx_gb_forces",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
+    )
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=pos.device)
     born = torch.empty((n_rep, n), dtype=torch.float32, device=pos.device)

@@ -1,8 +1,9 @@
-"""Host-side dense pair tables for all 2-body terms.
+"""Dense pair tables, the dense pair math, and the dense pair-terms op (B5).
 
 One ``(N, N)`` float32 table per parameter, symmetric, unpadded:
 ``qq, lj_a, lj_b, mask, k_bond, d0_bond, a14, b14, qq14``. The pair kernels
-(``ops.ring``, ``ops.fused_step``) and their plain versions read these.
+(``ops.nonbonded``, ``ops.ring``, ``ops.fused_step``) and their plain
+versions read these.
 
 - ``mask`` is the symmetrised ``nb_mask`` (``FFParams`` stores i<j only).
 - Harmonic bonds and Urey-Bradley 1-3 springs share the ``k``/``d0`` tables;
@@ -10,17 +11,54 @@ One ``(N, N)`` float32 table per parameter, symmetric, unpadded:
   springs.
 - 1-4 parameters are pre-scaled by ``scnb``/``scee``; duplicate 1-4 pairs
   accumulate, identical to summing per-pair energies.
+
+``make_nonbonded_op(ff, ...)`` returns ``pair_terms(pos (R, N, 3)) ->
+(energy (R,), forces (R, N, 3))`` over every 2-body term (reaction-field
+Coulomb + switched LJ under the cutoff, bonds / Urey-Bradley, pre-scaled
+1-4), differentiable: its backward is autograd of the PyTorch energy of the
+same terms (``pair_terms.reference_energy``), a Hessian-vector product for
+the forces' cotangent. ``ops.ring.make_pair_ring_op`` has the same contract.
+
+Kernel note. On a CUDA tensor the op's forward is ``nonbonded_rows``, which
+launches ``csrc/nonbonded_rows.cu`` (CUDA C++, sm_90a). It replaces the JAX
+package's ``molecular_dynamics_tpu/ops/nonbonded.py`` ``make_nonbonded_op``
+-> ``_kernel`` -> ``dense_pair_forces``: the dense pass, every pair
+evaluated from both ends. Its lane padding, the ``block_r`` replica blocks
+and the ``interpret`` switch stay behind. On an H100 the pair arithmetic
+bounds it at every size: it reads 16 bytes of table an ordered pair (20 more
+where the pair carries a bond or 1-4 term), 17.3 MB at 1,040 atoms, against
+0.75 GFLOP at 96 replicas. The design: a CTA per (replica, tile
+of 128 rows), the replica's coordinates in shared memory, one thread per
+row summing over every j in a fixed order (no atomics, bit-reproducible),
+per-row half energies summed outside the kernel as the JAX op does.
+
+``dense_pair_math`` is the plain PyTorch version of that function (and of
+``ops.ring``'s kernels): it runs for CPU tensors and is what the kernels are
+held against on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
 import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
 
 from molecular_dynamics_tpu_torch import units
+from molecular_dynamics_tpu_torch.energy import EnergyConfig, _neg_grad, energy_terms
 from molecular_dynamics_tpu_torch.ff.params import FFParams
+from molecular_dynamics_tpu_torch.ops._build import kernel_function
+
+Tensor = torch.Tensor
 
 #: order of the tables in the tuple ``_build_pair_tables`` returns
 PAIR_TABLE_NAMES = ("qq", "lj_a", "lj_b", "mask", "kb", "d0", "a14", "b14", "qq14")
+
+#: shared memory a CTA may use without opting in to more
+_STATIC_SHARED_BYTES = 48 * 1024
 
 
 def _resolve_ub(ff: FFParams, include_ub) -> bool:
@@ -81,3 +119,319 @@ def _build_pair_tables(ff: FFParams, include_ub=None):
         qq14[i, j] += q
         qq14[j, i] += q
     return (qq, aa, bb, msym, kb, d0, a14, b14, qq14)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairTables:
+    """The 2-body tables of one system on one device.
+
+    ``dense`` (9, N, N) float32 in ``PAIR_TABLE_NAMES`` order is what the
+    plain version reads; ``pack_a`` (N, N, 4), ``pack_b`` (N, N, 4) and
+    ``pack_c`` (N, N) are the same numbers in the kernels' layout.
+    """
+
+    dense: Tensor
+    pack_a: Tensor
+    pack_b: Tensor
+    pack_c: Tensor
+
+
+def pack_pair_tables(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Kernel layout of the nine dense tables (see ``csrc/pair_terms.cuh``):
+    A = (qq, lj_a, lj_b, mask + 2*special), B = (kb, d0, a14, b14), C = qq14,
+    where ``special`` marks the pairs that carry a bond/UB spring or a 1-4
+    term. Entry [j, i] belongs to the pair (i, j); the tables are symmetric."""
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = dense
+    special = (kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)
+    pack_a = np.stack([qq, aa, bb, msym + 2.0 * special], axis=-1)
+    pack_b = np.stack([kb, d0, a14, b14], axis=-1)
+    return (
+        np.ascontiguousarray(pack_a, np.float32),
+        np.ascontiguousarray(pack_b, np.float32),
+        np.ascontiguousarray(qq14, np.float32),
+    )
+
+
+def build_pair_tables(
+    ff: FFParams, include_ub=None, include_bonds: bool = True, include_14: bool = True
+) -> PairTables:
+    """Tables for the pair kernels, on the device of ``ff``.
+    ``include_ub=None`` takes the Urey-Bradley springs when ``ff`` has any;
+    ``include_bonds=False`` zeroes the spring tables and ``include_14=False``
+    the 1-4 ones."""
+    dense = np.stack(_build_pair_tables(ff, include_ub))
+    if not include_bonds:
+        dense[[4, 5]] = 0.0
+    if not include_14:
+        dense[[6, 7, 8]] = 0.0
+    pa, pb, pc = pack_pair_tables(dense)
+    return PairTables(
+        dense=torch.as_tensor(dense, device=ff.device),
+        pack_a=torch.as_tensor(pa, device=ff.device),
+        pack_b=torch.as_tensor(pb, device=ff.device),
+        pack_c=torch.as_tensor(pc, device=ff.device),
+    )
+
+
+def pair_constants(
+    cutoff: Optional[float],
+    switch_dist: Optional[float],
+    rfa: bool,
+    solvent_dielectric: float,
+) -> Tuple[float, float, float, float, float]:
+    """``(cutoff2, krf, crf, switch_dist, inv_switch_span)`` as the pair
+    math takes them; no cutoff means no reaction field and no switch."""
+    if cutoff is None:
+        return 1e30, 0.0, 0.0, 1e15, 0.0
+    if rfa:
+        denom = 2.0 * solvent_dielectric + 1.0
+        krf = (solvent_dielectric - 1.0) / (denom * cutoff**3)
+        crf = 3.0 * solvent_dielectric / (denom * cutoff)
+    else:
+        krf, crf = 0.0, 0.0
+    if switch_dist is None:
+        return float(cutoff) ** 2, krf, crf, 1e15, 0.0
+    return (
+        float(cutoff) ** 2, krf, crf,
+        float(switch_dist), 1.0 / (cutoff - switch_dist),
+    )
+
+
+def dense_pair_math(pos: Tensor, dense: Tensor, consts) -> Tuple[Tensor, Tensor]:
+    """Energy ``(R,)`` and forces ``(R, N, 3)`` of every 2-body term as one
+    masked ``(R, N, N)`` pass, in the dtype of ``pos``. The formulas, guards
+    and their order are those of the kernels' ``pair_term``."""
+    cutoff2, krf, crf, switch_dist, inv_switch_span = consts
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = dense.to(pos.dtype)
+
+    delta_r = pos.unsqueeze(-2) - pos.unsqueeze(-3)  # (R, N, N, 3): r_i - r_j
+    d2 = torch.sum(delta_r * delta_r, dim=-1)
+
+    # the union of the active pair sets decides where a distance must exist
+    mb = kb > 0.0
+    m = torch.where(d2 <= cutoff2, msym, torch.zeros_like(msym))
+    live = (m > 0.0) | mb | (qq14 != 0.0) | (a14 != 0.0)
+    safe = torch.where(live, d2, torch.ones_like(d2))
+    rinv = 1.0 / torch.sqrt(safe)  # not rsqrt: 2 ulp on a GPU, see pair_terms.cuh
+    rinv2 = rinv * rinv
+    d = d2 * rinv  # == sqrt(d2) where live
+
+    # cutoff nonbonded: reaction-field Coulomb + switched LJ
+    pot_e = qq * (rinv + krf * d2 - crf)
+    coeff_e = qq * (2.0 * krf - rinv2 * rinv)
+    rinv6 = rinv2 * rinv2 * rinv2
+    a12 = aa * rinv6 * rinv6
+    b6 = bb * rinv6
+    pot_l = a12 - b6
+    dudr = (6.0 * b6 - 12.0 * a12) * rinv
+    t = (d - switch_dist) * inv_switch_span
+    sw = 1.0 + t * t * t * (-10.0 + t * (15.0 - t * 6.0))
+    dsw = t * t * (-30.0 + t * (60.0 - t * 30.0)) * inv_switch_span
+    on = d > switch_dist
+    coeff_l = torch.where(on, (dudr * sw + pot_l * dsw) * rinv, dudr * rinv)
+    pot_l = torch.where(on, pot_l * sw, pot_l)
+    pot = m * (pot_e + pot_l)
+    coeff = m * (coeff_e + coeff_l)
+
+    # harmonic bond / Urey-Bradley pairs: E = k (d - d0)^2
+    delta = d - d0
+    zero = torch.zeros_like(pot)
+    pot = pot + torch.where(mb, kb * delta * delta, zero)
+    coeff = coeff + torch.where(mb, 2.0 * kb * delta * rinv, zero)
+
+    # 1-4 scaled LJ + plain Coulomb
+    a14_12 = a14 * rinv6 * rinv6
+    b14_6 = b14 * rinv6
+    pot = pot + a14_12 - b14_6 + qq14 * rinv
+    coeff = coeff + (6.0 * b14_6 - 12.0 * a14_12) * rinv2 - qq14 * rinv2 * rinv
+
+    # F_i = -sum_j coeff_ij (r_i - r_j); every pair sits in the matrix twice
+    forces = -torch.sum(coeff.unsqueeze(-1) * delta_r, dim=-2)
+    energy = 0.5 * torch.sum(pot, dim=(-2, -1))
+    return energy, forces
+
+
+def check_kernel_input(name: str, t: Tensor, shape) -> None:
+    """Raise unless ``t`` is what a kernel takes: CUDA, float32, contiguous,
+    of the given shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_pair_kernel_inputs(pos: Tensor, tables: PairTables) -> Tuple[int, int]:
+    """Raise unless a pair kernel takes ``pos`` with ``tables``; returns
+    ``(replicas, atoms)``."""
+    if pos.ndim != 3 or pos.shape[-1] != 3:
+        raise ValueError(f"pos must be (R, N, 3), got {tuple(pos.shape)}")
+    n_rep, n = pos.shape[0], pos.shape[1]
+    check_kernel_input("pos", pos, (n_rep, n, 3))
+    check_kernel_input("tables.pack_a", tables.pack_a, (n, n, 4))
+    check_kernel_input("tables.pack_b", tables.pack_b, (n, n, 4))
+    check_kernel_input("tables.pack_c", tables.pack_c, (n, n))
+    if tables.pack_a.device != pos.device:
+        raise ValueError("tables and pos live on different devices")
+    return n_rep, n
+
+
+def pair_kernel_pointers(tables: PairTables):
+    return tables.pack_a.data_ptr(), tables.pack_b.data_ptr(), tables.pack_c.data_ptr()
+
+
+_PAIR_KERNEL_ARGTYPES = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+)
+
+
+def nonbonded_rows(pos: Tensor, tables: PairTables, consts) -> Tuple[Tensor, Tensor]:
+    """``pos (R, N, 3) -> (energy (R,), forces (R, N, 3))`` over every 2-body
+    term in ``tables``, ``consts`` from :func:`pair_constants`.
+
+    A CUDA tensor goes through the dense kernel (float32, contiguous, or it
+    raises; the launch is counted in ``nonbonded_rows.launches``); a CPU
+    tensor takes :func:`dense_pair_math`. Not differentiable: the op of
+    :func:`make_nonbonded_op` is.
+    """
+    if not pos.is_cuda:
+        return dense_pair_math(pos, tables.dense, consts)
+    n_rep, n = check_pair_kernel_inputs(pos, tables)
+    if 12 * n > _STATIC_SHARED_BYTES:
+        raise ValueError(
+            f"nonbonded_rows: {n} atoms need {12 * n} bytes of shared memory "
+            f"a CTA; the kernel holds {_STATIC_SHARED_BYTES}"
+        )
+    fn = kernel_function("nonbonded_rows", "mdx_nonbonded_rows", _PAIR_KERNEL_ARGTYPES)
+    forces = torch.empty_like(pos)
+    e_rows = torch.empty((n_rep, n), dtype=torch.float32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        err = fn(
+            pos.data_ptr(), forces.data_ptr(), e_rows.data_ptr(),
+            *pair_kernel_pointers(tables), n_rep, n, *consts,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    nonbonded_rows.launches += 1
+    if err != 0:
+        raise RuntimeError(f"nonbonded_rows kernel launch failed: CUDA error {err}")
+    # the per-replica energy is the sum of the rows' half energies
+    return e_rows.sum(dim=1), forces
+
+
+#: launches of the CUDA kernel made by this process
+nonbonded_rows.launches = 0
+
+
+class _PairTerms(torch.autograd.Function):
+    """Forward: a pair kernel (or its plain version). Backward: the vjp of
+    the reference energy for the energy's cotangent and of the reference
+    forces (a Hessian-vector product) for the forces' cotangent, as the JAX
+    op's ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, pos, run, reference_energy):
+        ctx.save_for_backward(pos)
+        ctx.reference_energy = reference_energy
+        return run(pos)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_e, g_f):
+        (pos,) = ctx.saved_tensors
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            e = ctx.reference_energy(p)
+            (grad_e,) = torch.autograd.grad(e.sum(), p, create_graph=True)
+            # forces = -grad_e
+            total = torch.sum(g_e.to(e.dtype) * e) - torch.sum(g_f.to(grad_e.dtype) * grad_e)
+            (g,) = torch.autograd.grad(total, p)
+        return g, None, None
+
+
+def make_pair_op(
+    ff: FFParams,
+    run,
+    cutoff: Optional[float],
+    switch_dist: Optional[float],
+    rfa: bool,
+    solvent_dielectric: float,
+    include_bonds: bool,
+    include_14: bool,
+    include_ub,
+):
+    """``pair_terms(pos)`` around ``run(pos, tables, consts)``: the contract
+    shared by :func:`make_nonbonded_op` and ``ops.ring.make_pair_ring_op``."""
+    include_ub = _resolve_ub(ff, include_ub)
+    tables = build_pair_tables(
+        ff, include_ub=include_ub, include_bonds=include_bonds, include_14=include_14
+    )
+    consts = pair_constants(cutoff, switch_dist, rfa, solvent_dielectric)
+
+    terms = ["electrostatics", "lj"]
+    if include_bonds:
+        terms.append("bonds")
+    if include_14:
+        terms += ["dihedrals", "1-4"]  # 1-4 requires dihedrals enabled
+    ref_cfg = EnergyConfig(
+        terms=tuple(terms), cutoff=cutoff, rfa=rfa,
+        solvent_dielectric=solvent_dielectric, switch_dist=switch_dist,
+        urey_bradley=include_ub,
+    )
+
+    def reference_energy(pos: Tensor) -> Tensor:
+        """The same terms through ``energy.energy_terms``: ``(R,)``. The
+        torsion energy itself is not part of the op, only the 1-4 pair terms
+        folded into lj/electrostatics are."""
+        t = energy_terms(pos, ff, config=ref_cfg)
+        total = t["electrostatics"] + t["lj"]
+        if include_bonds:
+            total = total + t["bonds"]
+        if include_ub and "urey_bradley" in t:
+            total = total + t["urey_bradley"]
+        return total
+
+    def reference_forces(pos: Tensor) -> Tensor:
+        """Autograd forces of :func:`reference_energy` (differentiable where
+        ``pos`` requires grad)."""
+        return _neg_grad(reference_energy, pos)
+
+    def forward(pos: Tensor) -> Tuple[Tensor, Tensor]:
+        return run(pos, tables, consts)
+
+    def pair_terms(pos: Tensor) -> Tuple[Tensor, Tensor]:
+        """``pos (R, N, 3) -> (energy (R,), forces (R, N, 3))``."""
+        return _PairTerms.apply(pos, forward, reference_energy)
+
+    pair_terms.reference_energy = reference_energy
+    pair_terms.reference_forces = reference_forces
+    pair_terms.tables = tables
+    pair_terms.consts = consts
+    return pair_terms
+
+
+def make_nonbonded_op(
+    ff: FFParams,
+    cutoff: Optional[float] = 9.0,
+    switch_dist: Optional[float] = 7.5,
+    rfa: bool = True,
+    solvent_dielectric: float = units.SOLVENT_DIELECTRIC,
+    include_bonds: bool = True,
+    include_14: bool = True,
+    include_ub=None,  # None -> auto: on iff ff carries UB springs
+):
+    """Build ``pair_terms(pos (R, N, 3)) -> (energy (R,), forces (R, N, 3))``.
+
+    Covers LJ + Coulomb plus (by default) bonds, Urey-Bradley springs and
+    scaled 1-4 terms in one pass, differentiable (the backward is autograd
+    of ``pair_terms.reference_energy``). ``include_bonds=False`` /
+    ``include_14=False`` reduce it to fewer terms. The forward is the dense
+    kernel on a CUDA tensor (float32, or it raises) and
+    :func:`dense_pair_math` on a CPU tensor.
+    """
+    return make_pair_op(
+        ff, nonbonded_rows, cutoff, switch_dist, rfa, solvent_dielectric,
+        include_bonds, include_14, include_ub,
+    )

@@ -26,8 +26,8 @@ atom of the helix overlaps about a third of the others), so the kernel here
 uses the layout the math wants: a bit mask of overlapping neighbours per atom
 in shared memory, and the sums of steps 2 and 4 as loops over the set bits.
 That needs two (nc, nc) float32 matrices (a, and B overwritten by c) instead
-of four, which is what lets the pass fit inside the campaign kernel's 48 KB
-beside its state. Distances come from exact coordinate differences (a Gram
+of four, which is what lets the pass fit inside the campaign kernel's shared
+memory beside its state. Distances come from exact coordinate differences (a Gram
 matrix loses 26x in force error at |r| ~ 30 A), with IEEE ``1.0f / sqrtf``.
 One CTA per replica, no atomics: every sum is a per-atom or per-pair gather in
 a fixed order.
@@ -49,8 +49,8 @@ import torch
 
 from molecular_dynamics_tpu_torch import solvent
 from molecular_dynamics_tpu_torch.ff.params import FFParams
-from molecular_dynamics_tpu_torch.ops.nonbonded import _np
-from molecular_dynamics_tpu_torch.ops.ring import check_kernel_input
+from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES, kernel_function
+from molecular_dynamics_tpu_torch.ops.nonbonded import _np, check_kernel_input
 
 Tensor = torch.Tensor
 
@@ -152,19 +152,6 @@ def sasa_forces_reference(
     return forces, energy
 
 
-def _library():
-    from molecular_dynamics_tpu_torch.ops import _build
-
-    fn = _build.load("sasa_forces").mdx_sasa_forces
-    if not fn.argtypes:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def sasa_shared_bytes(n_compact: int) -> int:
     """Shared memory the LCPO pass needs a replica: two (nc, nc) float32
     matrices, the neighbour bit masks (one 32-bit word per 32 atoms a row),
@@ -192,12 +179,15 @@ def sasa_forces(
     if tables.atom.device != pos.device or tables.idx.device != pos.device:
         raise ValueError("tables and pos live on different devices")
     need = sasa_shared_bytes(nc) + 4 * 6 * n  # + coordinates and forces
-    if need > 48 * 1024:
+    if need > SHARED_OPT_IN_BYTES:
         raise ValueError(
             f"sasa_forces: {nc} heavy atoms need {need} bytes of shared memory "
-            "a replica; the kernel holds 49152"
+            f"a replica; the kernel holds {SHARED_OPT_IN_BYTES}"
         )
-    fn = _library()
+    fn = kernel_function(
+        "sasa_forces", "mdx_sasa_forces",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+    )
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):

@@ -45,9 +45,8 @@ from molecular_dynamics_tpu_torch.integrate import (
 )
 from molecular_dynamics_tpu_torch.system import MDState
 
-#: energy terms the pair kernel supplies on the ``fused_nonbonded`` path; the
-#: autograd energy keeps the rest
-_PAIR_KERNEL_TERMS = ("electrostatics", "lj", "bonds", "1-4")
+#: the pair ops ``SimulationConfig.kernel_variant`` chooses between
+KERNEL_VARIANTS = ("ring", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +61,16 @@ class SimulationConfig:
     #: enable minimum-image wrapping against state.box. Off by default: the
     #: campaign workloads are vacuum / implicit-solvent systems.
     pbc: bool = False
-    #: on the ensemble path, take every 2-body term (LJ, Coulomb, bonds,
-    #: Urey-Bradley, 1-4) from the pair kernel ``ops.ring.pair_forces`` with
-    #: analytic forces, and only angles/torsions/bias from autograd. Requires
-    #: the default term set and no PBC.
+    #: the composed force path: every 2-body term (LJ, Coulomb, bonds,
+    #: Urey-Bradley, 1-4) from a pair op (``kernel_variant``), angles and
+    #: torsions from ``ops.bonded.make_angle_torsion_op``, the bias from
+    #: autograd. Differentiable: the pair ops carry their own backward.
+    #: Requires the default term set and no PBC.
     fused_nonbonded: bool = False
+    #: the pair op of ``fused_nonbonded``: ``"ring"`` (each unordered pair
+    #: once, ``ops.ring.make_pair_ring_op``) or ``"dense"`` (every pair from
+    #: both ends, ``ops.nonbonded.make_nonbonded_op``)
+    kernel_variant: str = "ring"
     #: run whole save_every-step segments inside ONE launch of the campaign
     #: kernel (state resident on chip, in-kernel noise + analytic bonded
     #: forces). Fastest simulation path; not differentiable. Langevin + no
@@ -84,6 +88,13 @@ class SimulationConfig:
     #: when ``sasa_every`` equals it) as Verlet-I impulses once per this many
     #: steps (1 = every step). Must divide ``save_every``.
     gb_every: int = 1
+
+    def __post_init__(self):
+        if self.kernel_variant not in KERNEL_VARIANTS:
+            raise ValueError(
+                f"kernel_variant must be one of {KERNEL_VARIANTS}, "
+                f"got {self.kernel_variant!r}"
+            )
 
 
 def _potential(ff: FFParams, config: SimulationConfig, bias):
@@ -166,14 +177,17 @@ def make_ensemble_step_fn(
 ) -> Callable[..., MDState]:
     """Ensemble step: operates directly on batched ``(R, ...)`` states.
 
-    With ``config.fused_nonbonded`` the 2-body forces come from the pair
-    kernel (one pass over all replicas) while angles, torsions and the bias
-    stay on the autograd path; otherwise the forces are autograd of the total
+    With ``config.fused_nonbonded`` the forces are composed as the JAX
+    package composes them: the 2-body forces from the pair op of
+    ``config.kernel_variant`` (one kernel launch over all replicas), angles
+    and torsions from the angle-torsion op, minus the bias gradient. Both ops
+    are differentiable, so a rollout differentiated through this path keeps
+    every force's gradient. Otherwise the forces are autograd of the total
     energy, except those of the ``gb`` and ``sasa`` terms, which are analytic
     (``ops.gb.gb_forces``, ``ops.sasa.sasa_forces``: their kernels on a CUDA
     state, float32 only) wherever the step need not be differentiated
     through. Positions that carry a graph keep every force on autograd.
-    ``fused_nonbonded`` with PBC or a term set its kernel does not cover
+    ``fused_nonbonded`` with PBC or a term set its kernels do not cover
     raises. ``step_fn(states, noise=None, generator=None)``.
     """
     potential = _potential(ff, config, bias)
@@ -185,19 +199,24 @@ def make_ensemble_step_fn(
     )
     if use_fused:
         _require_kernel_coverage("fused_nonbonded", config, langevin_only=False, ff=ff)
-        from molecular_dynamics_tpu_torch.ops.ring import (
-            build_pair_tables,
-            pair_forces,
-        )
+        from molecular_dynamics_tpu_torch.ops.bonded import make_angle_torsion_op
+        from molecular_dynamics_tpu_torch.ops.nonbonded import make_nonbonded_op
+        from molecular_dynamics_tpu_torch.ops.ring import make_pair_ring_op
 
-        tables = build_pair_tables(
-            ff, include_ub=resolve_urey_bradley(ecfg, ff)
+        make_pair = (
+            make_pair_ring_op if config.kernel_variant == "ring" else make_nonbonded_op
         )
-        rest_cfg = dataclasses.replace(
-            ecfg,
-            terms=tuple(t for t in ecfg.terms if t not in _PAIR_KERNEL_TERMS),
-            urey_bradley=False,
+        pair_op = make_pair(
+            ff,
+            cutoff=ecfg.cutoff,
+            switch_dist=ecfg.switch_dist,
+            rfa=ecfg.rfa,
+            solvent_dielectric=ecfg.solvent_dielectric,
+            include_bonds=True,
+            include_14=True,
+            include_ub=resolve_urey_bradley(ecfg, ff),
         )
+        at_op = make_angle_torsion_op(ff, dtype=ff.masses.dtype)
     elif solvent_terms:
         # neither term sees the box, so this holds with PBC too
         from molecular_dynamics_tpu_torch.ops.gb import (
@@ -221,14 +240,12 @@ def make_ensemble_step_fn(
 
         def force_fn(pos, box):
             if use_fused:
-                # the kernel takes (R, N, 3): one system is an ensemble of one
-                pair = pair_forces(
-                    pos.detach().reshape(-1, *pos.shape[-2:]).contiguous(),
-                    tables, ecfg.cutoff,
-                    ecfg.switch_dist, ecfg.rfa, ecfg.solvent_dielectric,
-                )[1].reshape(pos.shape)
-                rest = _neg_grad(lambda p: potential(p, box, step, rest_cfg), pos)
-                return pair.to(pos.dtype) + rest
+                # the ops take (R, N, 3): one system is an ensemble of one
+                flat = pos.reshape(-1, *pos.shape[-2:]).contiguous()
+                f = (pair_op(flat)[1] + at_op(flat)[1]).reshape(pos.shape)
+                if bias is not None:
+                    f = f + _neg_grad(lambda p: bias.energy(p, step), pos)
+                return f
             if solvent_terms and not (torch.is_grad_enabled() and pos.requires_grad):
                 # the analytic forces carry no graph: positions that are
                 # differentiated through stay on autograd below

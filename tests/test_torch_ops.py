@@ -90,7 +90,7 @@ def test_pair_table_counts(tables):
 
 def test_pack_pair_tables_roundtrip(tables):
     dense = np.stack(tables[0])
-    pa, pb, pc = tring.pack_pair_tables(dense)
+    pa, pb, pc = tnonbonded.pack_pair_tables(dense)
     assert pa.shape == (104, 104, 4) and pb.shape == (104, 104, 4) and pc.shape == (104, 104)
     special = pa[..., 3] >= 2
     np.testing.assert_array_equal(pa[..., 3] - 2 * special, dense[3])
@@ -166,12 +166,18 @@ def test_gather_lists_reproduce_the_scatter(sysm):
 
 @pytest.mark.parametrize("case", list(PAIR_CASES))
 def test_pair_forces_reference_vs_jax_ring_kernel(sysm, case):
+    """The JAX ring kernel in interpret mode (16-shift chunks: the same pair
+    sum as its monolithic body, tests/test_sim.py, at a quarter of the
+    compile time) against the plain version of K2 and the port's ring op."""
     kw = PAIR_CASES[case]
-    op = jring.make_pair_ring_op(sysm["jff"], block_r=8, interpret=True, **kw)
+    op = jring.make_pair_ring_op(sysm["jff"], block_r=8, interpret=True, shift_chunk=16, **kw)
     je, jf = jax.jit(op)(jnp.asarray(sysm["pos_b"]))
-    tabs = tring.build_pair_tables(sysm["tff"])
+    tabs = tnonbonded.build_pair_tables(sysm["tff"])
     te, tf = tring.pair_forces_reference(t(sysm["pos_b"]), tabs, **kw)
     assert te.shape == (R,) and tf.shape == (R, 104, 3) and tf.dtype == torch.float32
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=2e-3)
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=5e-3)
+    te, tf = tring.make_pair_ring_op(sysm["tff"], **kw)(t(sysm["pos_b"]))
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=2e-3)
     np.testing.assert_allclose(te.numpy(), np.asarray(je), atol=5e-3)
 
@@ -189,28 +195,28 @@ def test_pair_forces_reference_vs_f64_autograd(sysm, case):
         return sum(v for k, v in terms.items() if k != "dihedrals")
 
     pos = t(sysm["pos_b"]).double()
-    te, tf = tring.pair_forces_reference(pos, tring.build_pair_tables(sysm["tff"]), **kw)
+    te, tf = tring.pair_forces_reference(pos, tnonbonded.build_pair_tables(sysm["tff"]), **kw)
     np.testing.assert_allclose(te.numpy(), two_body(pos).numpy(), atol=1e-4)
     np.testing.assert_allclose(tf.numpy(), tenergy._neg_grad(two_body, pos).numpy(), atol=1e-4)
     # float32 against float64, the bound the card is held to as well
-    te32, tf32 = tring.pair_forces_reference(pos.float(), tring.build_pair_tables(sysm["tff"]), **kw)
+    te32, tf32 = tring.pair_forces_reference(pos.float(), tnonbonded.build_pair_tables(sysm["tff"]), **kw)
     np.testing.assert_allclose(tf32.numpy(), tf.numpy(), atol=2e-3)
     np.testing.assert_allclose(te32.numpy(), te.numpy(), atol=5e-3)
 
 
 def test_pair_tables_options(sysm):
     pos = t(sysm["pos_b"])
-    full = tring.pair_forces_reference(pos, tring.build_pair_tables(sysm["tff"]))[0]
-    no_ub = tring.pair_forces_reference(pos, tring.build_pair_tables(sysm["tff"], include_ub=False))[0]
+    full = tring.pair_forces_reference(pos, tnonbonded.build_pair_tables(sysm["tff"]))[0]
+    no_ub = tring.pair_forces_reference(pos, tnonbonded.build_pair_tables(sysm["tff"], include_ub=False))[0]
     assert float((full - no_ub).min()) > 0.1
-    e_nocut, _ = tring.pair_forces_reference(pos, tring.build_pair_tables(sysm["tff"]), cutoff=None)
+    e_nocut, _ = tring.pair_forces_reference(pos, tnonbonded.build_pair_tables(sysm["tff"]), cutoff=None)
     assert bool(torch.isfinite(e_nocut).all())
-    assert tring.pair_constants(None, 7.5, True, 78.5) == (1e30, 0.0, 0.0, 1e15, 0.0)
+    assert tnonbonded.pair_constants(None, 7.5, True, 78.5) == (1e30, 0.0, 0.0, 1e15, 0.0)
 
 
 def test_cpu_tensors_take_the_plain_version(sysm):
     pos = t(sysm["pos_b"])
-    tabs = tring.build_pair_tables(sysm["tff"])
+    tabs = tnonbonded.build_pair_tables(sysm["tff"])
     before = tring.pair_forces.launches, tfused.campaign_advance.launches
     e, f = tring.pair_forces(pos, tabs)
     e_ref, f_ref = tring.pair_forces_reference(pos, tabs)
@@ -220,7 +226,7 @@ def test_cpu_tensors_take_the_plain_version(sysm):
     assert all(o.shape == pos.shape for o in out)
     assert (tring.pair_forces.launches, tfused.campaign_advance.launches) == before == (0, 0)
     with pytest.raises(ValueError, match="CUDA"):
-        tring.check_kernel_input("pos", pos, pos.shape)
+        tnonbonded.check_kernel_input("pos", pos, pos.shape)
 
 
 # -- thermostat noise ----------------------------------------------------------
@@ -335,7 +341,7 @@ def test_campaign_smd_centre_uses_the_start_index(sysm):
     """The post-drift force of step i sees the centre at t0 + i, and the
     centre is held past T."""
     tab = tfused.build_campaign_tables(sysm["tff"], 2.0, 0.0, 1.0, bias=sysm["tbias"])
-    pc = tring.pair_constants(9.0, 7.5, True, 78.5)
+    pc = tnonbonded.pair_constants(9.0, 7.5, True, 78.5)
     pos = t(sysm["pos_b"])
     fk, c0, slope, tmax = 1.0, 10.0, 0.5, 8.0
     f = lambda step: tfused.campaign_forces_reference(pos, tab, pc, (fk, c0, slope, tmax), step)
@@ -401,6 +407,19 @@ def test_campaign_solvent_flags_raise(sysm, flag):
 
 
 def test_campaign_shared_memory_limit_raises(sysm, monkeypatch):
+    """The kernel opts in to the card's 227 KB a CTA: the 416-atom system
+    (70.2 KB unconstrained) and the 1,040-atom one (175.4 KB) fit, 13 copies
+    (228.1 KB) do not."""
+    from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
+
+    assert tfused.SHARED_LIMIT_BYTES == 232448
+    counts = dict(n_angles=183, n_tors=273, n_cons=0)
+    need = {m: tfused.campaign_shared_bytes(104 * m, *(m * c for c in counts.values()))
+            for m in (4, 10, 13)}
+    assert need == {4: 71856, 10: 179640, 13: 233532}
+    ff13, _, _ = tiled_decaalanine(13, device="cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        tfused.make_fused_campaign_op(ff13)
     monkeypatch.setattr(tfused, "SHARED_LIMIT_BYTES", 1024)
     with pytest.raises(ValueError, match="shared memory"):
         tfused.make_fused_campaign_op(sysm["tff"])

@@ -209,6 +209,108 @@ def test_smd_campaign_config_matches_jax():
         tcfg, tcol = tsim.smd_campaign_config(**kw)
         assert jcol == tcol
         jd, td = dataclasses.asdict(jcfg), dataclasses.asdict(tcfg)
-        for dropped in ("kernel_variant", "kernel_block_r"):  # TPU tuning
-            jd.pop(dropped)
+        jd.pop("kernel_block_r")  # TPU tuning
         assert jd == td
+
+
+# -- the composed, differentiable pair-op path ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiled_world():
+    """Two tiled copies (208 atoms) in float64, 2 replicas jittered from a
+    seed, with velocities and the initial forces (the JAX package's) as
+    numpy: the same inputs for both packages."""
+    from molecular_dynamics_tpu.examples import tiled_decaalanine as jtiled
+    from molecular_dynamics_tpu_torch import convert as tconvert
+    from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
+
+    jff, coords, _ = jtiled(2, dtype=jnp.float64)
+    tff, _, _ = tiled_decaalanine(2, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(17)
+    pos = np.asarray(coords)[None] + rng.normal(0.0, 0.02, (2,) + np.shape(coords))
+    vel = thermal_velocities(np.asarray(jff.masses), 2, seed=4).astype(np.float64)
+    frc = np.array(jax.jit(jax.vmap(jax.grad(
+        lambda q: -jenergy.total_energy(q, jff, config=jenergy.REFERENCE_CONFIG))))(jnp.asarray(pos)))
+    jens = jsystem.replicate(
+        jsystem.system_init(jnp.asarray(pos[0]), key=jax.random.PRNGKey(0), dtype=jnp.float64), 2
+    ).replace(pos=jnp.asarray(pos), vel=jnp.asarray(vel), forces=jnp.asarray(frc))
+    tens = tconvert.state_from_numpy(pos, vel=vel, forces=frc, device="cpu", dtype=torch.float64)
+    return dict(jff=jff, tff=tff, jens=jens, tens=tens)
+
+
+@pytest.fixture(scope="module")
+def jax_composed_tiled(tiled_world):
+    """JAX ``simulate_ensemble`` on its XLA composed path: T = 0, 1 fs, 2
+    saves of 2 steps, with the forces of each save."""
+    cfg = jsim.SimulationConfig(dt_fs=1.0, temperature=0.0)
+    _, frames, _, forces = jsim.simulate_ensemble(
+        tiled_world["jens"], tiled_world["jff"], n_steps=4, save_every=2, config=cfg,
+        obs_every=2, save_forces=True,
+    )
+    return np.asarray(frames), np.asarray(forces)
+
+
+@pytest.mark.parametrize("variant", tsim.KERNEL_VARIANTS)
+def test_composed_pair_op_path_matches_jax_on_tiled_system(tiled_world, jax_composed_tiled, variant):
+    """``fused_nonbonded`` (pair op + angle-torsion op) at 208 atoms against
+    the JAX package's XLA composed path, float64. The pair forces come from
+    float32 tables on one side and float64 parameters on the other: frames to
+    1e-6 A, forces to 1e-4 kcal/mol/A."""
+    cfg = tsim.SimulationConfig(dt_fs=1.0, temperature=0.0, fused_nonbonded=True, kernel_variant=variant)
+    _, frames, log, forces = tsim.simulate_ensemble(
+        tiled_world["tens"], tiled_world["tff"], n_steps=4, save_every=2, config=cfg,
+        obs_every=2, save_forces=True,
+    )
+    jframes, jforces = jax_composed_tiled
+    assert tuple(frames.shape) == jframes.shape == (2, 2, 208, 3)
+    np.testing.assert_allclose(frames.numpy(), jframes, atol=1e-6)
+    np.testing.assert_allclose(forces.numpy(), jforces, atol=1e-4)
+    assert tuple(log["T"].shape) == (1, 2)
+
+
+def _two_step_gradient(world_f64, fused, variant="ring"):
+    """d loss / d pos0 through two BAOAB steps at T = 0 (2 fs), loss a fixed
+    weighted sum of the final positions and velocities."""
+    tff, pos0, vel0, frc0, w_pos, w_vel = world_f64
+    cfg = tsim.SimulationConfig(
+        dt_fs=2.0, temperature=0.0, fused_nonbonded=fused, kernel_variant=variant)
+    step_fn = tsim.make_ensemble_step_fn(tff, cfg)
+    pos = pos0.clone().requires_grad_(True)
+    st = tsystem.MDState(
+        pos=pos, vel=vel0, forces=frc0, box=torch.zeros(2, 3, dtype=torch.float64),
+        key=torch.zeros(2, dtype=torch.int64), step=torch.zeros(2, dtype=torch.int64))
+    for _ in range(2):
+        st = step_fn(st)
+    loss = (w_pos * st.pos).sum() + (w_vel * st.vel).sum()
+    (g,) = torch.autograd.grad(loss, pos)
+    return g
+
+
+@pytest.fixture(scope="module")
+def world_f64():
+    tff, _ = torch_system("full_da")
+    rng = np.random.default_rng(23)
+    pos = t(minimized_full_da()[None] + rng.normal(0.0, 0.02, (2, 104, 3)))
+    vel = t(thermal_velocities(tff.masses.numpy(), 2, seed=5)).double()
+    frc = tenergy.force_fn()(pos, tff)
+    return tff, pos, vel, frc, t(rng.normal(size=(2, 104, 3))), t(rng.normal(size=(2, 104, 3)))
+
+
+@pytest.mark.parametrize("variant", tsim.KERNEL_VARIANTS)
+def test_fused_nonbonded_keeps_the_pair_gradient(world_f64, variant):
+    """A rollout differentiated through ``fused_nonbonded`` has the gradient
+    of the all-autograd path: the pair op's backward carries the 2-body part
+    (LJ, Coulomb, bonds, Urey-Bradley, 1-4) instead of dropping it. Float64,
+    2 replicas, two steps; the pair forces' float32 tables bound the match."""
+    want = _two_step_gradient(world_f64, fused=False)
+    got = _two_step_gradient(world_f64, fused=True, variant=variant)
+    scale = float(want.abs().max())
+    assert scale > 1.0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-7 * scale)
+
+
+def test_kernel_variant_is_checked():
+    assert tsim.SimulationConfig().kernel_variant == "ring"
+    with pytest.raises(ValueError, match="kernel_variant"):
+        tsim.SimulationConfig(kernel_variant="chunked")

@@ -15,6 +15,11 @@ import torch
 
 from molecular_dynamics_tpu_torch import convert as tconvert
 
+# The tests run in several worker processes at once; torch's intra-op pool,
+# one thread per core in each of them, would oversubscribe the cores many
+# times over for tensors of a few hundred atoms.
+torch.set_num_threads(1)
+
 SYSTEMS = ("full_da", "diala")
 
 
