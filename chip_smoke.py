@@ -18,7 +18,13 @@ Phases, one JSON line each on standard output:
    and each-pair-once ``pair_tiles``) at 104 x 1024, 416 x 192 and 1,040 x
    96, at 9 A with the reaction field and at 16 A without it, and the pair
    ops' backward at 8 x 416; the SASA kernel also above 48 KB of shared
-   memory (two tiled copies, where it opts in to more).
+   memory (two tiled copies, where it opts in to more), and raising when a
+   neighbour list overflows (the pair pressed to a tenth); the GB kernel at
+   208 atoms and the GBIS campaign kernel at 208 atoms, where its LCPO lists
+   can overflow and the wrapper reads the flag. ``levers``: what each choice
+   of the GB and LCPO redesign buys, each taken out of a copy of ``csrc/``
+   (``LEVERS``), built beside the port's libraries while the checks run and
+   timed against the kernel as built, in turns.
 4. ``campaign``: the main path through the public entry points: load the
    104-atom deca-alanine, FIRE-minimise, draw velocities, build the SMD bias
    at the measured end-to-end distance, replicate to 1024, and run
@@ -53,13 +59,23 @@ Phases, one JSON line each on standard output:
    it launches a step.
 6. the card's name and power limit as ``nvidia-smi`` prints them, the
    ``kernels`` line (per kernel: launches counted on the main path, error
-   against the plain version, time per launch, the plain version's time, and
-   the least time the card could take), and the final ``ok`` line.
+   against the plain version, time per launch, the plain version's time, the
+   least time the card could take, and beside it the least time its SFU
+   could take for the transcendentals; for the campaign, GB and SASA kernels
+   also registers a thread, shared memory, CTAs an SM from the occupancy API
+   and the waves 1024 replicas make; for the GBIS campaign kernel the split
+   of a launch into its fast part, GB and LCPO), and the final ``ok`` line.
+   The ``build`` phase carries what ``nvcc -Xptxas -v`` printed of each
+   kernel's registers, shared memory and spills.
 
 Any failed check ends the run with a non-zero exit code.
 """
 
+import ctypes
 import json
+import math
+import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -149,6 +165,24 @@ FLOPS_SASA_PAIR = 30         # per overlapping ordered pair: area sum, W, da/dd,
 FLOPS_SASA_B = 1             # per (p, q overlapping, k in N(p)): B_pq += a_qk
 FLOPS_SASA_G = 3             # per (p, q overlapping, i in N(p) and N(q)): the W sum
 FLOPS_SASA_ATOM = 10
+# The second bound, the SFU's: transcendental operations each function needs
+# (a division, square root, reciprocal square root, exponential, logarithm,
+# sine or cosine counts one, the one SFU instruction at the heart of its
+# sequence). csrc/gb_terms.cuh per unordered pair: 1/d (2), each of the two
+# HCT directions two divisions and a logarithm (6), the Still term two
+# exponentials with salt, a square root and a division (4).
+SFU_GB_PAIR = 12
+SFU_GB_ATOM = 4              # tanh (2), 1/R, the self term's exponential
+SFU_SASA_PAIR = 2            # per unordered pair of the compact set: 1/d
+SFU_PAIR_LIVE = 2            # pair_term: 1/d, per live unordered pair
+SFU_ANGLE = 5                # atan2, a square root, two 1/sqrt, a division
+SFU_TORSION_BASE = 7         # atan2, a square root, five divisions
+SFU_TORSION_TERM = 1         # a sine per term
+SFU_CONSTRAINT_SWEEP = 1     # a division (SHAKE) or 1/sqrt (RATTLE) per sweep
+SFU_ATOM_STEP = 7            # Box-Muller: two logarithms, two roots, three sines/cosines
+# An H100 SM issues 128 float32 FMAs (256 flops) and 16 SFU operations a
+# clock (4 SFUs in each of its 4 sub-partitions; NVIDIA H100 white paper)
+PEAK_SFU_OPS = PEAK_F32_FLOPS / 16
 
 # Tolerances. The kernel and its plain version do the same float32 arithmetic
 # in another order (and rsqrtf/atan2f are 2-ulp functions), so they agree to
@@ -313,6 +347,58 @@ def campaign_bound_ms(n_rep, tab, live, n_inner, shake_iters, rattle_iters):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+def sfu_ms(ops):
+    """The least time the card's SFUs take for ``ops`` transcendentals."""
+    return 1e3 * ops / PEAK_SFU_OPS
+
+
+def pair_sfu_ops(live):
+    return live * SFU_PAIR_LIVE
+
+
+def campaign_sfu_ops(n_rep, tab, live, n_inner, shake_iters, rattle_iters):
+    return n_inner * (pair_sfu_ops(live) + n_rep * (
+        tab.n_angles * SFU_ANGLE
+        + tab.n_tors * (SFU_TORSION_BASE + SFU_TORSION_TERM * tab.max_t)
+        + tab.n_cons * SFU_CONSTRAINT_SWEEP * (2 * shake_iters + 3 * rattle_iters)
+        + tab.n_atoms * SFU_ATOM_STEP))
+
+
+def gb_sfu_ops(n_rep, n):
+    return n_rep * (n * (n - 1) // 2 * SFU_GB_PAIR + n * SFU_GB_ATOM)
+
+
+def sasa_sfu_ops(n_rep, nc):
+    return n_rep * nc * (nc - 1) // 2 * SFU_SASA_PAIR
+
+
+def build_facts(info, n_ctas=N_REPLICAS):
+    """A kernel's build facts (``_build.kernel_info``) and the waves
+    ``n_ctas`` CTAs make on the card's SMs at that occupancy."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = sms * info["ctas_per_sm"]
+    return {**info, "sm_count": sms,
+            f"waves_for_{n_ctas}_ctas": n_ctas / slots if slots else None}
+
+
+def ptxas_summary(logs):
+    """The lines of ``nvcc -Xptxas -v`` that name a kernel and its resources."""
+    keep = ("Compiling entry function", "Function properties", "Used", "spill")
+    return {name: [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
+            for name, log in logs.items()}
+
+
+def max_heavy_atoms(atoms_per_heavy):
+    """The largest LCPO set the SASA kernel holds in the shared memory a CTA
+    may opt in to, with ``atoms_per_heavy`` atoms a heavy atom (their
+    coordinates and forces sit in shared memory too)."""
+    nc = 1
+    while (sasa.sasa_shared_bytes(nc + 1) + 24 * math.ceil(atoms_per_heavy * (nc + 1))
+           <= _build.SHARED_OPT_IN_BYTES):
+        nc += 1
+    return nc
+
+
 def gb_bound_ms(n_rep, n, with_energy=True):
     pairs = n * (n - 1) // 2
     flops = n_rep * (
@@ -356,6 +442,265 @@ def sasa_bound_ms(n_rep, n, nc, work):
     nbytes = n_rep * n * 24 + n_rep * 4 + nc * 24
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+# -- lever ablation -------------------------------------------------------------
+# What each design choice of the GB and LCPO redesign buys, measured in this
+# call: a copy of csrc/ with one choice changed (a textual substitution of
+# the committed source: old text -> new, or (first line, line after) of a
+# span -> new), built with the same flags beside the libraries the port
+# loads, and timed on the same inputs as the kernel itself. A substitution
+# that no longer applies to the sources is reported, not run.
+_STILL_RING = """template <int kThreads, bool kEnergy>
+__device__ __forceinline__ float gb_still_pass(
+    int n, const float* sx, const float* sy, const float* sz,
+    const float* __restrict__ atom, const GbConsts& c, const GbShared& w,
+    float* tx, float* ty, float* tz) {
+  constexpr int kGbStillBatch = 4, kGbStillLanes = 2;
+  float* der_sum = w.cache + static_cast<size_t>(n) * gb_cache_stride(n);
+  float* coeff_buf = der_sum + n;
+  float* dshare = coeff_buf + kGbStillBatch * n;
+  for (int i = threadIdx.x; i < n; i += kThreads) der_sum[i] = 0.f;
+  __syncthreads();
+  const int half = n / 2;
+  float e_thread = 0.f;
+  for (int s0 = 1; s0 <= half; s0 += kGbStillBatch) {
+    const int s1 = min(s0 + kGbStillBatch, half + 1);
+    // i's half of the pairs (i, i + s); lane g of i's group takes every
+    // kGbStillLanes-th shift of the batch from s0 + g
+    for (int base = 0; base < n * kGbStillLanes; base += kThreads) {
+      const int k = base + static_cast<int>(threadIdx.x);
+      const int i = k / kGbStillLanes, g = k % kGbStillLanes;
+      float fx = 0.f, fy = 0.f, fz = 0.f, der = 0.f;
+      if (i < n) {
+        const float xi = sx[i], yi = sy[i], zi = sz[i];
+        const float bi = w.born[i], bi_inv = w.binv[i];
+        const float qi = __ldg(&atom[kGbColumns * i + kGbQ]);
+        for (int s = s0 + g; s < s1; s += kGbStillLanes) {
+          if (2 * s == n && i >= half) continue;  // taken from its lower end
+          int j = i + s;
+          if (j >= n) j -= n;
+          const float dx = xi - sx[j], dy = yi - sy[j], dz = zi - sz[j];
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          const float bj = w.born[j], bj_inv = w.binv[j];
+          const float qs = 0.25f * d2;
+          const float ex = expf(-qs * (bi_inv * bj_inv));
+          const float f2 = d2 + bi * bj * ex;
+          const float finv = 1.0f / sqrtf(f2);
+          float u, du;
+          still_u(f2 * finv, finv, c, u, du);
+          const float gqq = qi * __ldg(&atom[kGbColumns * j + kGbQ]);
+          const float nqu = -gqq * du;
+          const float coeff = nqu * (1.0f - 0.25f * ex) * finv;
+          const float hx = 0.5f * ex * finv;
+          fx -= coeff * dx;
+          fy -= coeff * dy;
+          fz -= coeff * dz;
+          der += nqu * (bj + qs * bi_inv) * hx;
+          coeff_buf[(s - s0) * n + i] = coeff;
+          dshare[(s - s0) * n + i] = nqu * (bi + qs * bj_inv) * hx;
+          if (kEnergy) e_thread -= gqq * u;
+        }
+      }
+      fx = group_sum<kGbStillLanes>(fx);
+      fy = group_sum<kGbStillLanes>(fy);
+      fz = group_sum<kGbStillLanes>(fz);
+      der = group_sum<kGbStillLanes>(der);
+      if (i < n && g == 0) {
+        tx[i] += fx;
+        ty[i] += fy;
+        tz[i] += fz;
+        der_sum[i] += der;
+      }
+    }
+    __syncthreads();
+    // j's half of the same pairs, from the buffer (the same lanes own j)
+    for (int base = 0; base < n * kGbStillLanes; base += kThreads) {
+      const int k = base + static_cast<int>(threadIdx.x);
+      const int j = k / kGbStillLanes, g = k % kGbStillLanes;
+      float fx = 0.f, fy = 0.f, fz = 0.f, der = 0.f;
+      if (j < n) {
+        const float xj = sx[j], yj = sy[j], zj = sz[j];
+        for (int s = s0 + g; s < s1; s += kGbStillLanes) {
+          int i = j - s;
+          if (i < 0) i += n;
+          if (2 * s == n && i >= half) continue;
+          const float coeff = coeff_buf[(s - s0) * n + i];
+          fx -= coeff * (xj - sx[i]);
+          fy -= coeff * (yj - sy[i]);
+          fz -= coeff * (zj - sz[i]);
+          der += dshare[(s - s0) * n + i];
+        }
+      }
+      fx = group_sum<kGbStillLanes>(fx);
+      fy = group_sum<kGbStillLanes>(fy);
+      fz = group_sum<kGbStillLanes>(fz);
+      der = group_sum<kGbStillLanes>(der);
+      if (j < n && g == 0) {
+        tx[j] += fx;
+        ty[j] += fy;
+        tz[j] += fz;
+        der_sum[j] += der;
+      }
+    }
+    __syncthreads();
+  }
+  // the Born self terms and the chain cotangents
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float qi = __ldg(&atom[kGbColumns * i + kGbQ]);
+    float u, du;
+    still_u(w.born[i], w.binv[i], c, u, du);
+    const float der = der_sum[i] - 0.5f * qi * qi * du;
+    w.ce[i] = der * w.ce[i] * (0.5f * __ldg(&atom[kGbColumns * i + kGbRho]));
+    if (kEnergy) e_thread -= 0.5f * qi * qi * u;
+  }
+  __syncthreads();
+  return e_thread;
+}
+"""
+_CHAIN_RECOMPUTE = """        const float dx = xi - sx[j], dy = yi - sy[j], dz = zi - sz[j];
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        const float dinv = 1.0f / sqrtf(d2);
+        float unused, di_f, di_r;
+        hct_pair(d2 * dinv, dinv, __ldg(&atom[kGbColumns * i + kGbRho]),
+                 __ldg(&atom[kGbColumns * i + kGbRhoInv]),
+                 __ldg(&atom[kGbColumns * j + kGbS]), unused, di_f);
+        hct_pair(d2 * dinv, dinv, __ldg(&atom[kGbColumns * j + kGbRho]),
+                 __ldg(&atom[kGbColumns * j + kGbRhoInv]),
+                 __ldg(&atom[kGbColumns * i + kGbS]), unused, di_r);
+        const float coeff = (ce_i * di_f + w.ce[j] * di_r) * dinv;
+        fx -= coeff * dx;
+        fy -= coeff * dy;
+        fz -= coeff * dz;"""
+_CHAIN_CACHED = """        const float coeff = ce_i * w.cache[gb_cache_index(i, j, stride)] +
+                            w.ce[j] * w.cache[gb_cache_index(j, i, stride)];
+        fx -= coeff * (xi - sx[j]);
+        fy -= coeff * (yi - sy[j]);
+        fz -= coeff * (zi - sz[j]);"""
+_D_AND_WALK = """    float gsum = 0.f;
+    for (int wd = 0; wd < words; ++wd) {
+      const unsigned mp = w.bits[p * words + wd];
+      unsigned m = mp & w.bits[q * words + wd];  // o is symmetric: i in N(p)
+      const float* atp = w.at + p * cap + w.wbase[p * words + wd];
+      while (m) {
+        const int bit = __ffs(m) - 1;
+        m &= m - 1;
+        const int i = 32 * wd + bit;
+        gsum += w.g3[i] + w.g4[i] * atp[__popc(mp & below(bit))];  // a_ip
+      }
+    }"""
+_D_BIT_PER_I = """    float gsum = 0.f;
+    const float* atp = w.at + p * cap;
+    const unsigned short* ip = w.nbr + p * cap;
+    const unsigned* bq = w.bits + q * words;
+    for (int s = 0; s < w.cnt[p]; ++s) {
+      const int i = ip[s];
+      if ((bq[i >> 5] >> (i & 31)) & 1u) gsum += w.g3[i] + w.g4[i] * atp[s];
+    }"""
+#: (what is taken out, its substitutions, the libraries it is measured in)
+LEVERS = (
+    ("dI/dd evaluated again in the chain pass (no cache reads)", [
+        (_CHAIN_CACHED, _CHAIN_RECOMPUTE),
+        ("                                              float* ty, float* tz) {\n  const int stride",
+         "                                              float* ty, float* tz,\n"
+         "                                              const float* __restrict__ atom) {\n  const int stride"),
+        ("  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz);",
+         "  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz, atom);")],
+     ("gb_forces", "campaign_advance")),
+    ("Still term once per unordered pair, on a ring (partner halves through shared memory)", [
+        (("template <int kThreads, bool kEnergy>\n__device__ __forceinline__ float gb_still_pass(",
+          "// Chain pass:"), _STILL_RING + "\n"),
+        ("  return 3 * static_cast<size_t>(n) +\n         static_cast<size_t>(n) * gb_cache_stride(n);",
+         "  return 3 * static_cast<size_t>(n) +\n         static_cast<size_t>(n) * gb_cache_stride(n) + 9 * static_cast<size_t>(n);")],
+     ("gb_forces", "campaign_advance")),
+    ("a thread per atom in every GB pass (no lane groups)", [
+        ("constexpr int kGbLanes = 16;", "constexpr int kGbLanes = 1;")],
+     ("gb_forces", "campaign_advance")),
+    ("IEEE reciprocals in hct_pair", [
+        ("  const float ui = __fdividef(1.0f, up);\n  const float li = __fdividef(1.0f, lo);",
+         "  const float ui = 1.0f / up;\n  const float li = 1.0f / lo;")],
+     ("gb_forces", "campaign_advance")),
+    ("LCPO pass D tests one bit per i of N(p) instead of walking the AND", [
+        (_D_AND_WALK, _D_BIT_PER_I)],
+     ("sasa_forces", "campaign_advance")),
+    ("128 threads a CTA", [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+     ("gb_forces", "sasa_forces")),
+    ("solvent kernel at 128 threads (128 registers)", [
+        ("constexpr int kSolventThreads = 256;", "constexpr int kSolventThreads = 128;")],
+     ("campaign_advance",)),
+    ("solvent kernel without its register cap", [
+        ("__launch_bounds__(kSolventThreads, kSolventCtasPerSm)",
+         "__launch_bounds__(kSolventThreads)")],
+     ("campaign_advance",)),
+)
+LEVER_DIR = pathlib.Path(__file__).resolve().parent / "build" / "mdx_torch_levers"
+
+
+def start_lever_builds():
+    """Copy csrc/ once per variant and library, change it, start one nvcc
+    each."""
+    started, skipped = {}, {}
+    jobs = [(lib, label, subs) for label, subs, in_libs in LEVERS for lib in in_libs]
+    for i, (lib, label, subs) in enumerate(jobs):
+        d = LEVER_DIR / f"{lib}_{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC, d)
+        missing = []
+        for old, new in subs:
+            first, after = old if isinstance(old, tuple) else (old, None)
+            # the library's own source first, then the headers
+            hits = [f for f in [d / f"{lib}.cu", *sorted(d.glob("*.cuh"))] if first in f.read_text()]
+            text = hits[0].read_text() if hits else ""
+            if text.count(first) != 1 or (after and after not in text[text.find(first):]):
+                missing.append(first.strip().splitlines()[0][:60])
+                continue
+            start = text.index(first)
+            end = text.index(after, start) if after else start + len(first)
+            hits[0].write_text(text[:start] + new + text[end:])
+        if missing:
+            skipped[f"{lib}: {label}"] = f"substitution no longer applies: {missing}"
+            continue
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
+               str(d / f"{lib}.cu")]
+        started[(lib, label)] = (d, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return started, skipped
+
+
+def finish_lever_builds(started, skipped):
+    libs = {}
+    for (lib, label), (d, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            skipped[f"{lib}: {label}"] = f"nvcc failed: {log[-400:]}"
+            continue
+        libs[(lib, label)] = ctypes.CDLL(str(d / "lib.so"))
+    return libs
+
+
+def levers_phase(libs, skipped, runs):
+    """Each variant against the kernel as built, in turns (built, variant,
+    variant, built): ms a launch of K3 and K4 at 1024 x 104, of K1 under GBIS per 50
+    steps; and the error against the plain version. ``runs`` maps a library
+    name to (call, error of a result against its plain version)."""
+    rows = {}
+    for (lib, label), variant in libs.items():
+        built = _build._libraries[lib]
+        call, error = runs[lib]
+        times = {"built": [], "variant": []}
+        for which in ("built", "variant", "variant", "built"):
+            _build._libraries[lib] = built if which == "built" else variant
+            times[which].append(time_ms(call, repeats=3 if lib == "campaign_advance" else 20))
+        _build._libraries[lib] = variant
+        err = error(call())
+        facts = (runs[lib + "_facts"]() if lib + "_facts" in runs else None)
+        _build._libraries[lib] = built
+        rows[f"{lib}: {label}"] = {
+            "ms_built": sum(times["built"]) / 2, "ms_variant": sum(times["variant"]) / 2,
+            "ms_each": times, "error_vs_plain_variant": err,
+            **({"build_facts_variant": facts} if facts else {})}
+    return {**rows, **{k: {"skipped": v} for k, v in skipped.items()}}
 
 
 PAIR_CASES = {
@@ -619,7 +964,9 @@ def main():
     # -- build -------------------------------------------------------------
     libs = _build.build_all(verbose=True)
     emit("build", seconds=round(_build.last_build_seconds, 2),
-         libraries=sorted(libs), flags=" ".join(_build.NVCC_FLAGS))
+         libraries=sorted(libs), flags=" ".join(_build.NVCC_FLAGS),
+         ptxas=ptxas_summary(_build.last_build_logs))
+    lever_builds = start_lever_builds()
 
     # -- the system: minimised 104-atom deca-alanine -------------------------
     ff, coords, _ = decaalanine_full()
@@ -693,6 +1040,8 @@ def main():
         check(res["energy_err_plain_f32_vs_f64"] <= TOL_PAIR_ENERGY, f"pair plain f32/f64 {name}: {res}")
         check(res["force_err_plain_f64_vs_autograd"] <= TOL_TABLES, f"pair plain vs autograd {name}: {res}")
 
+    # every timing below runs with the host to itself: the lever builds end here
+    lever_libs = finish_lever_builds(*lever_builds)
     ref_kw = pair_cases["reference_9A_rf_sw7.5"]
     pair_consts = nonbonded.pair_constants(9.0, 7.5, True, mdx.units.SOLVENT_DIELECTRIC)
     live = live_pair_count(pos_pert, tables, pair_consts)
@@ -710,7 +1059,7 @@ def main():
                            checks["pair_forces[gbis_16A_norf_sw15]"]["force_err_kernel_vs_plain"]),
         "tolerance": TOL_PAIR_FORCE,
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-        "bound_by": k2_by, "library_ms": None,
+        "bound_by": k2_by, "library_ms": None, "sfu_bound_ms": sfu_ms(pair_sfu_ops(live)),
         "shape": [N_REPLICAS, n, 3], "flops": k2_flops, "bytes": k2_bytes,
         "live_unordered_pairs": live,
     }
@@ -829,7 +1178,9 @@ def main():
               f"{errs} (bounds {tols})")
     checks["campaign_advance[T=300]"] = {"min_neighbour_spread_A": spread}
 
-    k1_ms = time_ms(lambda: op50(pos_b, vel_b, frc_b, 0, 3), repeats=5)
+    # three timings: their spread is the noise a vacuum time is read against
+    k1_ms_runs = [time_ms(lambda: op50(pos_b, vel_b, frc_b, 0, 3), repeats=5) for _ in range(3)]
+    k1_ms = sorted(k1_ms_runs)[1]
     # where a launch's time goes: the same 50 steps without SHAKE/RATTLE
     op50_free = fused_step.make_fused_campaign_op(
         ff, n_inner=N_INNER, dt_fs=2.0, temperature=300.0, gamma_ps=1.0, bias=bias
@@ -854,8 +1205,12 @@ def main():
         "launches": 0,
         "max_abs_err": k1_err[N_INNER][0], "tolerance": TOL_POS_50,
         "max_abs_err_what": "positions (A) after 50 steps at T=0 vs the plain version",
-        "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+        "ms": k1_ms, "ms_runs": k1_ms_runs, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
         "bound_by": k1_by, "library_ms": None,
+        "sfu_bound_ms": sfu_ms(campaign_sfu_ops(
+            N_REPLICAS, tab, live_b, N_INNER, plain_settings["shake_iters"],
+            plain_settings["rattle_iters"])),
+        **build_facts(op50.kernel_info()),
         "shape": [N_REPLICAS, n, 3], "n_inner": N_INNER,
         "ms_without_constraints": k1_free_ms,
         "flops": k1_flops, "bytes": k1_bytes,
@@ -905,6 +1260,7 @@ def main():
     f_k, e_k, b_k = gb.gb_forces(pos_pert, gb_tab, gb_consts)
     torch.cuda.synchronize()
     f_p, e_p, b_p = gb.gb_forces_reference(pos_pert, gb_tab, gb_consts)
+    f_gb_plain = f_p
     f_d, e_d, b_d = gb.gb_forces_reference(pos_pert.double(), gb_tab, gb_consts)
     gb_energy = lambda p: solvent.gb_energy(p, ff64, eps_s, salt)
     res = {
@@ -940,7 +1296,8 @@ def main():
         "launches": 0,
         "max_abs_err": res["force_err_kernel_vs_plain"], "tolerance": TOL_GB_FORCE,
         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-        "library_ms": None,
+        "library_ms": None, "sfu_bound_ms": sfu_ms(gb_sfu_ops(N_REPLICAS, n)),
+        **build_facts(_build.kernel_info("gb_forces", "mdx_gb_forces_info", [ctypes.c_int], n)),
         "library_note": "no single PyTorch call computes GB-OBC II forces",
         "shape": [N_REPLICAS, n, 3], "flops": k3_flops, "bytes": k3_bytes,
     }
@@ -948,6 +1305,7 @@ def main():
     f_k, e_k = sasa.sasa_forces(pos_pert, sasa_tab, gamma)
     torch.cuda.synchronize()
     f_p, e_p = sasa.sasa_forces_reference(pos_pert, sasa_tab, gamma)
+    f_sasa_plain = f_p
     f_d, e_d = sasa.sasa_forces_reference(pos_pert.double(), sasa_tab, gamma)
     sasa_energy = lambda p: solvent.sasa_energy(p, ff64, gamma)
     gated = int((solvent.sasa(pos_pert, ff)[:, sasa_tab.idx.long()] <= 0).sum())
@@ -990,6 +1348,32 @@ def main():
     check(res["tiled_2_force_err_kernel_vs_plain"] <= TOL_SASA_FORCE
           and res["tiled_2_energy_err_kernel_vs_plain"] <= 2 * TOL_SASA_ENERGY,
           f"sasa_forces above 48 KB of shared memory: {res}")
+    # at 102 heavy atoms a list holds 64 of the 101 possible neighbours: the
+    # pair pressed to a tenth about its centre overlaps up to 101, and the
+    # wrapper must raise instead of returning a truncated force
+    centre = pos_t2[:1].mean(1, keepdim=True)
+    squeezed = (centre + 0.1 * (pos_t2[:1] - centre)).contiguous()
+    res["tiled_2_squeezed_max_degree"] = int(sasa.sasa_overlaps(squeezed, tab_t2).sum(-1).max())
+    try:
+        sasa.sasa_forces(squeezed, tab_t2, gamma)
+        res["tiled_2_squeezed_raised"] = False
+    except RuntimeError as exc:
+        res["tiled_2_squeezed_raised"] = "neighbour list" in str(exc)
+    check(res["tiled_2_squeezed_max_degree"] > sasa.sasa_capacity(tab_t2.n_compact)
+          and res["tiled_2_squeezed_raised"],
+          f"sasa_forces: an overflowing neighbour list did not raise: {res}")
+    # the GB kernel on the same pair: 208 atoms, its dI cache alone 172 KB
+    gb_t2 = gb.build_gb_tables(ff_t2)
+    fb_k, eb_k, _ = gb.gb_forces(pos_t2, gb_t2, gb_consts)
+    fb_p, eb_p, _ = gb.gb_forces_reference(pos_t2, gb_t2, gb_consts)
+    torch.cuda.synchronize()
+    checks["gb_forces[208 atoms]"] = {
+        "shared_bytes": gb.gb_shared_bytes(ff_t2.n_atoms) + 24 * ff_t2.n_atoms,
+        "force_err_kernel_vs_plain": max_err(fb_k, fb_p),
+        "energy_err_kernel_vs_plain": max_err(eb_k, eb_p)}
+    check(checks["gb_forces[208 atoms]"]["force_err_kernel_vs_plain"] <= TOL_GB_FORCE
+          and checks["gb_forces[208 atoms]"]["energy_err_kernel_vs_plain"] <= 2 * TOL_GB_ENERGY,
+          f"gb_forces at 208 atoms: {checks['gb_forces[208 atoms]']}")
     checks["sasa_forces"] = res
     check(bool(torch.isfinite(f_k).all() and torch.isfinite(e_k).all()), "sasa_forces: non-finite")
     check(res["force_err_kernel_vs_plain"] <= TOL_SASA_FORCE, f"sasa_forces: {res}")
@@ -1013,7 +1397,11 @@ def main():
         "launches": 0,
         "max_abs_err": res["force_err_kernel_vs_plain"], "tolerance": TOL_SASA_FORCE,
         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
-        "library_ms": None,
+        "library_ms": None, "sfu_bound_ms": sfu_ms(sasa_sfu_ops(N_REPLICAS, nc)),
+        **build_facts(_build.kernel_info(
+            "sasa_forces", "mdx_sasa_forces_info", [ctypes.c_int] * 2, n, nc)),
+        "list_capacity": sasa.sasa_capacity(nc),
+        "largest_heavy_atom_count": max_heavy_atoms(n / nc),
         "library_note": "the two (nc, nc) products alone could be torch.bmm; the function "
                         "as a whole (overlap test, gate, cotangent, forces) has no single call",
         "shape": [N_REPLICAS, n, 3], "compact_atoms": nc, "flops": k4_flops, "bytes": k4_bytes,
@@ -1094,6 +1482,7 @@ def main():
     variants = {
         "vacuum_16A": make_gbis_op(N_INNER, 300.0, gb=False, sasa=False),
         "gb": make_gbis_op(N_INNER, 300.0, sasa=False),
+        "sasa": make_gbis_op(N_INNER, 300.0, gb=False),
         "gb+sasa": g50,
         "gb+sasa,sasa_every=5": g50_s5,
         "gb+sasa,gb_every=2,sasa_every=2": g50_g2,
@@ -1107,6 +1496,8 @@ def main():
             pos_b, vel_b, frc_g, 0, 3, g50.tables, **g50.settings),
         repeats=1, warmup=0,
     )
+    g50_plain = fused_step.campaign_advance_reference(
+        pos_b, vel_b, frc_g, 0, 3, g50.tables, **g50.settings)
     pair_consts_g = gs["pair_consts"]
     live_g = live_pair_count(pos_b, tables, pair_consts_g)
     work_b = sasa_work(pos_b, sasa_tab)
@@ -1116,6 +1507,18 @@ def main():
         gb_bound_ms(N_REPLICAS, n, with_energy=False)[2] + sasa_flops(N_REPLICAS, nc, work_b))
     kg_bytes += n * 5 * 4 + nc * 24
     kg_bound = 1e3 * max(kg_flops / PEAK_F32_FLOPS, kg_bytes / PEAK_BYTES_PER_S)
+    kg_sfu = campaign_sfu_ops(N_REPLICAS, g1.tables, live_g, N_INNER, gs["shake_iters"],
+                              gs["rattle_iters"]) + N_INNER * (
+        gb_sfu_ops(N_REPLICAS, n) + sasa_sfu_ops(N_REPLICAS, nc))
+    # a GBIS launch taken apart by differences of whole-kernel times
+    split = {
+        "fast_part": gbis_ms["vacuum_16A"],
+        "constraints": gbis_ms["vacuum_16A"] - gbis_ms["vacuum_16A,no_constraints"],
+        "gb": gbis_ms["gb"] - gbis_ms["vacuum_16A"],
+        "lcpo": gbis_ms["gb+sasa"] - gbis_ms["gb"],
+        "lcpo_without_gb": gbis_ms["sasa"] - gbis_ms["vacuum_16A"],
+        "lcpo_sasa_every_5": gbis_ms["gb+sasa,sasa_every=5"] - gbis_ms["gb"],
+    }
     kernels["campaign_advance[gbis]"] = {
         "name": "campaign_advance[gbis]", "route": "cuda",
         "source": "molecular_dynamics_tpu_torch/csrc/campaign_advance.cu",
@@ -1125,12 +1528,28 @@ def main():
         "max_abs_err_what": "positions (A) after 50 steps at T=0 with GB and SASA vs the plain version",
         "ms": gbis_ms["gb+sasa"], "plain_ms": kg_plain_ms, "bound_ms": kg_bound,
         "bound_by": "operations" if kg_flops / PEAK_F32_FLOPS >= kg_bytes / PEAK_BYTES_PER_S else "bytes",
-        "library_ms": None,
+        "library_ms": None, "sfu_bound_ms": sfu_ms(kg_sfu),
+        **build_facts(g50.kernel_info()),
+        "build_facts_sasa_every_5": build_facts(g50_s5.kernel_info()),
         "shape": [N_REPLICAS, n, 3], "n_inner": N_INNER, "flops": kg_flops, "bytes": kg_bytes,
-        "ms_by_variant": gbis_ms, "shared_bytes": g50.shared_bytes,
+        "ms_by_variant": gbis_ms, "split_ms": split, "shared_bytes": g50.shared_bytes,
         "shared_bytes_with_cadence": g50_s5.shared_bytes,
         "live_unordered_pairs_at_entry": live_g,
     }
+
+    # -- what each lever of the redesign buys (ablation, see LEVERS) --------
+    t_lev = time.perf_counter()
+    levers = levers_phase(lever_libs, lever_builds[1], {
+        "gb_forces": (lambda: gb.gb_forces(pos_pert, gb_tab, gb_consts),
+                      lambda out: max_err(out[0], f_gb_plain)),
+        "sasa_forces": (lambda: sasa.sasa_forces(pos_pert, sasa_tab, gamma),
+                        lambda out: max_err(out[0], f_sasa_plain)),
+        "campaign_advance": (lambda: g50(pos_b, vel_b, frc_g, 0, 3),
+                             lambda out: max_err(out[0], g50_plain[0])),
+        "campaign_advance_facts": g50.kernel_info,
+    })
+    emit("levers", seconds=round(time.perf_counter() - t_lev, 1), **levers,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
     # the 22-atom di-alanine (10 heavy atoms: one mask word, fewer atoms than
     # a warp) through K3, K4 and the GBIS campaign kernel, 64 replicas, T = 0
@@ -1163,6 +1582,29 @@ def main():
         check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
               f"GBIS campaign_advance{label} on di-alanine: {errs}")
     checks["dialanine_22_atoms[gbis]"] = res
+
+    # the tiled pair (208 atoms, 102 heavy) through the GBIS campaign kernel:
+    # its lists can overflow there, so the wrapper reads the flag every launch
+    cons_t2 = hydrogen_bond_constraints(ff_t2)
+    op_t2 = fused_step.make_fused_campaign_op(
+        ff_t2, n_inner=5, dt_fs=2.0, temperature=0.0, cutoff=GBIS_CONFIG.cutoff,
+        switch_dist=GBIS_CONFIG.switch_dist, rfa=GBIS_CONFIG.rfa, solvent_dielectric=eps_s,
+        ion_concentration=salt, surface_tension=gamma, constraints=cons_t2, gb=True, sasa=True)
+    st2 = op_t2.settings
+    pos8 = pos_t2[:8].contiguous()
+    frc8 = fused_step.campaign_forces_reference(
+        pos8, op_t2.tables, st2["pair_consts"], st2["bias_consts"], 0, st2["gb_consts"],
+        st2["surface_tension"]).contiguous()
+    vel8 = torch.zeros_like(pos8)
+    out_k = op_t2(pos8, vel8, frc8, 0, 1)
+    out_p = fused_step.campaign_advance_reference(pos8, vel8, frc8, 0, 1, op_t2.tables, **st2)
+    torch.cuda.synchronize()
+    errs = [max_err(x, y) for x, y in zip(out_k, out_p)]
+    checks["campaign_advance[gbis,208 atoms,T=0,n_inner=5]"] = {
+        **dict(zip(("pos", "vel", "frc"), errs)), "shared_bytes": op_t2.shared_bytes,
+        "lists_can_overflow": sasa.overflow_possible(op_t2.tables.sasa.n_compact)}
+    check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
+          f"GBIS campaign_advance at 208 atoms: {errs}")
 
     # -- K5: nonbonded_rows and K6: pair_tiles -------------------------------
     pair_op_err = pair_op_checks(rng, checks)
@@ -1419,6 +1861,7 @@ def main():
                                 "at every checked shape and both cutoffs",
             "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": None,
+            "sfu_bound_ms": sfu_ms(pair_sfu_ops(at["live_unordered_pairs"])),
             "shape": [TIERS[-1][1], 104 * TIERS[-1][0], 3], "by_shape": by_shape,
         }
     kernels["campaign_advance"]["by_tier"] = tier_times["campaign_advance"]

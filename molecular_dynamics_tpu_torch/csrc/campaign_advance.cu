@@ -10,10 +10,10 @@
 // while each of the n_inner steps needs N*(N-1)/2 pairs of ~60 flops (the
 // pair loop evaluates each from both ends, twice that) plus the bonded terms
 // and 21 constraint sweeps (2 SHAKE of 6, 3 RATTLE of 3).
-// Design: one CTA per replica, 128 threads. Per step, in the order of the
-// reference's step_body: half kick -> RATTLE -> half drift -> SHAKE ->
-// O-step -> RATTLE -> half drift -> SHAKE -> forces at t0 + i -> half kick
-// -> RATTLE. Forces: pair terms by the shared device function (thread per
+// Design: one CTA per replica (kVacuumThreads or kSolventThreads threads).
+// Per step, in the order of the reference's step_body: half kick -> RATTLE
+// -> half drift -> SHAKE -> O-step -> RATTLE -> half drift -> SHAKE ->
+// forces at t0 + i -> half kick -> RATTLE. Forces: pair terms by the shared device function (thread per
 // atom over all j, pair_terms.cuh), angles (thread per angle), dihedrals and
 // impropers together (thread per torsion, up to max_t terms, AMBER where
 // per > 0 else CHARMM with the 2 pi wrap), the moving SMD bias.
@@ -36,6 +36,12 @@
 // followed by RATTLE; inside the block the per-step force is the fast one.
 // The carried force is the total at launch entry and exit: the slow part is
 // taken off on the way in and put back on the way out.
+// Shared memory: the state (9 N floats) and the slow force of a block stay
+// for the whole launch; the bonded and constraint buffers, the GB scratch
+// (its dI cache is most of it) and the LCPO scratch are never live at the
+// same time, so they share one region, as large as the largest of them. At
+// N = 104 under GBIS that keeps a CTA at 46.7 KB (47.9 with a cadence), so
+// that 4 CTAs fit an SM: 1024 replicas fill 528 slots in 1.94 waves.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -47,7 +53,16 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// Threads a CTA of each instantiation. Vacuum: 128, 64 registers, 8 CTAs an
+// SM. Solvent: its shared memory allows 4 CTAs an SM, and __launch_bounds__
+// holds it to the registers that allow as many: at 256 threads 64, and the
+// spills (loop-invariant addresses, loaded outside the inner loops) cost
+// less than the extra warps give (chip_smoke.py's levers: at 128 threads it
+// takes 128 registers and 12 % longer; at 256 threads uncapped, 128
+// registers and 2 CTAs an SM, 43 % longer).
+constexpr int kVacuumThreads = 128;
+constexpr int kSolventThreads = 256;
+constexpr int kSolventCtasPerSm = 4;
 constexpr float kEps = 1e-12f;
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -106,13 +121,14 @@ struct Consts {
 
 struct Shared {
   float *x, *y, *z, *vx, *vy, *vz, *fx, *fy, *fz;
+  float *slx, *sly, *slz;  // the slow (held or impulse) force of a block
+  // one region, three tenants that are never live at once
   float* abuf;  // 2 * n_angles 3-vectors: f0 | f2
   float* tbuf;  // 3 * n_tors 3-vectors: f0v | s | f3v
   float* rdir;  // n_cons 3-vectors: SHAKE reference directions
   float* dhat;  // n_cons 3-vectors: RATTLE unit bond vectors
   float* cbuf;  // n_cons 3-vectors: this sweep's corrections
-  float *born, *ce;       // GB: Born radii, chain cotangents
-  float *slx, *sly, *slz;  // the slow (held or impulse) force of a block
+  GbShared gb;
   SasaShared sasa;
 };
 
@@ -134,6 +150,7 @@ __device__ __forceinline__ void gather3(const float* buf, const int* start,
 // RATTLE: zero the along-bond relative velocity (rattle_iters Jacobi
 // sweeps). With capture, also stores the bond vectors of x as the SHAKE
 // reference directions of the drift that follows.
+template <int kThreads>
 __device__ void rattle(const Shared& s, const Tables& t, const Dims& d,
                        bool capture) {
   const int tid = threadIdx.x;
@@ -178,6 +195,7 @@ __device__ void rattle(const Shared& s, const Tables& t, const Dims& d,
 }
 
 // SHAKE along the captured reference directions (shake_iters Jacobi sweeps).
+template <int kThreads>
 __device__ void shake(const Shared& s, const Tables& t, const Dims& d) {
   const int tid = threadIdx.x;
   __syncthreads();
@@ -210,6 +228,7 @@ __device__ void shake(const Shared& s, const Tables& t, const Dims& d) {
 
 // Analytic 3-centre angle forces into abuf: f0 on atom 0, f2 on atom 2, and
 // -(f0 + f2) on the middle atom (through the gather weights).
+template <int kThreads>
 __device__ __forceinline__ void angle_forces(const Shared& s, const Tables& t,
                                              const Dims& d) {
   for (int a = threadIdx.x; a < d.n_angles; a += kThreads) {
@@ -246,6 +265,7 @@ __device__ __forceinline__ void angle_forces(const Shared& s, const Tables& t,
 // Analytic 4-centre forces of dihedrals and impropers together into tbuf:
 // the three vectors f0v, s, f3v, distributed by the gather weights as
 // atom0 -f0v, atom1 +f0v +s, atom2 -s +f3v, atom3 -f3v.
+template <int kThreads>
 __device__ __forceinline__ void torsion_forces(const Shared& s,
                                                const Tables& t,
                                                const Dims& d) {
@@ -309,13 +329,13 @@ __device__ __forceinline__ void torsion_forces(const Shared& s,
 // complete) and leaves one behind (forces complete). kSolvent = false
 // compiles the implicit-solvent calls out, so the vacuum kernel keeps the
 // registers (and the CTAs an SM) it had without them.
-template <bool kSolvent>
+template <bool kSolvent, int kThreads>
 __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
                        const Consts& k, float t_step, bool with_gb,
-                       bool with_sasa, bool add_held) {
+                       bool with_sasa, bool add_held, int* overflow) {
   const int tid = threadIdx.x;
-  angle_forces(s, t, d);
-  torsion_forces(s, t, d);
+  angle_forces<kThreads>(s, t, d);
+  torsion_forces<kThreads>(s, t, d);
   for (int a = tid; a < d.n_atoms; a += kThreads) {
     float fx, fy, fz, e;
     atom_pair_sum<false>(a, d.n_atoms, s.x, s.y, s.z, t.pair_a, t.pair_b,
@@ -355,33 +375,35 @@ __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
   __syncthreads();
   if (!kSolvent) return;
   if (with_gb)
-    gb_forces_add<kThreads>(d.n_atoms, s.x, s.y, s.z, s.born, s.ce, t.gb_atom,
-                            k.gb, s.fx, s.fy, s.fz);
+    gb_forces_add<kThreads, false>(d.n_atoms, s.x, s.y, s.z, t.gb_atom, k.gb,
+                                   s.gb, s.fx, s.fy, s.fz);
   if (with_sasa)
     sasa_forces_add<kThreads, false>(d.n_sasa, t.sasa_idx, t.sasa_atom,
                                      k.sasa_gamma, s.x, s.y, s.z, s.sasa, s.fx,
-                                     s.fy, s.fz);
+                                     s.fy, s.fz, overflow);
 }
 
 // The slow force of a cadence block at the positions in shared memory, into
 // (slx, sly, slz): GB when its cadence is > 1, LCPO when its cadence is > 1.
 // Expects a barrier before and leaves one behind.
+template <int kThreads>
 __device__ void slow_force(const Shared& s, const Tables& t, const Dims& d,
-                           const Consts& k) {
+                           const Consts& k, int* overflow) {
   for (int a = threadIdx.x; a < d.n_atoms; a += kThreads)
     s.slx[a] = s.sly[a] = s.slz[a] = 0.f;
   __syncthreads();
   if (d.use_gb && d.gb_every > 1)
-    gb_forces_add<kThreads>(d.n_atoms, s.x, s.y, s.z, s.born, s.ce, t.gb_atom,
-                            k.gb, s.slx, s.sly, s.slz);
+    gb_forces_add<kThreads, false>(d.n_atoms, s.x, s.y, s.z, t.gb_atom, k.gb,
+                                   s.gb, s.slx, s.sly, s.slz);
   if (d.n_sasa && d.sasa_every > 1)
     sasa_forces_add<kThreads, false>(d.n_sasa, t.sasa_idx, t.sasa_atom,
                                      k.sasa_gamma, s.x, s.y, s.z, s.sasa,
-                                     s.slx, s.sly, s.slz);
+                                     s.slx, s.sly, s.slz, overflow);
 }
 
 // Half-block impulse of the slow force: v += (k dt / 2) F_slow / m, then
 // RATTLE on the constrained components.
+template <int kThreads>
 __device__ void slow_kick(const Shared& s, const Tables& t, const Dims& d,
                           const Consts& k) {
   const float hk = k.half_dt * static_cast<float>(d.gb_every);
@@ -391,7 +413,7 @@ __device__ void slow_kick(const Shared& s, const Tables& t, const Dims& d,
     s.vy[a] += h * s.sly[a];
     s.vz[a] += h * s.slz[a];
   }
-  if (d.n_cons > 0) rattle(s, t, d, false);
+  if (d.n_cons > 0) rattle<kThreads>(s, t, d, false);
 }
 
 __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
@@ -401,37 +423,39 @@ __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
   s.x = p; p += n;  s.y = p; p += n;  s.z = p; p += n;
   s.vx = p; p += n; s.vy = p; p += n; s.vz = p; p += n;
   s.fx = p; p += n; s.fy = p; p += n; s.fz = p; p += n;
+  s.slx = s.sly = s.slz = nullptr;
+  if (has_slow_buffer(d)) {
+    s.slx = p; p += n; s.sly = p; p += n; s.slz = p; p += n;
+  }
+  float* region = p;
   s.abuf = p; p += 6 * d.n_angles;
   s.tbuf = p; p += 9 * d.n_tors;
   s.rdir = p; p += 3 * d.n_cons;
   s.dhat = p; p += 3 * d.n_cons;
-  s.cbuf = p; p += 3 * d.n_cons;
-  s.born = s.ce = s.slx = s.sly = s.slz = nullptr;
-  if (d.use_gb) {
-    s.born = p; p += n;
-    s.ce = p; p += n;
-  }
-  if (has_slow_buffer(d)) {
-    s.slx = p; p += n; s.sly = p; p += n; s.slz = p; p += n;
-  }
-  s.sasa = sasa_carve(p, d.n_sasa);
+  s.cbuf = p;
+  s.gb = gb_carve(region, n);
+  s.sasa = sasa_carve(region, d.n_sasa);
   return s;
 }
 
 // ops/fused_step.py campaign_shared_bytes says the same.
 __host__ __device__ inline size_t shared_floats(const Dims& d) {
-  return 9 * static_cast<size_t>(d.n_atoms) + 6 * d.n_angles + 9 * d.n_tors +
-         9 * d.n_cons + (d.use_gb ? 2 * d.n_atoms : 0) +
-         (has_slow_buffer(d) ? 3 * d.n_atoms : 0) +
-         (d.n_sasa ? sasa_shared_words(d.n_sasa) : 0);
+  size_t region = 6 * static_cast<size_t>(d.n_angles) + 9 * d.n_tors +
+                  9 * d.n_cons;
+  if (d.use_gb && gb_shared_floats(d.n_atoms) > region)
+    region = gb_shared_floats(d.n_atoms);
+  if (d.n_sasa && sasa_shared_words(d.n_sasa) > region)
+    region = sasa_shared_words(d.n_sasa);
+  return 9 * static_cast<size_t>(d.n_atoms) +
+         (has_slow_buffer(d) ? 3 * d.n_atoms : 0) + region;
 }
 
 // One BAOAB step; the SMD centre of its force evaluation is that of t_abs.
-template <bool kSolvent>
+template <bool kSolvent, int kThreads>
 __device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
                            const Consts& k, int rep, long long t_abs,
                            unsigned long long seed, bool with_gb,
-                           bool with_sasa, bool add_held) {
+                           bool with_sasa, bool add_held, int* overflow) {
   const int tid = threadIdx.x;
   const int n = d.n_atoms;
   const bool cons = d.n_cons > 0;
@@ -442,14 +466,14 @@ __device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
     s.vy[a] += h * s.fy[a];
     s.vz[a] += h * s.fz[a];
   }
-  if (cons) rattle(s, t, d, true);
+  if (cons) rattle<kThreads>(s, t, d, true);
   // A: half drift
   for (int a = tid; a < n; a += kThreads) {
     s.x[a] += k.half_dt * s.vx[a];
     s.y[a] += k.half_dt * s.vy[a];
     s.z[a] += k.half_dt * s.vz[a];
   }
-  if (cons) shake(s, t, d);
+  if (cons) shake<kThreads>(s, t, d);
   // O: exact Ornstein-Uhlenbeck solve
   for (int a = tid; a < n; a += kThreads) {
     float g0 = 0.f, g1 = 0.f, g2 = 0.f;
@@ -459,35 +483,36 @@ __device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
     s.vy[a] = k.c1 * s.vy[a] + c2 * g1;
     s.vz[a] = k.c1 * s.vz[a] + c2 * g2;
   }
-  if (cons) rattle(s, t, d, true);
+  if (cons) rattle<kThreads>(s, t, d, true);
   // A: half drift
   for (int a = tid; a < n; a += kThreads) {
     s.x[a] += k.half_dt * s.vx[a];
     s.y[a] += k.half_dt * s.vy[a];
     s.z[a] += k.half_dt * s.vz[a];
   }
-  if (cons) shake(s, t, d);
+  if (cons) shake<kThreads>(s, t, d);
   __syncthreads();
   // B: half kick with the new forces, SMD centre at the step's start index
-  forces<kSolvent>(s, t, d, k, static_cast<float>(t_abs), with_gb, with_sasa,
-                   add_held);
+  forces<kSolvent, kThreads>(s, t, d, k, static_cast<float>(t_abs), with_gb,
+                             with_sasa, add_held, overflow);
   for (int a = tid; a < n; a += kThreads) {
     const float h = k.half_dt * t.minv[a];
     s.vx[a] += h * s.fx[a];
     s.vy[a] += h * s.fy[a];
     s.vz[a] += h * s.fz[a];
   }
-  if (cons) rattle(s, t, d, false);
+  if (cons) rattle<kThreads>(s, t, d, false);
 }
 
-// kSolvent: the instantiation that carries GB / LCPO and their cadences;
-// the wrapper picks it when dims ask for either.
-template <bool kSolvent>
-__global__ void __launch_bounds__(kThreads)
-campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
-                const float* __restrict__ frc, float* __restrict__ opos,
-                float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
-                Dims d, Consts k, long long t0, unsigned long long seed) {
+// The launch: kSolvent carries GB / LCPO and their cadences. overflow: set
+// to 1 when an LCPO neighbour list overflows (sasa_terms.cuh).
+template <bool kSolvent, int kThreads>
+__device__ __forceinline__ void campaign_body(
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ frc, float* __restrict__ opos,
+    float* __restrict__ ovel, float* __restrict__ ofrc, const Tables& t,
+    const Dims& d, const Consts& k, long long t0, unsigned long long seed,
+    int* overflow) {
   extern __shared__ float smem[];
   const Shared s = carve(smem, d);
   const int tid = threadIdx.x;
@@ -515,20 +540,20 @@ campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
   const bool sasa_each = d.n_sasa && d.sasa_every == 1;
   if (impulse) {
     // the carried force is the fast one inside this mode
-    slow_force(s, t, d, k);
+    slow_force<kThreads>(s, t, d, k, overflow);
     for (int a = tid; a < n; a += kThreads) {
       s.fx[a] -= s.slx[a];
       s.fy[a] -= s.sly[a];
       s.fz[a] -= s.slz[a];
     }
     for (int j = 0; j < d.n_inner / d.gb_every; ++j) {
-      slow_kick(s, t, d, k);
+      slow_kick<kThreads>(s, t, d, k);
       for (int i = 0; i < d.gb_every; ++i)
-        baoab_step<kSolvent>(s, t, d, k, rep, t0 + j * d.gb_every + i, seed,
-                             false, sasa_each, false);
+        baoab_step<kSolvent, kThreads>(s, t, d, k, rep, t0 + j * d.gb_every + i, seed,
+                                       false, sasa_each, false, overflow);
       __syncthreads();
-      slow_force(s, t, d, k);
-      slow_kick(s, t, d, k);
+      slow_force<kThreads>(s, t, d, k, overflow);
+      slow_kick<kThreads>(s, t, d, k);
     }
     for (int a = tid; a < n; a += kThreads) {
       s.fx[a] += s.slx[a];
@@ -538,15 +563,15 @@ campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
   } else if (held) {
     for (int j = 0; j < d.n_inner / d.sasa_every; ++j) {
       __syncthreads();
-      slow_force(s, t, d, k);
+      slow_force<kThreads>(s, t, d, k, overflow);
       for (int i = 0; i < d.sasa_every; ++i)
-        baoab_step<kSolvent>(s, t, d, k, rep, t0 + j * d.sasa_every + i, seed,
-                             gb_each, false, true);
+        baoab_step<kSolvent, kThreads>(s, t, d, k, rep, t0 + j * d.sasa_every + i, seed,
+                                       gb_each, false, true, overflow);
     }
   } else {
     for (int step = 0; step < d.n_inner; ++step)
-      baoab_step<kSolvent>(s, t, d, k, rep, t0 + step, seed, gb_each,
-                           sasa_each, false);
+      baoab_step<kSolvent, kThreads>(s, t, d, k, rep, t0 + step, seed,
+                                     gb_each, sasa_each, false, overflow);
   }
   __syncthreads();
 
@@ -561,6 +586,28 @@ campaign_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
     ofrc[base + 3 * a + 1] = s.fy[a];
     ofrc[base + 3 * a + 2] = s.fz[a];
   }
+}
+
+// The two instantiations; the wrapper picks the solvent one when dims ask
+// for GB or LCPO.
+__global__ void __launch_bounds__(kVacuumThreads)
+campaign_vacuum(const float* __restrict__ pos, const float* __restrict__ vel,
+                const float* __restrict__ frc, float* __restrict__ opos,
+                float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
+                Dims d, Consts k, long long t0, unsigned long long seed,
+                int* overflow) {
+  campaign_body<false, kVacuumThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
+                                       k, t0, seed, overflow);
+}
+
+__global__ void __launch_bounds__(kSolventThreads, kSolventCtasPerSm)
+campaign_solvent(const float* __restrict__ pos, const float* __restrict__ vel,
+                 const float* __restrict__ frc, float* __restrict__ opos,
+                 float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
+                 Dims d, Consts k, long long t0, unsigned long long seed,
+                 int* overflow) {
+  campaign_body<true, kSolventThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
+                                       k, t0, seed, overflow);
 }
 
 // The normals the campaign kernel draws: out[(r, i, a, 0..2)] for replica r,
@@ -585,10 +632,34 @@ __global__ void noise_kernel(float* __restrict__ out, int n_replicas,
 
 }  // namespace
 
+namespace {
+
+Dims dims_of(const int* dims) {
+  return Dims{dims[0], dims[1], dims[2],  dims[3],  dims[4],  dims[5],  dims[6],
+              dims[7], dims[8], dims[9], dims[10], dims[11], dims[12], dims[13]};
+}
+
+using CampaignKernel = void (*)(const float*, const float*, const float*,
+                                float*, float*, float*, Tables, Dims, Consts,
+                                long long, unsigned long long, int*);
+
+// The instantiation dims ask for, and its threads a CTA.
+CampaignKernel pick_kernel(const Dims& d, int& threads) {
+  if (d.use_gb || d.n_sasa) {
+    threads = kSolventThreads;
+    return campaign_solvent;
+  }
+  threads = kVacuumThreads;
+  return campaign_vacuum;
+}
+
+}  // namespace
+
 // Advance (R, N, 3) pos/vel/frc by dims[6] steps into opos/ovel/ofrc.
 // `ptrs` holds kNumSlots device pointers in Slot order, `dims` the integers
 // of Dims, `consts` the floats of Consts (all host arrays). The cadences
-// must divide dims[6]; the wrapper checks that.
+// must divide dims[6]; the wrapper checks that. `overflow` (one device int)
+// is set to 1 when an LCPO neighbour list overflows; the wrapper reads it.
 // Returns cudaGetLastError(), or the error that refused the shared memory
 // (the wrapper checks it against SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
@@ -596,7 +667,8 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
                                     void* ofrc, const void* const* ptrs,
                                     const int* dims, const float* consts,
                                     int n_replicas, long long t0,
-                                    unsigned long long seed, void* stream) {
+                                    unsigned long long seed, void* overflow,
+                                    void* stream) {
   Tables t;
   t.pair_a = static_cast<const float4*>(ptrs[kPairA]);
   t.pair_b = static_cast<const float4*>(ptrs[kPairB]);
@@ -630,8 +702,7 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   t.sasa_idx = static_cast<const int*>(ptrs[kSasaIdx]);
   t.sasa_atom = static_cast<const float*>(ptrs[kSasaAtom]);
 
-  Dims d{dims[0], dims[1], dims[2],  dims[3],  dims[4],  dims[5],  dims[6],
-         dims[7], dims[8], dims[9], dims[10], dims[11], dims[12], dims[13]};
+  const Dims d = dims_of(dims);
   Consts k;
   k.half_dt = consts[0];
   k.c1 = consts[1];
@@ -644,15 +715,26 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   k.sasa_gamma = consts[16];
 
   const size_t shmem = shared_floats(d) * sizeof(float);
-  const bool solvent = d.use_gb || d.n_sasa;
-  auto kernel = solvent ? campaign_kernel<true> : campaign_kernel<false>;
+  int threads;
+  const CampaignKernel kernel = pick_kernel(d, threads);
   const int err = allow_dynamic_shared(kernel, shmem);
   if (err != 0) return err;
-  kernel<<<n_replicas, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_replicas, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(vel),
       static_cast<const float*>(frc), static_cast<float*>(opos),
-      static_cast<float*>(ovel), static_cast<float*>(ofrc), t, d, k, t0, seed);
+      static_cast<float*>(ovel), static_cast<float*>(ofrc), t, d, k, t0, seed,
+      static_cast<int*>(overflow));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Build facts of the instantiation `dims` selects, at the shared memory it
+// needs, into out[0..4] (kernel_occupancy in shared_memory.cuh).
+extern "C" int mdx_campaign_kernel_info(const int* dims, int* out) {
+  const Dims d = dims_of(dims);
+  int threads;
+  const CampaignKernel kernel = pick_kernel(d, threads);
+  return kernel_occupancy(kernel, threads, shared_floats(d) * sizeof(float),
+                          out);
 }
 
 // Debug entry: fill out (R, n_inner, N, 3) with the kernel's normals.

@@ -7,10 +7,11 @@
 // Bound on an H100: float32 arithmetic, not memory. A replica moves N*3*4
 // bytes in and N*3*4+4 out; it needs nc(nc-1)/2 pair geometries (a square
 // root and a division each) and, for every overlapping ordered pair, two sums
-// over the first atom's overlapping neighbours.
-// Design: see sasa_terms.cuh. Coordinates and the pass's scratch (two
-// (nc, nc) matrices and the overlap bit masks) in shared memory, every sum a
-// gather in a fixed order, no atomics.
+// over the neighbours its two atoms share.
+// Design: see sasa_terms.cuh. Coordinates and the pass's scratch (overlap
+// bit masks and per-atom neighbour lists) in shared memory, every sum a
+// gather in a fixed order, no atomics. A list that would overflow sets a
+// flag in global memory, which the wrapper raises on.
 #include <cuda_runtime.h>
 
 #include "sasa_terms.cuh"
@@ -18,13 +19,16 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// 256 rather than 128 threads: more warps to hide the latency of the
+// shared-memory and SFU chains (on an H100 K3 takes 17 % less time, K4 29 %;
+// chip_smoke.py's levers).
+constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
                    float* __restrict__ energy, const int* __restrict__ idx,
                    const float* __restrict__ atom, int n, int nc,
-                   float gamma) {
+                   float gamma, int* __restrict__ overflow) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + n;
@@ -45,8 +49,8 @@ sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
   }
   __syncthreads();
 
-  float e_thread = sasa_forces_add<kThreads, true>(nc, idx, atom, gamma, sx,
-                                                   sy, sz, w, fx, fy, fz);
+  float e_thread = sasa_forces_add<kThreads, true>(
+      nc, idx, atom, gamma, sx, sy, sz, w, fx, fy, fz, overflow);
   for (int a = tid; a < n; a += kThreads) {
     frc[base + 3 * a + 0] = fx[a];
     frc[base + 3 * a + 1] = fy[a];
@@ -63,25 +67,37 @@ sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
   }
 }
 
+size_t shared_bytes(int n_atoms, int n_compact) {
+  return (6 * static_cast<size_t>(n_atoms) + sasa_shared_words(n_compact)) *
+         sizeof(float);
+}
+
 }  // namespace
 
 // pos (R, N, 3) -> frc (R, N, 3), energy (R,); idx (nc,) int32 and atom
-// (nc, 5) in SasaColumn order. Returns cudaGetLastError(), or the error that
-// refused the shared memory (the wrapper checks it against
-// SHARED_OPT_IN_BYTES first).
+// (nc, 5) in SasaColumn order; overflow: one device int, set to 1 when a
+// neighbour list overflows (the forces are then wrong). Returns
+// cudaGetLastError(), or the error that refused the shared memory (the
+// wrapper checks it against SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_sasa_forces(const void* pos, void* frc, void* energy,
                                const void* idx, const void* atom,
                                int n_replicas, int n_atoms, int n_compact,
-                               float gamma, void* stream) {
-  const size_t shmem =
-      (6 * static_cast<size_t>(n_atoms) + sasa_shared_words(n_compact)) *
-      sizeof(float);
+                               float gamma, void* overflow, void* stream) {
+  const size_t shmem = shared_bytes(n_atoms, n_compact);
   const int err = allow_dynamic_shared(sasa_forces_kernel, shmem);
   if (err != 0) return err;
   sasa_forces_kernel<<<n_replicas, kThreads, shmem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<float*>(frc),
       static_cast<float*>(energy), static_cast<const int*>(idx),
-      static_cast<const float*>(atom), n_atoms, n_compact, gamma);
+      static_cast<const float*>(atom), n_atoms, n_compact, gamma,
+      static_cast<int*>(overflow));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Build facts of the kernel at (n_atoms, n_compact), into out[0..4]
+// (kernel_occupancy).
+extern "C" int mdx_sasa_forces_info(int n_atoms, int n_compact, int* out) {
+  return kernel_occupancy(sasa_forces_kernel, kThreads,
+                          shared_bytes(n_atoms, n_compact), out);
 }

@@ -34,6 +34,9 @@ SHARED_OPT_IN_BYTES = 232448
 _libraries: Dict[str, ctypes.CDLL] = {}
 #: wall seconds the last call of :func:`build_all` spent compiling
 last_build_seconds = 0.0
+#: source name -> what nvcc printed (``-Xptxas -v``: registers, shared
+#: memory and spills of each kernel) in the last call of :func:`build_all`
+last_build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -83,8 +86,10 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
                              stderr=subprocess.STDOUT, text=True),
         ))
     failures = []
+    last_build_logs.clear()
     for src, tmp, target, proc in procs:
         log, _ = proc.communicate()
+        last_build_logs[src.stem] = log
         if verbose and log:
             print(f"[nvcc {src.name}]\n{log}", flush=True)
         if proc.returncode != 0:
@@ -102,6 +107,24 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libraries:
         _libraries[name] = ctypes.CDLL(str(build_all()[name]))
     return _libraries[name]
+
+
+#: what ``kernel_info`` reports (``kernel_occupancy`` in csrc/shared_memory.cuh)
+KERNEL_INFO_FIELDS = (
+    "registers_per_thread", "static_shared_bytes", "threads_per_cta",
+    "ctas_per_sm", "dynamic_shared_bytes",
+)
+
+
+def kernel_info(name: str, symbol: str, argtypes, *args) -> Dict[str, int]:
+    """Build facts of one kernel of ``csrc/<name>.cu`` on the current device,
+    as its C entry ``symbol`` reports them for the launch that ``args`` (of
+    ``argtypes``, the entry's leading arguments) describes."""
+    out = (ctypes.c_int * len(KERNEL_INFO_FIELDS))()
+    err = kernel_function(name, symbol, [*argtypes, ctypes.c_void_p])(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}")
+    return dict(zip(KERNEL_INFO_FIELDS, out))
 
 
 def kernel_function(name: str, symbol: str, argtypes):

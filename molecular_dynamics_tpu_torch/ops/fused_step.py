@@ -25,9 +25,14 @@ design keeps one replica per CTA with its state in shared memory for all
 ``n_inner`` steps, turns every scatter into a per-atom gather in a fixed
 order (no atomics: a launch is bit-reproducible, and cutting a campaign into
 launches differently does not change the trajectory), and draws noise from
-Philox4x32-10 keyed on ``(seed, replica, t0 + i, atom)``. Its limit is the
-227 KB of shared memory a CTA may opt in to (the 416-atom unconstrained
-vacuum system needs 70.2 KB, the 1,040-atom one 175.4 KB);
+Philox4x32-10 keyed on ``(seed, replica, t0 + i, atom)``. The bonded and
+constraint buffers, the GB scratch and the LCPO scratch are never live at
+once and share one region of shared memory; under GBIS at 104 atoms the GB
+scratch (its dI cache) sets the region, and a CTA takes 46.7 KB (47.9 with a
+cadence), so that 4 CTAs of 256 threads fit an SM and 1024 replicas run in
+1.94 waves. Its limit is the 227 KB of shared memory a CTA may opt in to
+(the 416-atom unconstrained vacuum system needs 70.2 KB, the 1,040-atom one
+175.4 KB; with GB, whose cache grows as N^2, about 230 atoms);
 ``campaign_shared_bytes`` says what a system needs.
 
 ``campaign_advance_reference`` is the plain PyTorch version (any device, any
@@ -48,12 +53,13 @@ import torch
 
 from molecular_dynamics_tpu_torch import units
 from molecular_dynamics_tpu_torch.ff.params import FFParams
-from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES
+from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES, kernel_info
 from molecular_dynamics_tpu_torch.ops.gb import (
     GBTables,
     build_gb_tables,
     gb_constants,
     gb_forces_reference,
+    gb_shared_bytes,
 )
 from molecular_dynamics_tpu_torch.ops.nonbonded import (
     _np,
@@ -66,6 +72,8 @@ from molecular_dynamics_tpu_torch.ops.nonbonded import (
 from molecular_dynamics_tpu_torch.ops.sasa import (
     SasaTables,
     build_sasa_tables,
+    overflow_possible,
+    raise_on_overflow,
     sasa_forces_reference,
     sasa_shared_bytes,
 )
@@ -96,18 +104,16 @@ def campaign_shared_bytes(
     gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
 ) -> int:
     """Shared memory one CTA of the campaign kernel needs: the 9 state
-    vectors, the angle (2 vectors a term) and torsion (3) force buffers, and
-    3 vectors a constraint; with ``gb`` the Born radii and chain cotangents;
-    with ``n_sasa`` heavy atoms the LCPO pass's scratch; with a cadence > 1
-    (``slow_buffer``) the block's slow force."""
-    need = 4 * (9 * n_atoms + 6 * n_angles + 9 * n_tors + 9 * n_cons)
+    vectors; with a cadence > 1 (``slow_buffer``) the block's slow force; and
+    one region for what is never live at once, as large as the largest of
+    the angle (2 vectors a term), torsion (3) and constraint (3) buffers, the
+    GB scratch (``gb``) and the LCPO scratch (``n_sasa`` heavy atoms)."""
+    region = 4 * (6 * n_angles + 9 * n_tors + 9 * n_cons)
     if gb:
-        need += 4 * 2 * n_atoms
-    if slow_buffer:
-        need += 4 * 3 * n_atoms
+        region = max(region, gb_shared_bytes(n_atoms))
     if n_sasa:
-        need += sasa_shared_bytes(n_sasa)
-    return need
+        region = max(region, sasa_shared_bytes(n_sasa))
+    return 4 * 9 * n_atoms + (4 * 3 * n_atoms if slow_buffer else 0) + region
 
 
 def _csr(n_atoms: int, atoms: np.ndarray, src: np.ndarray, weights: np.ndarray):
@@ -615,7 +621,8 @@ def _library():
     adv = lib.mdx_campaign_advance
     if not adv.argtypes:
         adv.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         adv.restype = ctypes.c_int
         noise = lib.mdx_campaign_noise
@@ -656,8 +663,10 @@ def campaign_advance(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the campaign kernel on CUDA tensors ``(R, N, 3)`` (float32,
     contiguous, or it raises). ``dims`` and ``consts`` are the ctypes arrays
-    ``make_fused_campaign_op`` builds. Does not synchronise. Each launch is
-    counted in ``campaign_advance.launches``."""
+    ``make_fused_campaign_op`` builds. Does not synchronise, unless an LCPO
+    neighbour list can overflow (above 65 heavy atoms): then it reads the
+    kernel's flag and raises on it. Each launch is counted in
+    ``campaign_advance.launches``."""
     shape = (pos.shape[0], tab.n_atoms, 3)
     for name, t in (("pos", pos), ("vel", vel), ("forces", frc)):
         check_kernel_input(name, t, shape)
@@ -667,17 +676,20 @@ def campaign_advance(
         raise ValueError("tables and pos live on different devices")
     lib = _library()
     out = [torch.empty_like(pos) for _ in range(3)]
+    overflow = torch.zeros(1, dtype=torch.int32, device=pos.device)
     ptrs = tab.pointer_array()
     with torch.cuda.device(pos.device):
         err = lib.mdx_campaign_advance(
             pos.data_ptr(), vel.data_ptr(), frc.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             ptrs, dims, consts, shape[0], t0, seed & 0xFFFFFFFFFFFFFFFF,
-            torch.cuda.current_stream().cuda_stream,
+            overflow.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     campaign_advance.launches += 1
     if err != 0:
         raise RuntimeError(f"campaign kernel launch failed: CUDA error {err}")
+    if tab.sasa is not None and overflow_possible(tab.sasa.n_compact):
+        raise_on_overflow(overflow, tab.sasa.n_compact, "campaign kernel")
     return out[0], out[1], out[2]
 
 
@@ -822,6 +834,10 @@ def make_fused_campaign_op(
 
     advance.n_inner = n_inner
     advance.shared_bytes = need
+    #: build facts of the kernel instantiation this op launches, on the
+    #: current CUDA device (``_build.kernel_info``)
+    advance.kernel_info = lambda: kernel_info(
+        "campaign_advance", "mdx_campaign_kernel_info", [ctypes.c_void_p], dims)
     advance.tables = tab
     #: keyword arguments that make campaign_advance_reference this op
     advance.settings = settings

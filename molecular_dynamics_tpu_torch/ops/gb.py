@@ -16,19 +16,25 @@ Kernel note. On a CUDA tensor ``gb_forces`` launches ``csrc/gb_forces.cu``
 campaign kernel calls the same ones). It replaces the GB half of the JAX
 package's ``molecular_dynamics_tpu/ops/fused_step.py`` (``born_pass``,
 ``_hct_*``, ``_gb_uprime``, ``gb_chain_pass``, the Born self terms) and the
-Still term of ``ops/ring.py``. What suited the TPU stays behind: the ring
-shifts and their halved halfway row, the shared reciprocal of the two HCT
-directions, and the per-pair cache of ``dI/dd`` (2 N^2 floats a replica would
-not fit a CTA's shared memory next to the campaign state; the chain pass
-evaluates ``dI/dd`` again instead, arithmetic being what an H100 has most
-of). The work is bound by float32 arithmetic: a replica moves 28 N bytes and
-needs N(N-1) HCT integrals with a logarithm each, N(N-1)/2 Still terms with an
-exponential or two, and N(N-1) HCT derivatives. One CTA per replica, thread i
-sums over all j in a fixed order in every pass (no atomics, bit-reproducible),
-per-atom Born radii and chain cotangents in shared memory between passes.
-Square roots and divisions are IEEE (``1.0f / sqrtf``), ``expf``/``logf``/
-``tanhf`` the accurate ones: far pairs cancel to a small remainder in the HCT
-integral, and a 2-ulp ``rsqrtf`` shows there.
+Still term of ``ops/ring.py``. What suited the TPU stays behind (the ring
+shifts over lanes and their halved halfway row); what it saved stays: each
+ordered pair's HCT integral is evaluated once with its derivative, and
+``dI/dd / d`` waits in a shared-memory cache of N(N-1) floats (42.8 KB at 104
+atoms) for the chain pass, which is then a multiply-add a direction. The
+work is bound by arithmetic, much of it on the SFU: a replica moves 28 N
+bytes and needs N(N-1) HCT integrals and derivatives (a logarithm and three
+divisions each, beside the pair's square root), N(N-1)/2 Still terms with an
+exponential or two and a square root. One CTA per replica, 256 threads: in
+each pass 16 lanes share an atom's partners and meet in a fixed-order
+butterfly. The Still term is evaluated from both ends of each pair: once per
+unordered pair, with the partner's half handed over through shared memory,
+it measured the same. No atomics: bit-reproducible.
+``1/d`` is IEEE (``1.0f / sqrtf``), ``expf``/``logf``/``tanhf`` the accurate
+ones: far pairs cancel to a small remainder in the HCT integral, and a 2-ulp
+``rsqrtf`` shows there; the HCT integral's two other reciprocals are the
+SFU's (``__fdividef``, within 2e-5 kcal/mol/A of the plain float32 forces).
+The cache bounds the kernel to 236 atoms (``gb_shared_bytes``); above, the
+wrapper raises.
 
 ``gb_forces_reference`` is the plain PyTorch version (any device, any float
 dtype): the same formulas as one dense ``(R, N, N)`` pass. It runs for a CPU
@@ -46,13 +52,21 @@ import torch
 
 from molecular_dynamics_tpu_torch import solvent, units
 from molecular_dynamics_tpu_torch.ff.params import FFParams
-from molecular_dynamics_tpu_torch.ops._build import kernel_function
+from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES, kernel_function
 from molecular_dynamics_tpu_torch.ops.nonbonded import _np, check_kernel_input
 
 Tensor = torch.Tensor
 
 #: columns of ``GBTables.atom``
 GB_ATOM_COLUMNS = ("rho", "rho_inv", "s", "radius_inv", "q_scaled")
+
+
+def gb_shared_bytes(n_atoms: int) -> int:
+    """Shared memory the GB passes need a replica beside the coordinates and
+    forces (``gb_shared_floats`` in ``csrc/gb_terms.cuh``): three per-atom
+    vectors (Born radius, its reciprocal, dR/dpsi then the chain cotangent)
+    and the dI cache, N rows of an odd stride >= N - 1."""
+    return 4 * (3 * n_atoms + n_atoms * ((n_atoms - 1) | 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,11 +247,12 @@ def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Te
     check_kernel_input("tables.atom", tables.atom, (n, len(GB_ATOM_COLUMNS)))
     if tables.atom.device != pos.device:
         raise ValueError("tables and pos live on different devices")
-    need = 4 * 5 * n  # coordinates, Born radii and chain cotangents
-    if need > 48 * 1024:
+    need = gb_shared_bytes(n) + 4 * 6 * n  # + coordinates and forces
+    if need > SHARED_OPT_IN_BYTES:
         raise ValueError(
-            f"gb_forces: {n} atoms need {need} bytes of shared memory "
-            "a replica; the kernel holds 49152"
+            f"gb_forces: {n} atoms need {need} bytes of shared memory a "
+            f"replica (the dI cache is N(N-1) floats); the kernel holds "
+            f"{SHARED_OPT_IN_BYTES}"
         )
     fn = kernel_function(
         "gb_forces", "mdx_gb_forces",

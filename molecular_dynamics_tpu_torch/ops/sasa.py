@@ -21,16 +21,20 @@ Kernel note. On a CUDA tensor ``sasa_forces`` launches
 JAX package's ``molecular_dynamics_tpu/ops/fused_step.py`` ``_sasa_tables``
 and ``sasa_pass``/``_sasa_chunk``. The TPU kernel is dense: 0/1 selection
 matrices to gather the compact set, four (lc, lc) matrices and two (lc, lc) x
-(lc, lc) products per replica on the MXU. LCPO overlaps are sparse (a heavy
-atom of the helix overlaps about a third of the others), so the kernel here
-uses the layout the math wants: a bit mask of overlapping neighbours per atom
-in shared memory, and the sums of steps 2 and 4 as loops over the set bits.
-That needs two (nc, nc) float32 matrices (a, and B overwritten by c) instead
-of four, which is what lets the pass fit inside the campaign kernel's shared
-memory beside its state. Distances come from exact coordinate differences (a Gram
-matrix loses 26x in force error at |r| ~ 30 A), with IEEE ``1.0f / sqrtf``.
-One CTA per replica, no atomics: every sum is a per-atom or per-pair gather in
-a fixed order.
+(lc, lc) products per replica on the MXU. LCPO overlaps are sparse next to
+that (a heavy atom of the packaged helix overlaps about half of the others,
+fewer in a bigger protein), so the kernel keeps what the math wants: each
+atom's overlapping neighbours as a bit mask and as a list in ascending order
+(at most ``sasa_capacity(nc)`` entries, with the buried areas a_pq and a_qp
+beside each), built by a warp a row from ballots and prefix counts. The two
+neighbour sums run one lane a listed pair and walk the AND of the two rows'
+masks. Distances come from exact coordinate differences (a Gram matrix loses
+26x in force error at |r| ~ 30 A), with IEEE ``1.0f / sqrtf``. One CTA per
+replica, no atomics: every sum is a gather in a fixed order. A row with more
+than ``SASA_MAX_NEIGHBOURS`` overlapping heavy atoms cannot be listed; the
+kernel sets a flag in global memory and the wrapper raises
+(``raise_on_overflow``). Below 65 heavy atoms no list can overflow and the
+flag is not read.
 
 ``sasa_forces_reference`` is the plain PyTorch version (any device, any float
 dtype), dense on the compact set. It runs for a CPU tensor and is what the
@@ -56,6 +60,9 @@ Tensor = torch.Tensor
 
 #: columns of ``SasaTables.atom``
 SASA_ATOM_COLUMNS = ("radius", "a0", "p2", "p3", "p4")
+#: the most neighbours a kernel's list holds (kSasaMaxNeighbours in
+#: csrc/sasa_terms.cuh)
+SASA_MAX_NEIGHBOURS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,12 +159,40 @@ def sasa_forces_reference(
     return forces, energy
 
 
+def sasa_capacity(n_compact: int) -> int:
+    """Entries of each neighbour list in the kernels: every possible
+    neighbour (``nc - 1``) up to ``SASA_MAX_NEIGHBOURS``."""
+    return max(0, min(n_compact - 1, SASA_MAX_NEIGHBOURS))
+
+
+def overflow_possible(n_compact: int) -> bool:
+    """Whether a list can overflow, so that the wrapper must read the flag."""
+    return sasa_capacity(n_compact) < n_compact - 1
+
+
 def sasa_shared_bytes(n_compact: int) -> int:
-    """Shared memory the LCPO pass needs a replica: two (nc, nc) float32
-    matrices, the neighbour bit masks (one 32-bit word per 32 atoms a row),
-    the compact coordinates and three gate vectors."""
+    """Shared memory the LCPO pass needs a replica (``sasa_shared_words`` in
+    ``csrc/sasa_terms.cuh``): per list entry a_pq, a_qp, B_pq (then c_pq) and
+    a 16-bit neighbour index; per atom the compact coordinates, three gate
+    vectors, the count and the offset of its list; per atom and mask word
+    (one 32-bit word per 32 atoms) the overlap bits and the list slots of
+    the earlier words; the overflow flag."""
+    cap = sasa_capacity(n_compact)
     words = (n_compact + 31) // 32
-    return 4 * (2 * n_compact * n_compact + n_compact * words + 6 * n_compact)
+    n = n_compact
+    return 4 * (3 * n * cap + 6 * n + 2 * n * words + 2 * n + 2 + (n * cap + 1) // 2)
+
+
+def raise_on_overflow(flag: Tensor, n_compact: int, where: str) -> None:
+    """Read the kernel's overflow flag (one int; waits for the device) and
+    raise if a neighbour list overflowed: the forces of that launch are
+    wrong, not approximate."""
+    if int(flag.reshape(-1)[0]) != 0:
+        raise RuntimeError(
+            f"{where}: an atom of the {n_compact}-atom LCPO set overlaps more "
+            f"than {SASA_MAX_NEIGHBOURS} others, beyond what a neighbour list "
+            "holds; the forces of this launch are wrong"
+        )
 
 
 def sasa_forces(
@@ -186,19 +221,23 @@ def sasa_forces(
         )
     fn = kernel_function(
         "sasa_forces", "mdx_sasa_forces",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2,
     )
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=pos.device)
+    overflow = torch.zeros(1, dtype=torch.int32, device=pos.device)
     with torch.cuda.device(pos.device):
         err = fn(
             pos.data_ptr(), forces.data_ptr(), energy.data_ptr(),
             tables.idx.data_ptr(), tables.atom.data_ptr(), n_rep, n, nc,
-            float(surface_tension), torch.cuda.current_stream().cuda_stream,
+            float(surface_tension), overflow.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     sasa_forces.launches += 1
     if err != 0:
         raise RuntimeError(f"sasa_forces kernel launch failed: CUDA error {err}")
+    if overflow_possible(nc):
+        raise_on_overflow(overflow, nc, "sasa_forces")
     return forces, energy
 
 

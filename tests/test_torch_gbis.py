@@ -165,18 +165,80 @@ def test_gb_and_sasa_tables(sysm):
     assert tgb.gb_constants(80.0, 0.0)[:2] == (1.0 / 80.0, 0.0)
     assert abs(GB_CONSTS[1] - 50.29216 * (0.1 / (80.0 * 300.0)) ** 0.5) < 1e-12
     assert GB_CONSTS[2:] == (1.0, 0.8, 4.85)
-    # what the kernels carve out of shared memory
-    assert tsasa.sasa_shared_bytes(51) == 4 * (2 * 51 * 51 + 51 * 2 + 6 * 51)
+    # what the kernels carve out of shared memory: 50 list entries a heavy
+    # atom (three floats and a 16-bit index each) beside per-atom vectors;
+    # GB's three vectors and its dI cache (104 rows of 103); the campaign
+    # kernel's state, its slow force with a cadence, and one region as large
+    # as its largest tenant, the GB scratch here
+    assert tsasa.sasa_shared_bytes(51) == 4 * (
+        3 * 51 * 50 + 6 * 51 + 2 * 51 * 2 + 2 * 51 + 2 + 51 * 50 // 2) == 38156
+    assert tgb.gb_shared_bytes(104) == 4 * (3 * 104 + 104 * 103) == 44096
     base = tfused.campaign_shared_bytes(104, 183, 273, 53)
-    assert tfused.campaign_shared_bytes(104, 183, 273, 53, gb=True) == base + 4 * 208
-    assert tfused.campaign_shared_bytes(
-        104, 183, 273, 53, gb=True, n_sasa=51, slow_buffer=True
-    ) == base + 4 * 208 + 4 * 312 + tsasa.sasa_shared_bytes(51) < tfused.SHARED_LIMIT_BYTES
+    assert tfused.campaign_shared_bytes(104, 183, 273, 53, gb=True) == (
+        4 * 9 * 104 + tgb.gb_shared_bytes(104)) > base
+    need = tfused.campaign_shared_bytes(104, 183, 273, 53, gb=True, n_sasa=51, slow_buffer=True)
+    assert need == 4 * 12 * 104 + tgb.gb_shared_bytes(104) == 49088
+    # four CTAs an SM: 228 KB a Hopper SM, 1 KB of it reserved for each CTA
+    assert 4 * (need + 1024) <= 228 * 1024
     bare = dataclasses.replace(tff, gb_radii=None, gb_screen=None, sasa_radii=None, sasa_params=None)
     with pytest.raises(ValueError, match="gb=True needs GB tables"):
         tgb.build_gb_tables(bare)
     with pytest.raises(ValueError, match="sasa=True needs LCPO tables"):
         tsasa.build_sasa_tables(bare)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.4])
+@pytest.mark.parametrize("system", SYSTEMS)
+def test_sasa_lists_hold_every_overlap(system, scale):
+    """The kernels' neighbour lists hold the most overlapping heavy atoms any
+    atom has: the packaged systems jittered by 0.05 A, and compressed to 0.4
+    about their centre (as fault C5's probe does), where full_da's atoms
+    overlap all 50 others."""
+    from molecular_dynamics_tpu_torch.examples import decaalanine_full, dialanine
+
+    ff, coords, _ = {"full_da": decaalanine_full, "diala": dialanine}[system](device="cpu")
+    tab = tsasa.build_sasa_tables(ff)
+    c = np.asarray(coords, np.float64)
+    c = c.mean(0) + scale * (c - c.mean(0))
+    pos = t(c[None] + np.random.default_rng(5).normal(0.0, 0.05, (16,) + c.shape))
+    degree = int(tsasa.sasa_overlaps(pos, tab).sum(-1).max())
+    assert 0 < degree <= tsasa.sasa_capacity(tab.n_compact) == tab.n_compact - 1
+    assert not tsasa.overflow_possible(tab.n_compact)
+
+
+@pytest.mark.parametrize("flag", [0, 1])
+@pytest.mark.parametrize("n_compact", [51, 102])
+def test_sasa_overflow_flag_raises(n_compact, flag):
+    """A kernel that could not list an atom's neighbours sets its flag; the
+    wrappers read it wherever a list can overflow (above 65 heavy atoms)
+    and raise."""
+    assert tsasa.overflow_possible(n_compact) == (n_compact > 65)
+    assert tsasa.sasa_capacity(n_compact) == min(n_compact - 1, tsasa.SASA_MAX_NEIGHBOURS)
+    overflow = torch.tensor([flag], dtype=torch.int32)
+    if flag:
+        with pytest.raises(RuntimeError, match=f"more than {tsasa.SASA_MAX_NEIGHBOURS} others"):
+            tsasa.raise_on_overflow(overflow, n_compact, "sasa_forces")
+    else:
+        tsasa.raise_on_overflow(overflow, n_compact, "sasa_forces")
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 10])
+def test_gbis_campaign_shared_memory_at_the_tier_sizes(m):
+    """With the dI cache (N(N-1) floats) the GBIS campaign kernel holds the
+    104-atom system; at the other sizes the tier phase runs through the
+    campaign kernel the op raises, naming the limit."""
+    from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
+
+    ff, _, _ = tiled_decaalanine(m, device="cpu")
+    need = tfused.campaign_shared_bytes(
+        104 * m, 183 * m, 273 * m, 0, gb=True, n_sasa=51 * m, slow_buffer=True)
+    if m == 1:
+        op = tfused.make_fused_campaign_op(ff, gb=True, sasa=True, sasa_every=5, **GBIS_OP)
+        assert op.shared_bytes == need <= tfused.SHARED_LIMIT_BYTES
+    else:
+        assert need > tfused.SHARED_LIMIT_BYTES
+        with pytest.raises(ValueError, match=f"needs {need} bytes .* holds {tfused.SHARED_LIMIT_BYTES}"):
+            tfused.make_fused_campaign_op(ff, gb=True, sasa=True, sasa_every=5, **GBIS_OP)
 
 
 # -- the analytic forces against -grad of the JAX energies -----------------------
