@@ -15,16 +15,21 @@ Phases, one JSON line each on standard output:
    the tolerances below; the thermostat generator's statistics; the campaign
    kernel with GB and SASA on, at every step and at the ``sasa_every`` /
    ``gb_every`` cadences; the two pair-op kernels (dense ``nonbonded_rows``
-   and each-pair-once ``pair_tiles``) at 104 x 1024, 416 x 192 and 1,040 x
-   96, at 9 A with the reaction field and at 16 A without it, and the pair
+   and each-pair-once ``pair_tiles``) and the pair-forces kernel (in each of
+   its three CTA shapes) at 104 x 1024, 416 x 192 and 1,040 x 96, at 9 A
+   with the reaction field and at 16 A without it, and the pair
    ops' backward at 8 x 416; the SASA kernel also above 48 KB of shared
    memory (two tiled copies, where it opts in to more), and raising when a
    neighbour list overflows (the pair pressed to a tenth); the GB kernel at
    208 atoms and the GBIS campaign kernel at 208 atoms, where its LCPO lists
    can overflow and the wrapper reads the flag. ``levers``: what each choice
-   of the GB and LCPO redesign buys, each taken out of a copy of ``csrc/``
-   (``LEVERS``), built beside the port's libraries while the checks run and
-   timed against the kernel as built, in turns.
+   of the GB and LCPO layout and of the pair loop and the CTA shape buys,
+   each taken out of a copy of
+   ``csrc/`` (``LEVERS``), built beside the port's libraries while the
+   checks run and timed against the kernel as built, in turns, each variant
+   held to its run's tolerance; and the split of a vacuum launch (variants
+   with the plain pairs, the special pairs or the angles and torsions
+   compiled out).
 4. ``campaign``: the main path through the public entry points: load the
    104-atom deca-alanine, FIRE-minimise, draw velocities, build the SMD bias
    at the measured end-to-end distance, replicate to 1024, and run
@@ -34,8 +39,9 @@ Phases, one JSON line each on standard output:
    ``pair_tiles`` launch a step) against the all-autograd path, each
    kernel's launch count set to 0 just before its path and read just after,
    and a second, timed campaign call for aggregate steps/s. The standalone
-   ``pair_forces`` kernel has no path of its own: its device function is the
-   campaign kernel's pair loop, and its line reports those launches.
+   ``pair_forces`` kernel has no path of its own: it is the standalone launch
+   of the campaign kernel's pair loop (``csrc/pair_loop.cuh``), and its line
+   names the campaign kernel's launches as where that loop runs.
    ``gbis_campaign``: the implicit-solvent main path the same way: FIRE under
    ``GBIS_CONFIG``, 1024 replicas, ``simulate_ensemble`` for 2000 steps with
    GB-OBC II and LCPO SASA inside the campaign kernel, at ``sasa_every=1``
@@ -50,7 +56,13 @@ Phases, one JSON line each on standard output:
    ``kernel_variant``s and with ``fused_campaign`` (above 104 atoms after a
    check of the campaign kernel against its plain version there): aggregate
    steps/s and each kernel's launches per (size, path), then each kernel's
-   time a launch at each size.
+   time a launch at each size, for the campaign and pair-forces kernels
+   with their bound, SFU bound and build facts (threads, registers, CTAs an
+   SM, SMs used, waves; the two kernels must run the same CTA shape);
+   the campaign kernel alone at 12 copies (1,248 atoms, the most it holds:
+   checked against its plain version, one launch through
+   ``simulate_ensemble``, timed); and the CTA-shape levers at 416 x 192 and
+   1,040 x 96.
    ``grad``: gradients through 10 steps of the composed path (ring, dense)
    against the all-autograd path, 416 atoms x 8 replicas.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
@@ -63,8 +75,13 @@ Phases, one JSON line each on standard output:
    least time the card could take, and beside it the least time its SFU
    could take for the transcendentals; for the campaign, GB and SASA kernels
    also registers a thread, shared memory, CTAs an SM from the occupancy API
-   and the waves 1024 replicas make; for the GBIS campaign kernel the split
-   of a launch into its fast part, GB and LCPO), and the final ``ok`` line.
+   and the waves 1024 replicas make; for the campaign kernel the split of a
+   vacuum launch into plain pairs, special pairs, angles and torsions,
+   constraints and the rest, and of a GBIS launch into its fast part, GB and
+   LCPO; for the pair-forces and campaign kernels the bound counts the pair
+   tests of the chunk pairs whose boxes lie within the cutoff and the bytes
+   of the per-atom pair layout, and ``bound_ms_dense`` beside it the
+   dense-table design's count), and the final ``ok`` line.
    The ``build`` phase carries what ``nvcc -Xptxas -v`` printed of each
    kernel's registers, shared memory and spills.
 
@@ -139,7 +156,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # Operation counts read off csrc/pair_terms.cuh and csrc/campaign_advance.cu.
 # The bound counts what the function needs, not what the kernels do: every
 # unordered pair once (Newton's third law), its force added on both ends.
-# The kernels compute each pair from both ends, which is their design.
+# K1, K2 and K6 evaluate each pair once too; K5 from both ends.
 FLOPS_PAIR_TEST = 9          # dx, dy, dz, d2 and the cutoff compare, every unordered pair
 FLOPS_PAIR_TERM = 52         # pair_term<false>, live unordered pairs
 FLOPS_PAIR_ACCUM = 6         # f -= coeff * (dx, dy, dz) on one end; two ends a pair
@@ -300,18 +317,43 @@ def live_pair_count(pos, tables, consts):
     return total // 2  # the tables are symmetric: both (i, j) and (j, i) counted
 
 
-def pair_flops(n_rep, n, live, with_energy):
-    return n_rep * (n * (n - 1) // 2) * FLOPS_PAIR_TEST + live * (
+def loop_pair_tests(pos, tables, cutoff2):
+    """Plain pairs (unmasked, not special, i < j) that the pair loop of the
+    campaign and pair-forces kernels (csrc/pair_loop.cuh) must test at these
+    positions: those of chunk pairs whose bounding boxes lie within the
+    cutoff (``boxes_apart``, its margin included). Every other pair is
+    beyond the cutoff and needs no test."""
+    n_rep, n = pos.shape[:2]
+    cs, nc = nonbonded.chunk_size(n), nonbonded.chunk_count(n)
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = tables.dense
+    special = (kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)
+    plain = ((msym > 0) & ~special).float().fill_diagonal_(0.0)
+    member = torch.nn.functional.one_hot(
+        torch.arange(n, device=pos.device) // cs, nc).float()
+    between = member.T @ plain @ member  # (nc, nc): ordered plain pairs
+    unordered = torch.triu(between, 1) + torch.diag(torch.diagonal(between) / 2)
+    # the kernel's boxes: a chunk's atoms, the last atom standing in for lanes past the end
+    atom = torch.clamp(torch.arange(nc * cs, device=pos.device), max=n - 1)
+    chunks = pos[:, atom].reshape(n_rep, nc, cs, 3)
+    lo, hi = chunks.amin(2), chunks.amax(2)
+    gap = torch.clamp(torch.maximum(lo[:, None] - hi[:, :, None], lo[:, :, None] - hi[:, None]),
+                      min=0.0)
+    near = (gap * gap).sum(-1) <= cutoff2 * 1.0001
+    return int(round(float((near.float() * unordered).sum())))
+
+
+def pair_flops(tests, live, with_energy):
+    return tests * FLOPS_PAIR_TEST + live * (
         FLOPS_PAIR_TERM + 2 * FLOPS_PAIR_ACCUM
         + (FLOPS_PAIR_ENERGY if with_energy else 0)
     )
 
 
 def pair_table_bytes(tables, each_pair_once):
-    """Bytes of the packed pair tables one launch reads (pair_at in
-    csrc/pair_terms.cuh): table A's 16 bytes for every ordered pair i != j
-    (K1, K2, K5: each pair from both ends) or for every unordered pair once
-    (K6), and tables B and C's 20 bytes only where A marks a bond, UB or 1-4
+    """Bytes of the packed pair tables one launch of K5 or K6 reads (pair_at
+    in csrc/pair_terms.cuh): table A's 16 bytes for every ordered pair i != j
+    (K5: each pair from both ends) or for every unordered pair once (K6),
+    and tables B and C's 20 bytes only where A marks a bond, UB or 1-4
     entry. Replicas share the tables, so they count once a launch."""
     n = tables.pack_a.shape[0]
     entries = n * (n - 1)
@@ -321,30 +363,66 @@ def pair_table_bytes(tables, each_pair_once):
     return entries * 16 + special * 20
 
 
+def pair_layout_bytes(tables):
+    """Bytes of the per-atom pair layout one launch of K1 or K2 reads
+    (csrc/pair_loop.cuh): every array of ``tables.layout`` once; replicas
+    share it."""
+    return sum(t.numel() * t.element_size() for t in tables.layout.values())
+
+
+def bound_of(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def pair_bound_ms(n_rep, n, live, tables, with_energy, each_pair_once):
-    flops = pair_flops(n_rep, n, live, with_energy)
+    """The dense pair kernels' bound (K5, K6): every unordered pair tested,
+    the dense tables read."""
+    flops = pair_flops(n_rep * (n * (n - 1) // 2), live, with_energy)
     nbytes = 2 * n_rep * n * 12 + n_rep * 4 + pair_table_bytes(tables, each_pair_once)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return (*bound_of(flops, nbytes), flops, nbytes)
 
 
-def campaign_bound_ms(n_rep, tab, live, n_inner, shake_iters, rattle_iters):
-    n = tab.n_atoms
-    per_step = (
-        pair_flops(n_rep, n, live, False)
-        + n_rep * (
-            tab.n_angles * FLOPS_ANGLE
-            + tab.n_tors * (FLOPS_TORSION_BASE + FLOPS_TORSION_TERM * tab.max_t)
-            + tab.n_cons * FLOPS_CONSTRAINT_SWEEP * (2 * shake_iters + 3 * rattle_iters)
-            + n * FLOPS_ATOM_STEP
-        )
+def loop_pair_bound(pos, tables, live, cutoff2):
+    """The pair-forces kernel's bound (K2): the pair tests ``loop_pair_tests``
+    counts at ``pos``, the per-atom layout read; and beside it, as
+    ``bound_ms_dense``, the count of the dense-table design (every unordered
+    pair tested, table A read for every ordered pair), which keeps its rows
+    comparable with that design's."""
+    n_rep, n = pos.shape[:2]
+    tests = loop_pair_tests(pos, tables, cutoff2)
+    flops = pair_flops(tests, live, True)
+    nbytes = 2 * n_rep * n * 12 + n_rep * 4 + pair_layout_bytes(tables)
+    bound, by = bound_of(flops, nbytes)
+    return {"bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
+            "pair_tests": tests, "layout_bytes": pair_layout_bytes(tables),
+            "bound_ms_dense": pair_bound_ms(n_rep, n, live, tables, True, False)[0]}
+
+
+def campaign_bound(pos, tab, live, n_inner, shake_iters, rattle_iters, cutoff2):
+    """The campaign kernel's bound per launch: each step's pair tests
+    (``loop_pair_tests`` at ``pos``, the launch's first positions), live
+    pairs, bonded terms, constraint sweeps and per-atom work; the state in
+    and out once and every table once (the per-atom pair layout). Beside it,
+    as ``bound_ms_dense``, the dense-table design's count (every unordered
+    pair tested each step, table A read for every ordered pair)."""
+    n_rep, n = pos.shape[:2]
+    rest = n_rep * (
+        tab.n_angles * FLOPS_ANGLE
+        + tab.n_tors * (FLOPS_TORSION_BASE + FLOPS_TORSION_TERM * tab.max_t)
+        + tab.n_cons * FLOPS_CONSTRAINT_SWEEP * (2 * shake_iters + 3 * rattle_iters)
+        + n * FLOPS_ATOM_STEP
     )
-    flops = n_inner * per_step
-    table_bytes = sum(t.numel() * 4 for t in tab.tensors.values()) + pair_table_bytes(
-        tab.pair, each_pair_once=False)
-    nbytes = 2 * 9 * n_rep * n * 4 + table_bytes
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    tests = loop_pair_tests(pos, tab.pair, cutoff2)
+    flops = n_inner * (pair_flops(tests, live, False) + rest)
+    state_bytes = 2 * 9 * n_rep * n * 4 + sum(t.numel() * 4 for t in tab.tensors.values())
+    nbytes = state_bytes + pair_layout_bytes(tab.pair)
+    bound, by = bound_of(flops, nbytes)
+    dense_flops = n_inner * (pair_flops(n_rep * (n * (n - 1) // 2), live, False) + rest)
+    dense_bytes = state_bytes + pair_table_bytes(tab.pair, each_pair_once=False)
+    return {"bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
+            "pair_tests_per_step": tests, "layout_bytes": pair_layout_bytes(tab.pair),
+            "bound_ms_dense": bound_of(dense_flops, dense_bytes)[0]}
 
 
 def sfu_ms(ops):
@@ -597,7 +675,7 @@ _D_BIT_PER_I = """    float gsum = 0.f;
       const int i = ip[s];
       if ((bq[i >> 5] >> (i & 31)) & 1u) gsum += w.g3[i] + w.g4[i] * atp[s];
     }"""
-#: (what is taken out, its substitutions, the libraries it is measured in)
+#: (what is taken out, its substitutions, the runs it is measured in)
 LEVERS = (
     ("dI/dd evaluated again in the chain pass (no cache reads)", [
         (_CHAIN_CACHED, _CHAIN_RECOMPUTE),
@@ -606,42 +684,95 @@ LEVERS = (
          "                                              const float* __restrict__ atom) {\n  const int stride"),
         ("  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz);",
          "  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz, atom);")],
-     ("gb_forces", "campaign_advance")),
+     ("gb_forces", "campaign_advance[gbis]")),
     ("Still term once per unordered pair, on a ring (partner halves through shared memory)", [
         (("template <int kThreads, bool kEnergy>\n__device__ __forceinline__ float gb_still_pass(",
           "// Chain pass:"), _STILL_RING + "\n"),
         ("  return 3 * static_cast<size_t>(n) +\n         static_cast<size_t>(n) * gb_cache_stride(n);",
          "  return 3 * static_cast<size_t>(n) +\n         static_cast<size_t>(n) * gb_cache_stride(n) + 9 * static_cast<size_t>(n);")],
-     ("gb_forces", "campaign_advance")),
+     ("gb_forces", "campaign_advance[gbis]")),
     ("a thread per atom in every GB pass (no lane groups)", [
         ("constexpr int kGbLanes = 16;", "constexpr int kGbLanes = 1;")],
-     ("gb_forces", "campaign_advance")),
+     ("gb_forces", "campaign_advance[gbis]")),
     ("IEEE reciprocals in hct_pair", [
         ("  const float ui = __fdividef(1.0f, up);\n  const float li = __fdividef(1.0f, lo);",
          "  const float ui = 1.0f / up;\n  const float li = 1.0f / lo;")],
-     ("gb_forces", "campaign_advance")),
+     ("gb_forces", "campaign_advance[gbis]")),
     ("LCPO pass D tests one bit per i of N(p) instead of walking the AND", [
         (_D_AND_WALK, _D_BIT_PER_I)],
-     ("sasa_forces", "campaign_advance")),
+     ("sasa_forces", "campaign_advance[gbis]")),
     ("128 threads a CTA", [
         ("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
      ("gb_forces", "sasa_forces")),
     ("solvent kernel at 128 threads (128 registers)", [
         ("constexpr int kSolventThreads = 256;", "constexpr int kSolventThreads = 128;")],
-     ("campaign_advance",)),
+     ("campaign_advance[gbis]",)),
     ("solvent kernel without its register cap", [
         ("__launch_bounds__(kSolventThreads, kSolventCtasPerSm)",
          "__launch_bounds__(kSolventThreads)")],
-     ("campaign_advance",)),
+     ("campaign_advance[gbis]",)),
+    # the pair loop (csrc/pair_loop.cuh) and the CTA shape of K1
+    ("each pair from both ends (rows only, every chunk pair in both orders)", [
+        ("  const int s_lo = diag ? 1 : 0, s_hi = diag ? half : cs - 1;",
+         "  const int s_lo = diag ? 1 : 0, s_hi = cs - 1;"),
+        ("!(diag && 2 * s == cs && lane >= half)", "true"),
+        ("  if (diag) {\n    rx += cx;", "  if (false) {\n    rx += cx;"),
+        ("  } else if (lane < cs && J * cs + lane < n) {", "  } else if (false) {"),
+        ("  for (int k = 1; k <= nc / 2; ++k) {", "  for (int k = 1; k < nc; ++k) {"),
+        ("      if (I >= nc || (2 * k == nc && I >= k)) continue;", "      if (I >= nc) continue;")],
+     ("campaign_advance[vacuum]", "campaign_advance[1040x96]")),
+    ("plain pairs through the whole pair_term (the bond and 1-4 lines add zeros)", [
+        ("pair_term<kEnergy, false>(d2, qi", "pair_term<kEnergy, true>(d2, qi")],
+     ("campaign_advance[vacuum]", "campaign_advance[1040x96]", "pair_forces")),
+    ("no box test (every chunk pair met)", [
+        ("      if (boxes_apart(box, I, J, c.cutoff2)) continue;\n", "")],
+     ("campaign_advance[vacuum]", "campaign_advance[1040x96]", "pair_forces")),
+    ("256 threads above 512 atoms (five chunks a warp)", [
+        ("constexpr int kLargeThreads = 1024;", "constexpr int kLargeThreads = 256;"),
+        ("  return threads == kLargeThreads ? 2 : 1;", "  return threads == kLargeThreads ? 5 : 1;")],
+     ("campaign_advance[1040x96]",)),
+    ("1024 threads also at 129-512 atoms", [
+        ("constexpr int kMediumAtoms = 512;", "constexpr int kMediumAtoms = 128;")],
+     ("campaign_advance[416x192]",)),
+    ("512 threads above 512 atoms (four chunks a warp)", [
+        ("constexpr int kLargeThreads = 1024;", "constexpr int kLargeThreads = 512;"),
+        ("  return threads == kLargeThreads ? 2 : 1;", "  return threads == kLargeThreads ? 4 : 1;")],
+     ("campaign_advance[1040x96]",)),
+    ("vacuum kernel without its register cap (8 CTAs an SM)", [
+        ("__launch_bounds__(kSmallThreads, kVacuumCtasPerSm)", "__launch_bounds__(kSmallThreads)")],
+     ("campaign_advance[vacuum]",)),
+    # the vacuum split: each variant compiles one part of a step out
+    ("split: no plain pairs", [
+        ("  pair_rounds<kThreads, kRows, false>(n, s.x, s.y, s.z, s.fx, s.fy, s.fz,\n"
+         "                                      s.box, t.pair, k.pair, rx, ry, rz);",
+         "  for (int q = 0; q < kRows; ++q) rx[q] = ry[q] = rz[q] = 0.f;\n  __syncthreads();")],
+     ("campaign_advance[vacuum]",)),
+    ("split: no special pairs", [
+        ("    special_sum<false>(a, s.x, s.y, s.z, t.pair, k.pair, fx, fy, fz, unused);\n", "")],
+     ("campaign_advance[vacuum]",)),
+    ("split: no angles and torsions", [
+        ("  angle_forces<kThreads>(s, t, d);\n  torsion_forces<kThreads>(s, t, d);\n  for (int a",
+         "  for (int a"),
+        ("    gather3(s.abuf, t.ang_start, t.ang_src, t.ang_w, a, ax, ay, az);\n"
+         "    gather3(s.tbuf, t.tor_start, t.tor_src, t.tor_w, a, bx, by, bz);",
+         "    ax = ay = az = bx = by = bz = 0.f;")],
+     ("campaign_advance[vacuum]",)),
 )
 LEVER_DIR = pathlib.Path(__file__).resolve().parent / "build" / "mdx_torch_levers"
+
+
+def lever_library(run):
+    """The library a lever's run key times: "campaign_advance[gbis]" ->
+    "campaign_advance"."""
+    return run.split("[")[0]
 
 
 def start_lever_builds():
     """Copy csrc/ once per variant and library, change it, start one nvcc
     each."""
     started, skipped = {}, {}
-    jobs = [(lib, label, subs) for label, subs, in_libs in LEVERS for lib in in_libs]
+    jobs = [(lib, label, subs) for label, subs, runs in LEVERS
+            for lib in dict.fromkeys(lever_library(r) for r in runs)]
     for i, (lib, label, subs) in enumerate(jobs):
         d = LEVER_DIR / f"{lib}_{i}"
         shutil.rmtree(d, ignore_errors=True)
@@ -679,28 +810,43 @@ def finish_lever_builds(started, skipped):
     return libs
 
 
-def levers_phase(libs, skipped, runs):
+def levers_phase(libs, runs):
     """Each variant against the kernel as built, in turns (built, variant,
-    variant, built): ms a launch of K3 and K4 at 1024 x 104, of K1 under GBIS per 50
-    steps; and the error against the plain version. ``runs`` maps a library
-    name to (call, error of a result against its plain version)."""
+    variant, built), in every run of ``runs`` its lever names: ``runs`` maps a
+    run key of ``LEVERS`` to (call, error of a result against its plain
+    version, or None, build facts or None). Rows are keyed "run: label"."""
     rows = {}
+    targets = {label: run_keys for label, _, run_keys in LEVERS}
     for (lib, label), variant in libs.items():
-        built = _build._libraries[lib]
-        call, error = runs[lib]
-        times = {"built": [], "variant": []}
-        for which in ("built", "variant", "variant", "built"):
-            _build._libraries[lib] = built if which == "built" else variant
-            times[which].append(time_ms(call, repeats=3 if lib == "campaign_advance" else 20))
-        _build._libraries[lib] = variant
-        err = error(call())
-        facts = (runs[lib + "_facts"]() if lib + "_facts" in runs else None)
-        _build._libraries[lib] = built
-        rows[f"{lib}: {label}"] = {
-            "ms_built": sum(times["built"]) / 2, "ms_variant": sum(times["variant"]) / 2,
-            "ms_each": times, "error_vs_plain_variant": err,
-            **({"build_facts_variant": facts} if facts else {})}
-    return {**rows, **{k: {"skipped": v} for k, v in skipped.items()}}
+        for run in targets[label]:
+            if run not in runs or lever_library(run) != lib:
+                continue
+            built = _build._libraries[lib]
+            call, error, facts = runs[run]
+            times = {"built": [], "variant": []}
+            for which in ("built", "variant", "variant", "built"):
+                _build._libraries[lib] = built if which == "built" else variant
+                times[which].append(time_ms(call, repeats=3 if lib == "campaign_advance" else 20))
+            _build._libraries[lib] = variant
+            err = error(call()) if error else None
+            facts_v = facts() if facts else None
+            _build._libraries[lib] = built
+            rows[f"{run}: {label}"] = {
+                "ms_built": sum(times["built"]) / 2, "ms_variant": sum(times["variant"]) / 2,
+                "ms_each": times, "error_vs_plain_variant": err,
+                **({"build_facts_variant": facts_v} if facts_v else {})}
+    return rows
+
+
+def hold_levers(rows, tolerances):
+    """Every design variant (not the split's, which take a part out) within
+    its run's tolerance of the plain version."""
+    for key, row in rows.items():
+        run, label = key.split(": ", 1)
+        if label.startswith("split: ") or row.get("error_vs_plain_variant") is None:
+            continue
+        check(row["error_vs_plain_variant"] <= tolerances[run],
+              f"lever {key}: {row['error_vs_plain_variant']} against {tolerances[run]}")
 
 
 PAIR_CASES = {
@@ -735,14 +881,15 @@ def cutoff_clear(pos, tables, cutoff, margin=5e-6):
 
 
 def pair_op_checks(rng, checks):
-    """K5 and K6 against their plain version (float32) at PAIR_OP_SHAPES, at
+    """K5, K6 and K2 (``ring.pair_forces``, in each of its CTA shapes)
+    against their plain version (float32) at PAIR_OP_SHAPES, at
     9 A with the reaction field and at 16 A without it (the halfway pairs of
     a diagonal tile live there); the plain version in float32 against
     float64; two launches give the same bits; the ops' backward against
     autograd of their float32 reference at 8 replicas x 416 atoms, for the
     energy's and the forces' cotangent. Returns the largest force error of
     each kernel."""
-    worst = {name: 0.0 for name in PAIR_OP_KERNELS}
+    worst = {name: 0.0 for name in (*PAIR_OP_KERNELS, "pair_forces")}
     for m, n_rep in PAIR_OP_SHAPES:
         ff_m, coords_m, _ = tiled_decaalanine(m)
         pos = jittered(coords_m, n_rep, rng)
@@ -760,7 +907,9 @@ def pair_op_checks(rng, checks):
             check(res["force_err_plain_f32_vs_f64"] <= TOL_PAIR_FORCE
                   and res["energy_err_plain_f32_vs_f64"] <= m * TOL_PAIR_ENERGY,
                   f"{tag} plain f32 vs f64: {res}")
-            for name, fn in PAIR_OP_KERNELS.items():
+            kernels_here = {**PAIR_OP_KERNELS,
+                            "pair_forces": lambda p, t_, _, c=c: ring.pair_forces(p, t_, *c)}
+            for name, fn in kernels_here.items():
                 e_k, f_k = fn(pos, tabs, consts)
                 e_k2, f_k2 = fn(pos, tabs, consts)
                 torch.cuda.synchronize()
@@ -817,43 +966,99 @@ def minimised_ensemble(ff_m, coords_m, n_rep, seed):
     return pos0, replicate(state, n_rep, seed=1)
 
 
-def tiers_phase():
+def campaign_check_at(ff_m, pos0, m):
+    """The campaign kernel at this system: 5 steps at T = 0 against its plain
+    version, 8 replicas near the minimum. Returns the check's row and a
+    function that repeats it (the tier levers' error)."""
+    n_m = ff_m.n_atoms
+    op5 = fused_step.make_fused_campaign_op(ff_m, n_inner=5, dt_fs=1.0, temperature=0.0)
+    s5 = op5.settings
+    pos_c = (pos0[None] + 0.01 * torch.randn(
+        (8, n_m, 3), generator=torch.Generator(device="cuda").manual_seed(m),
+        device="cuda")).contiguous()
+    vel_c = torch.zeros_like(pos_c)
+    frc_c = fused_step.campaign_forces_reference(
+        pos_c, op5.tables, s5["pair_consts"], s5["bias_consts"], 0).contiguous()
+    out_p = fused_step.campaign_advance_reference(pos_c, vel_c, frc_c, 0, 1, op5.tables, **s5)
+
+    def error(_=None):
+        out_k = op5(pos_c, vel_c, frc_c, 0, 1)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in out_k),
+              f"campaign_advance at {n_m} atoms: non-finite output")
+        return [max_err(a, b) for a, b in zip(out_k, out_p)]
+
+    errs = error()
+    check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
+          f"campaign_advance at {n_m} atoms, T=0, 5 steps vs plain: {errs}")
+    return {**dict(zip(("pos", "vel", "frc"), errs)), "shared_bytes": op5.shared_bytes,
+            "threads": op5.kernel_info()["threads_per_cta"]}, lambda out: error()[0]
+
+
+def campaign_tier_row(k1_op, pos, vel, frc, n_rep, live, launches):
+    """The campaign kernel at a tier: ms per TIER_SAVE steps beside its
+    bound (``campaign_bound``: the pair tests of the chunk pairs near each
+    other at ``pos``, the per-atom layout's bytes; the dense-table design's
+    count beside it), its SFU bound and its build facts."""
+    tab = k1_op.tables
+    s = k1_op.settings
+    bound = campaign_bound(pos, tab, live, TIER_SAVE, s["shake_iters"], s["rattle_iters"],
+                           s["pair_consts"][0])
+    facts = build_facts(k1_op.kernel_info(), n_ctas=n_rep)
+    return {
+        "ms": time_ms(lambda: k1_op(pos, vel, frc, 0, 3), repeats=3),
+        "n_inner": TIER_SAVE, "shared_bytes": k1_op.shared_bytes, "launches": launches,
+        **bound,
+        "sfu_bound_ms": sfu_ms(campaign_sfu_ops(
+            n_rep, tab, live, TIER_SAVE, s["shake_iters"], s["rattle_iters"])),
+        "live_unordered_pairs": live, **facts,
+        "sms_used": min(facts["sm_count"], n_rep),
+    }
+
+
+def pair_forces_tier_row(pos, tabs, live, consts, plain_ms=None):
+    """The pair-forces kernel (the campaign kernel's pair loop alone) at a
+    tier: ms a launch at 9 A with the reaction field beside its bound
+    (``loop_pair_bound``) and its build facts. Its launches: 0, no path
+    launches it."""
+    n_rep, n = pos.shape[:2]
+    return {
+        "ms": time_ms(lambda: ring.pair_forces(pos, tabs, *PAIR_CASES["9A_rf"]), repeats=20),
+        **loop_pair_bound(pos, tabs, live, consts[0]), "live_unordered_pairs": live,
+        "launches": 0, "plain_ms": plain_ms,
+        **build_facts(_build.kernel_info("pair_forces", "mdx_pair_forces_info", [ctypes.c_int], n),
+                      n_ctas=n_rep),
+    }
+
+
+def same_shape(times, shape):
+    """The pair-forces kernel runs the campaign kernel's CTA shape."""
+    k1, k2 = times["campaign_advance"][shape], times["pair_forces"][shape]
+    check(k1["threads_per_cta"] == k2["threads_per_cta"],
+          f"{shape}: the campaign kernel runs {k1['threads_per_cta']} threads a CTA, "
+          f"the pair-forces kernel {k2['threads_per_cta']}")
+
+
+def tiers_phase(lever_libs):
     """The composed pair-op path (``fused_nonbonded`` at both
     ``kernel_variant``s) and the campaign kernel where it holds the system,
     at every TIERS size: aggregate steps/s and each kernel's launches, its
     counter set to 0 just before the path and read just after; then each
     kernel's time a launch at the tier's shape and positions. Above 104
-    atoms, first the campaign kernel against its plain version."""
+    atoms, first the campaign kernel against its plain version. Then the
+    campaign kernel alone at 12 copies (1,248 atoms, the most it holds), and
+    the tier levers at 1,040 x 96."""
     counters = {"nonbonded_rows": nonbonded.nonbonded_rows, "pair_tiles": ring.pair_tiles,
                 "campaign_advance": fused_step.campaign_advance}
     path_kernel = {"ring": "pair_tiles", "dense": "nonbonded_rows", "campaign": "campaign_advance"}
-    rows, times, starts, k1_checks = {}, {}, {}, {}
+    rows, times, starts, k1_checks, lever_rows = {}, {}, {}, {}, {}
     for m, n_rep in TIERS:
         ff_m, coords_m, _ = tiled_decaalanine(m)
         n_m = ff_m.n_atoms
         pos0, ens = minimised_ensemble(ff_m, coords_m, n_rep, seed=m)
         starts[m] = (ff_m, pos0, ens)
         if m > 1:
-            # the campaign kernel holds this system: 5 steps at T = 0 against
-            # its plain version, 8 replicas near the minimum
-            op5 = fused_step.make_fused_campaign_op(ff_m, n_inner=5, dt_fs=1.0, temperature=0.0)
-            s5 = op5.settings
-            pos_c = (pos0[None] + 0.01 * torch.randn(
-                (8, n_m, 3), generator=torch.Generator(device="cuda").manual_seed(m),
-                device="cuda")).contiguous()
-            vel_c = torch.zeros_like(pos_c)
-            frc_c = fused_step.campaign_forces_reference(
-                pos_c, op5.tables, s5["pair_consts"], s5["bias_consts"], 0).contiguous()
-            out_k = op5(pos_c, vel_c, frc_c, 0, 1)
-            out_p = fused_step.campaign_advance_reference(
-                pos_c, vel_c, frc_c, 0, 1, op5.tables, **s5)
-            torch.cuda.synchronize()
-            errs = [max_err(a, b) for a, b in zip(out_k, out_p)]
-            k1_checks[f"{n_m}x8"] = {**dict(zip(("pos", "vel", "frc"), errs)),
-                                     "shared_bytes": op5.shared_bytes}
-            check(all(bool(torch.isfinite(x).all()) for x in out_k)
-                  and errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
-                  f"campaign_advance at {n_m} atoms, T=0, 5 steps vs plain: {errs}")
+            k1_checks[f"{n_m}x8"], k1_error = campaign_check_at(ff_m, pos0, m)
         base = dict(dt_fs=1.0, temperature=300.0, gamma_ps=1.0, energy=REFERENCE_CONFIG)
         paths = {
             "ring": SimulationConfig(fused_nonbonded=True, kernel_variant="ring", **base),
@@ -905,15 +1110,46 @@ def tiers_phase():
                 "flops": flops, "bytes": nbytes, "live_unordered_pairs": live,
                 "launches": rows[f"{shape}/{'ring' if name == 'pair_tiles' else 'dense'}"]["launches"][name],
             }
+        times.setdefault("pair_forces", {})[shape] = pair_forces_tier_row(
+            pos, tabs, live, consts, plain_ms)
         vel = final.vel.contiguous()
         frc = final.forces.contiguous()
-        times.setdefault("campaign_advance", {})[shape] = {
-            "ms": time_ms(lambda: k1_op(pos, vel, frc, 0, 3), repeats=3),
-            "n_inner": TIER_SAVE, "shared_bytes": k1_op.shared_bytes,
-            "launches": rows[f"{shape}/campaign"]["launches"]["campaign_advance"],
-        }
+        times.setdefault("campaign_advance", {})[shape] = campaign_tier_row(
+            k1_op, pos, vel, frc, n_rep, live,
+            rows[f"{shape}/campaign"]["launches"]["campaign_advance"])
+        same_shape(times, shape)
+        if shape in ("416x192", "1040x96"):
+            rows_m = levers_phase(lever_libs, {f"campaign_advance[{shape}]": (
+                lambda: k1_op(pos, vel, frc, 0, 3), k1_error, k1_op.kernel_info)})
+            hold_levers(rows_m, {f"campaign_advance[{shape}]": TOL_POS})
+            lever_rows.update(rows_m)
         del tabs, final, frames
-    return rows, times, starts, k1_checks
+
+    # the largest system the campaign kernel holds: 12 copies, 96 replicas
+    m, n_rep = 12, 96
+    ff_m, coords_m, _ = tiled_decaalanine(m)
+    pos0, ens = minimised_ensemble(ff_m, coords_m, n_rep, seed=m)
+    k1_checks[f"{ff_m.n_atoms}x8"], _ = campaign_check_at(ff_m, pos0, m)
+    k1_op = fused_step.make_fused_campaign_op(
+        ff_m, n_inner=TIER_SAVE, dt_fs=1.0, temperature=300.0, gamma_ps=1.0)
+    fused_step.campaign_advance.launches = 0
+    final, _, _ = simulate_ensemble(ens, ff_m, n_steps=TIER_SAVE, save_every=TIER_SAVE,
+                                    config=SimulationConfig(fused_campaign=True, dt_fs=1.0,
+                                                            temperature=300.0, energy=REFERENCE_CONFIG))
+    torch.cuda.synchronize()
+    launches = fused_step.campaign_advance.launches
+    check(launches == 1 and bool(torch.isfinite(final.pos).all()),
+          f"campaign at {ff_m.n_atoms} atoms: {launches} launches, finite {bool(torch.isfinite(final.pos).all())}")
+    pos = final.pos.contiguous()
+    tabs = nonbonded.build_pair_tables(ff_m)
+    consts = nonbonded.pair_constants(*PAIR_CASES["9A_rf"])
+    live = live_pair_count(pos, tabs, consts)
+    shape = f"{ff_m.n_atoms}x{n_rep}"
+    times["pair_forces"][shape] = pair_forces_tier_row(pos, tabs, live, consts)
+    times["campaign_advance"][shape] = campaign_tier_row(
+        k1_op, pos, final.vel.contiguous(), final.forces.contiguous(), n_rep, live, launches)
+    same_shape(times, shape)
+    return rows, times, starts, k1_checks, lever_rows
 
 
 def grad_phase(ff4, pos_min4, rng):
@@ -1047,8 +1283,8 @@ def main():
     live = live_pair_count(pos_pert, tables, pair_consts)
     k2_ms = time_ms(lambda: ring.pair_forces(pos_pert, tables, **ref_kw), repeats=20)
     k2_plain_ms = time_ms(lambda: ring.pair_forces_reference(pos_pert, tables, **ref_kw), repeats=3)
-    k2_bound, k2_by, k2_flops, k2_bytes = pair_bound_ms(
-        N_REPLICAS, n, live, tables, True, each_pair_once=False)
+    k2_plain = ring.pair_forces_reference(pos_pert, tables, **ref_kw)
+    k2_bound = loop_pair_bound(pos_pert, tables, live, pair_consts[0])
     ref_res = checks["pair_forces[reference_9A_rf_sw7.5]"]
     kernels["pair_forces"] = {
         "name": "pair_forces", "route": "cuda",
@@ -1058,10 +1294,10 @@ def main():
         "max_abs_err": max(ref_res["force_err_kernel_vs_plain"],
                            checks["pair_forces[gbis_16A_norf_sw15]"]["force_err_kernel_vs_plain"]),
         "tolerance": TOL_PAIR_FORCE,
-        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-        "bound_by": k2_by, "library_ms": None, "sfu_bound_ms": sfu_ms(pair_sfu_ops(live)),
-        "shape": [N_REPLICAS, n, 3], "flops": k2_flops, "bytes": k2_bytes,
-        "live_unordered_pairs": live,
+        "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
+        "library_ms": None, "sfu_bound_ms": sfu_ms(pair_sfu_ops(live)),
+        **build_facts(_build.kernel_info("pair_forces", "mdx_pair_forces_info", [ctypes.c_int], n)),
+        "shape": [N_REPLICAS, n, 3], "live_unordered_pairs": live,
     }
 
     # -- K1: campaign_advance ----------------------------------------------
@@ -1193,11 +1429,11 @@ def main():
             pos_b, vel_b, frc_b, 0, 3, tab50, **plain_settings),
         repeats=1, warmup=0,
     )
+    k1_plain_out = fused_step.campaign_advance_reference(pos_b, vel_b, frc_b, 0, 3, tab50, **plain_settings)
     live_b = live_pair_count(pos_b, tables, pair_consts)
-    k1_bound, k1_by, k1_flops, k1_bytes = campaign_bound_ms(
-        N_REPLICAS, tab, live_b, N_INNER,
-        plain_settings["shake_iters"], plain_settings["rattle_iters"],
-    )
+    k1_bound = campaign_bound(
+        pos_b, tab, live_b, N_INNER, plain_settings["shake_iters"],
+        plain_settings["rattle_iters"], plain_settings["pair_consts"][0])
     kernels["campaign_advance"] = {
         "name": "campaign_advance", "route": "cuda",
         "source": "molecular_dynamics_tpu_torch/csrc/campaign_advance.cu",
@@ -1205,15 +1441,14 @@ def main():
         "launches": 0,
         "max_abs_err": k1_err[N_INNER][0], "tolerance": TOL_POS_50,
         "max_abs_err_what": "positions (A) after 50 steps at T=0 vs the plain version",
-        "ms": k1_ms, "ms_runs": k1_ms_runs, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-        "bound_by": k1_by, "library_ms": None,
+        "ms": k1_ms, "ms_runs": k1_ms_runs, "plain_ms": k1_plain_ms, **k1_bound,
+        "library_ms": None,
         "sfu_bound_ms": sfu_ms(campaign_sfu_ops(
             N_REPLICAS, tab, live_b, N_INNER, plain_settings["shake_iters"],
             plain_settings["rattle_iters"])),
         **build_facts(op50.kernel_info()),
         "shape": [N_REPLICAS, n, 3], "n_inner": N_INNER,
         "ms_without_constraints": k1_free_ms,
-        "flops": k1_flops, "bytes": k1_bytes,
         "live_unordered_pairs_at_entry": live_b,
     }
     # another shape through the same kernels: the 22-atom di-alanine
@@ -1501,9 +1736,10 @@ def main():
     pair_consts_g = gs["pair_consts"]
     live_g = live_pair_count(pos_b, tables, pair_consts_g)
     work_b = sasa_work(pos_b, sasa_tab)
-    _, _, vac_flops, kg_bytes = campaign_bound_ms(
-        N_REPLICAS, g1.tables, live_g, N_INNER, gs["shake_iters"], gs["rattle_iters"])
-    kg_flops = vac_flops + N_INNER * (
+    fast = campaign_bound(pos_b, g1.tables, live_g, N_INNER, gs["shake_iters"],
+                          gs["rattle_iters"], pair_consts_g[0])
+    kg_bytes = fast["bytes"]
+    kg_flops = fast["flops"] + N_INNER * (
         gb_bound_ms(N_REPLICAS, n, with_energy=False)[2] + sasa_flops(N_REPLICAS, nc, work_b))
     kg_bytes += n * 5 * 4 + nc * 24
     kg_bound = 1e3 * max(kg_flops / PEAK_F32_FLOPS, kg_bytes / PEAK_BYTES_PER_S)
@@ -1539,16 +1775,31 @@ def main():
 
     # -- what each lever of the redesign buys (ablation, see LEVERS) --------
     t_lev = time.perf_counter()
-    levers = levers_phase(lever_libs, lever_builds[1], {
+    levers = levers_phase(lever_libs, {
         "gb_forces": (lambda: gb.gb_forces(pos_pert, gb_tab, gb_consts),
-                      lambda out: max_err(out[0], f_gb_plain)),
+                      lambda out: max_err(out[0], f_gb_plain), None),
         "sasa_forces": (lambda: sasa.sasa_forces(pos_pert, sasa_tab, gamma),
-                        lambda out: max_err(out[0], f_sasa_plain)),
-        "campaign_advance": (lambda: g50(pos_b, vel_b, frc_g, 0, 3),
-                             lambda out: max_err(out[0], g50_plain[0])),
-        "campaign_advance_facts": g50.kernel_info,
+                        lambda out: max_err(out[0], f_sasa_plain), None),
+        "campaign_advance[gbis]": (lambda: g50(pos_b, vel_b, frc_g, 0, 3),
+                                   lambda out: max_err(out[0], g50_plain[0]), g50.kernel_info),
+        "campaign_advance[vacuum]": (lambda: op50(pos_b, vel_b, frc_b, 0, 3),
+                                     lambda out: max_err(out[0], k1_plain_out[0]), op50.kernel_info),
+        "pair_forces": (lambda: ring.pair_forces(pos_pert, tables, **ref_kw),
+                        lambda out: max_err(out[1], k2_plain[1]), None),
     })
+    # where a vacuum launch's time goes: differences of whole-kernel times
+    split_rows = {label[len("split: no "):]: levers[f"campaign_advance[vacuum]: {label}"]
+                  for label, _, _ in LEVERS if label.startswith("split: ")
+                  and f"campaign_advance[vacuum]: {label}" in levers}
+    split = {part: row["ms_built"] - row["ms_variant"] for part, row in split_rows.items()}
+    split["constraints"] = k1_ms - k1_free_ms
+    split["rest"] = k1_ms - sum(split.values())
+    kernels["campaign_advance"]["split_ms"] = split
+    hold_levers(levers, {"gb_forces": TOL_GB_FORCE, "sasa_forces": TOL_SASA_FORCE,
+                         "campaign_advance[gbis]": TOL_POS_50,
+                         "campaign_advance[vacuum]": TOL_POS_50, "pair_forces": TOL_PAIR_FORCE})
     emit("levers", seconds=round(time.perf_counter() - t_lev, 1), **levers,
+         **{f"skipped: {k}": v for k, v in lever_builds[1].items()},
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
     # the 22-atom di-alanine (10 heavy atoms: one mask word, fewer atoms than
@@ -1606,8 +1857,11 @@ def main():
     check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
           f"GBIS campaign_advance at 208 atoms: {errs}")
 
-    # -- K5: nonbonded_rows and K6: pair_tiles -------------------------------
+    # -- K5: nonbonded_rows and K6: pair_tiles, and K2 at their shapes -------
     pair_op_err = pair_op_checks(rng, checks)
+    kernels["pair_forces"]["max_abs_err_at_pair_op_shapes"] = pair_op_err["pair_forces"]
+    kernels["pair_forces"]["max_abs_err"] = max(
+        kernels["pair_forces"]["max_abs_err"], pair_op_err["pair_forces"])
 
     emit("checks", fire_seconds=round(fire_s, 2), e_min=e_min, **checks)
 
@@ -1639,12 +1893,12 @@ def main():
     kernels["campaign_advance"]["launches_of"] = (
         f"simulate_ensemble(fused_campaign), {N_REPLICAS} replicas x {N_STEPS} steps")
 
-    # B2 runs as the device function atom_pair_sum (csrc/pair_terms.cuh) inside
-    # every step of every launch above; the standalone pair_forces kernel has
-    # no path of its own since fused_nonbonded takes the pair ops (K5, K6)
+    # B2 runs as the pair loop of csrc/pair_loop.cuh inside every step of
+    # every launch above; the standalone pair_forces kernel launches that loop
+    # alone and has no path of its own (fused_nonbonded takes K5, K6)
     kernels["pair_forces"]["device_function_in"] = (
         f"campaign_advance: its {launches_k1} launches on the main path run "
-        f"atom_pair_sum every step")
+        f"pair_rounds and special_sum every step")
 
     # the composed pair-op path at the main shape: the same entry point with
     # fused_nonbonded (2-body terms from one pair_tiles launch a step, angles
@@ -1839,8 +2093,10 @@ def main():
          script_seconds=round(time.perf_counter() - t_script, 1))
 
     # -- the composed pair-op path at the tier sizes ---------------------------
-    tier_rows, tier_times, starts, k1_checks = tiers_phase()
+    tier_rows, tier_times, starts, k1_checks, tier_levers = tiers_phase(lever_libs)
     emit("tiers", **tier_rows, campaign_advance_vs_plain=k1_checks,
+         campaign_advance_by_tier=tier_times["campaign_advance"],
+         pair_forces_by_tier=tier_times["pair_forces"], levers=tier_levers,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
     for name, variant, replaces in (
@@ -1865,6 +2121,7 @@ def main():
             "shape": [TIERS[-1][1], 104 * TIERS[-1][0], 3], "by_shape": by_shape,
         }
     kernels["campaign_advance"]["by_tier"] = tier_times["campaign_advance"]
+    kernels["pair_forces"]["by_tier"] = tier_times["pair_forces"]
 
     ff4, pos_min4, ens4 = starts[4]
     grad_res = grad_phase(ff4, pos_min4, rng)

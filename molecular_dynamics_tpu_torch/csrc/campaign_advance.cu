@@ -6,16 +6,19 @@
 // sasa_every cadence blocks); the implicit-solvent passes it calls are in
 // gb_terms.cuh and sasa_terms.cuh.
 // Bound on an H100: float32 arithmetic, not memory. Global memory sees the
-// state once at entry and once at exit (9*N floats each way per replica),
-// while each of the n_inner steps needs N*(N-1)/2 pairs of ~60 flops (the
-// pair loop evaluates each from both ends, twice that) plus the bonded terms
-// and 21 constraint sweeps (2 SHAKE of 6, 3 RATTLE of 3).
-// Design: one CTA per replica (kVacuumThreads or kSolventThreads threads).
-// Per step, in the order of the reference's step_body: half kick -> RATTLE
-// -> half drift -> SHAKE -> O-step -> RATTLE -> half drift -> SHAKE ->
-// forces at t0 + i -> half kick -> RATTLE. Forces: pair terms by the shared device function (thread per
-// atom over all j, pair_terms.cuh), angles (thread per angle), dihedrals and
-// impropers together (thread per torsion, up to max_t terms, AMBER where
+// state once at entry and once at exit (9*N floats each way per replica)
+// and small tables (per-atom pair parameters, bonded lists) that stay in
+// L1/L2, while each of the n_inner steps needs N*(N-1)/2 pair tests and ~70
+// flops for each pair inside the cutoff, plus the bonded terms and 21
+// constraint sweeps (2 SHAKE of 6, 3 RATTLE of 3).
+// Design: one CTA per replica (128, 512 or 1024 threads by size, 256 with
+// GB or LCPO). Per step, in the order of the reference's step_body:
+// half kick -> RATTLE -> half drift -> SHAKE -> O-step -> RATTLE -> half
+// drift -> SHAKE -> forces at t0 + i -> half kick -> RATTLE. Forces: the
+// pair loop of pair_loop.cuh (each unordered pair once, 32-atom chunks met
+// warp by warp, far chunk pairs skipped, parameters from per-atom arrays;
+// special pairs from per-atom lists), angles (thread per angle), dihedrals
+// and impropers together (thread per torsion, up to max_t terms, AMBER where
 // per > 0 else CHARMM with the 2 pi wrap), the moving SMD bias.
 // Scatters are gathers: a bonded term or a constraint writes its 3-vectors
 // into a shared buffer, and after a barrier each atom sums its own entries
@@ -23,7 +26,8 @@
 // launch gives the same bits every run, and cutting n_inner steps into
 // several launches gives the same bits as one launch. SHAKE and RATTLE are
 // Jacobi sweeps: every constraint reads the same iterate, a barrier, then
-// all corrections are added.
+// all corrections are added (on one warp with __syncwarp instead, a launch
+// took 30 % longer in vacuum and 12 % under GBIS: chip_smoke.py's levers).
 // Noise: Philox4x32-10 keyed on (seed, replica, t0 + i, atom), philox.cuh.
 // Implicit solvent (use_gb, n_sasa): the GB-OBC II and LCPO forces are added
 // to the per-step force by the device functions the standalone kernels use.
@@ -36,40 +40,47 @@
 // followed by RATTLE; inside the block the per-step force is the fast one.
 // The carried force is the total at launch entry and exit: the slow part is
 // taken off on the way in and put back on the way out.
-// Shared memory: the state (9 N floats) and the slow force of a block stay
-// for the whole launch; the bonded and constraint buffers, the GB scratch
+// Shared memory: the state (9 N floats), the pair loop's chunk boxes and the
+// slow force of a block stay for the whole launch; the bonded and constraint buffers, the GB scratch
 // (its dI cache is most of it) and the LCPO scratch are never live at the
 // same time, so they share one region, as large as the largest of them. At
-// N = 104 under GBIS that keeps a CTA at 46.7 KB (47.9 with a cadence), so
+// N = 104 under GBIS that keeps a CTA at 46.8 KB (48.0 with a cadence), so
 // that 4 CTAs fit an SM: 1024 replicas fill 528 slots in 1.94 waves.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "gb_terms.cuh"
-#include "pair_terms.cuh"
+#include "pair_loop.cuh"
 #include "philox.cuh"
 #include "sasa_terms.cuh"
 #include "shared_memory.cuh"
 
 namespace {
 
-// Threads a CTA of each instantiation. Vacuum: 128, 64 registers, 8 CTAs an
-// SM. Solvent: its shared memory allows 4 CTAs an SM, and __launch_bounds__
-// holds it to the registers that allow as many: at 256 threads 64, and the
-// spills (loop-invariant addresses, loaded outside the inner loops) cost
-// less than the extra warps give (chip_smoke.py's levers: at 128 threads it
-// takes 128 registers and 12 % longer; at 256 threads uncapped, 128
-// registers and 2 CTAs an SM, 43 % longer).
-constexpr int kVacuumThreads = 128;
+// Threads a CTA of each instantiation. The vacuum ones take the pair
+// loop's shape by size (pair_loop.cuh: 128, 512 or 1024 threads); the
+// smallest is held to 64 registers for 8 CTAs an SM at 104 atoms
+// (uncapped, 80 registers and 6 CTAs: 17 % longer, chip_smoke.py's levers),
+// the medium one to 64 for 2 CTAs an SM; shared memory ends the largest at
+// 1,248 atoms. Solvent: its shared memory allows 4 CTAs an SM, and
+// __launch_bounds__ holds it to the registers that allow as many: at 256
+// threads 64, and the spills (loop-invariant addresses, loaded outside the
+// inner loops) cost less than the extra warps give (at 128 threads it takes
+// 128 registers and 12 % longer; at 256 threads uncapped, 128 registers
+// and 2 CTAs an SM, 43 % longer).
+constexpr int kVacuumCtasPerSm = 8;  // 64 registers
+constexpr int kMediumCtasPerSm = 2;  // 64 registers
 constexpr int kSolventThreads = 256;
 constexpr int kSolventCtasPerSm = 4;
+
 constexpr float kEps = 1e-12f;
 constexpr float kTwoPi = 6.283185307179586f;
 
 // Order of the device pointers handed over by the wrapper
 // (ops/fused_step.py TABLE_SLOTS keeps the same order).
 enum Slot {
-  kPairA, kPairB, kPairC,
+  kLjType, kLjTable, kCharge, kExcl, kSpIdx, kSpA, kSpB, kSpC, kSpStart,
+  kSpSrc,
   kAngIdx, kAngK, kAngT0,
   kTorIdx, kTorK, kTorPhi0, kTorPer,
   kMinv, kC2, kWdiff,
@@ -83,7 +94,7 @@ enum Slot {
 };
 
 struct Tables {
-  const float4* pair_a; const float4* pair_b; const float* pair_c;
+  PairLayout pair;
   const int* ang_idx; const float* ang_k; const float* ang_t0;
   const int* tor_idx; const float* tor_k; const float* tor_phi0;
   const float* tor_per;
@@ -105,6 +116,7 @@ struct Dims {
   int n_sasa;      // heavy atoms of the LCPO set, 0 = LCPO off
   int sasa_every;  // LCPO cadence (1 = every step)
   int gb_every;    // GB cadence (1 = every step)
+  int n_lj_types;  // LJ types of the pair layout
 };
 
 __host__ __device__ inline bool has_slow_buffer(const Dims& d) {
@@ -122,6 +134,7 @@ struct Consts {
 struct Shared {
   float *x, *y, *z, *vx, *vy, *vz, *fx, *fy, *fz;
   float *slx, *sly, *slz;  // the slow (held or impulse) force of a block
+  float* box;              // the pair loop's chunk bounding boxes
   // one region, three tenants that are never live at once
   float* abuf;  // 2 * n_angles 3-vectors: f0 | f2
   float* tbuf;  // 3 * n_tors 3-vectors: f0v | s | f3v
@@ -327,24 +340,26 @@ __device__ __forceinline__ void torsion_forces(const Shared& s,
 // Total force on every atom at the positions in shared memory; the SMD
 // centre is evaluated at t_step. Expects a barrier before (positions
 // complete) and leaves one behind (forces complete). kSolvent = false
-// compiles the implicit-solvent calls out, so the vacuum kernel keeps the
-// registers (and the CTAs an SM) it had without them.
+// compiles the implicit-solvent calls out, so the vacuum kernels keep the
+// registers (and the CTAs an SM) they have without them. The plain pairs'
+// column sums go to (fx, fy, fz) round by round (pair_loop.cuh); a thread's
+// atoms are those whose pair-loop rows it holds, so one per-atom pass adds
+// the rows, the special pairs, the bonded gathers and the bias.
 template <bool kSolvent, int kThreads>
 __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
                        const Consts& k, float t_step, bool with_gb,
                        bool with_sasa, bool add_held, int* overflow) {
+  constexpr int kRows = chunks_per_warp(kThreads);
   const int tid = threadIdx.x;
+  const int n = d.n_atoms;
+  chunk_boxes<kThreads>(n, s.x, s.y, s.z, s.box);
   angle_forces<kThreads>(s, t, d);
   torsion_forces<kThreads>(s, t, d);
-  for (int a = tid; a < d.n_atoms; a += kThreads) {
-    float fx, fy, fz, e;
-    atom_pair_sum<false>(a, d.n_atoms, s.x, s.y, s.z, t.pair_a, t.pair_b,
-                         t.pair_c, k.pair, fx, fy, fz, e);
-    s.fx[a] = fx;
-    s.fy[a] = fy;
-    s.fz[a] = fz;
-  }
+  for (int a = tid; a < n; a += kThreads) s.fx[a] = s.fy[a] = s.fz[a] = 0.f;
   __syncthreads();
+  float rx[kRows], ry[kRows], rz[kRows];
+  pair_rounds<kThreads, kRows, false>(n, s.x, s.y, s.z, s.fx, s.fy, s.fz,
+                                      s.box, t.pair, k.pair, rx, ry, rz);
   // moving harmonic SMD bias: every thread sums the (few) group atoms itself
   float comx = 0.f, comy = 0.f, comz = 0.f;
   for (int b = 0; b < d.n_bias; ++b) {
@@ -358,19 +373,28 @@ __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
       sqrtf(fmaxf(comx * comx + comy * comy + comz * comz, kEps));
   const float center = k.bias_c0 + k.bias_slope * fminf(t_step, k.bias_tmax);
   const float coefb = k.bias_fk * (dist - center) / dist;
-  for (int a = tid; a < d.n_atoms; a += kThreads) {
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int a = row_atom<kThreads>(n, q);
+    if (a < 0) continue;
+    float fx = s.fx[a] + rx[q], fy = s.fy[a] + ry[q], fz = s.fz[a] + rz[q];
+    float unused = 0.f;
+    special_sum<false>(a, s.x, s.y, s.z, t.pair, k.pair, fx, fy, fz, unused);
     float ax, ay, az, bx, by, bz;
     gather3(s.abuf, t.ang_start, t.ang_src, t.ang_w, a, ax, ay, az);
     gather3(s.tbuf, t.tor_start, t.tor_src, t.tor_w, a, bx, by, bz);
     const float wd = d.n_bias ? t.wdiff[a] : 0.f;
-    s.fx[a] += ax + bx - coefb * comx * wd;
-    s.fy[a] += ay + by - coefb * comy * wd;
-    s.fz[a] += az + bz - coefb * comz * wd;
+    fx += ax + bx - coefb * comx * wd;
+    fy += ay + by - coefb * comy * wd;
+    fz += az + bz - coefb * comz * wd;
     if (kSolvent && add_held) {
-      s.fx[a] += s.slx[a];
-      s.fy[a] += s.sly[a];
-      s.fz[a] += s.slz[a];
+      fx += s.slx[a];
+      fy += s.sly[a];
+      fz += s.slz[a];
     }
+    s.fx[a] = fx;
+    s.fy[a] = fy;
+    s.fz[a] = fz;
   }
   __syncthreads();
   if (!kSolvent) return;
@@ -427,6 +451,7 @@ __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
   if (has_slow_buffer(d)) {
     s.slx = p; p += n; s.sly = p; p += n; s.slz = p; p += n;
   }
+  s.box = p; p += 6 * chunk_count(n);
   float* region = p;
   s.abuf = p; p += 6 * d.n_angles;
   s.tbuf = p; p += 9 * d.n_tors;
@@ -447,7 +472,8 @@ __host__ __device__ inline size_t shared_floats(const Dims& d) {
   if (d.n_sasa && sasa_shared_words(d.n_sasa) > region)
     region = sasa_shared_words(d.n_sasa);
   return 9 * static_cast<size_t>(d.n_atoms) +
-         (has_slow_buffer(d) ? 3 * d.n_atoms : 0) + region;
+         (has_slow_buffer(d) ? 3 * d.n_atoms : 0) + 6 * chunk_count(d.n_atoms) +
+         region;
 }
 
 // One BAOAB step; the SMD centre of its force evaluation is that of t_abs.
@@ -588,16 +614,36 @@ __device__ __forceinline__ void campaign_body(
   }
 }
 
-// The two instantiations; the wrapper picks the solvent one when dims ask
-// for GB or LCPO.
-__global__ void __launch_bounds__(kVacuumThreads)
+// The four instantiations; the wrapper picks the solvent one when dims ask
+// for GB or LCPO, else the vacuum one for the system's size.
+__global__ void __launch_bounds__(kSmallThreads, kVacuumCtasPerSm)
 campaign_vacuum(const float* __restrict__ pos, const float* __restrict__ vel,
                 const float* __restrict__ frc, float* __restrict__ opos,
                 float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
                 Dims d, Consts k, long long t0, unsigned long long seed,
                 int* overflow) {
-  campaign_body<false, kVacuumThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
+  campaign_body<false, kSmallThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
+                                      k, t0, seed, overflow);
+}
+
+__global__ void __launch_bounds__(kMediumThreads, kMediumCtasPerSm)
+campaign_medium(const float* __restrict__ pos, const float* __restrict__ vel,
+                const float* __restrict__ frc, float* __restrict__ opos,
+                float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
+                Dims d, Consts k, long long t0, unsigned long long seed,
+                int* overflow) {
+  campaign_body<false, kMediumThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
                                        k, t0, seed, overflow);
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+campaign_large(const float* __restrict__ pos, const float* __restrict__ vel,
+               const float* __restrict__ frc, float* __restrict__ opos,
+               float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
+               Dims d, Consts k, long long t0, unsigned long long seed,
+               int* overflow) {
+  campaign_body<false, kLargeThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
+                                      k, t0, seed, overflow);
 }
 
 __global__ void __launch_bounds__(kSolventThreads, kSolventCtasPerSm)
@@ -635,22 +681,36 @@ __global__ void noise_kernel(float* __restrict__ out, int n_replicas,
 namespace {
 
 Dims dims_of(const int* dims) {
-  return Dims{dims[0], dims[1], dims[2],  dims[3],  dims[4],  dims[5],  dims[6],
-              dims[7], dims[8], dims[9], dims[10], dims[11], dims[12], dims[13]};
+  return Dims{dims[0],  dims[1],  dims[2],  dims[3],  dims[4],
+              dims[5],  dims[6],  dims[7],  dims[8],  dims[9],
+              dims[10], dims[11], dims[12], dims[13], dims[14]};
 }
 
 using CampaignKernel = void (*)(const float*, const float*, const float*,
                                 float*, float*, float*, Tables, Dims, Consts,
                                 long long, unsigned long long, int*);
 
-// The instantiation dims ask for, and its threads a CTA.
+// The instantiation dims ask for, and its threads a CTA; nullptr past what
+// the vacuum instantiations hold (the wrapper checks first).
 CampaignKernel pick_kernel(const Dims& d, int& threads) {
   if (d.use_gb || d.n_sasa) {
     threads = kSolventThreads;
     return campaign_solvent;
   }
-  threads = kVacuumThreads;
-  return campaign_vacuum;
+  switch (pair_loop_shape(d.n_atoms)) {
+    case kSmallCta:
+      threads = kSmallThreads;
+      return campaign_vacuum;
+    case kMediumCta:
+      threads = kMediumThreads;
+      return campaign_medium;
+    case kLargeCta:
+      threads = kLargeThreads;
+      return campaign_large;
+    default:
+      threads = 0;
+      return nullptr;
+  }
 }
 
 }  // namespace
@@ -669,10 +729,20 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
                                     int n_replicas, long long t0,
                                     unsigned long long seed, void* overflow,
                                     void* stream) {
+  const Dims d = dims_of(dims);
   Tables t;
-  t.pair_a = static_cast<const float4*>(ptrs[kPairA]);
-  t.pair_b = static_cast<const float4*>(ptrs[kPairB]);
-  t.pair_c = static_cast<const float*>(ptrs[kPairC]);
+  t.pair = PairLayout{
+      static_cast<const int*>(ptrs[kLjType]),
+      static_cast<const float2*>(ptrs[kLjTable]),
+      static_cast<const float*>(ptrs[kCharge]),
+      static_cast<const unsigned*>(ptrs[kExcl]),
+      static_cast<const int2*>(ptrs[kSpIdx]),
+      static_cast<const float4*>(ptrs[kSpA]),
+      static_cast<const float4*>(ptrs[kSpB]),
+      static_cast<const float*>(ptrs[kSpC]),
+      static_cast<const int*>(ptrs[kSpStart]),
+      static_cast<const int*>(ptrs[kSpSrc]),
+      d.n_lj_types};
   t.ang_idx = static_cast<const int*>(ptrs[kAngIdx]);
   t.ang_k = static_cast<const float*>(ptrs[kAngK]);
   t.ang_t0 = static_cast<const float*>(ptrs[kAngT0]);
@@ -702,7 +772,6 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   t.sasa_idx = static_cast<const int*>(ptrs[kSasaIdx]);
   t.sasa_atom = static_cast<const float*>(ptrs[kSasaAtom]);
 
-  const Dims d = dims_of(dims);
   Consts k;
   k.half_dt = consts[0];
   k.c1 = consts[1];
@@ -717,6 +786,7 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   const size_t shmem = shared_floats(d) * sizeof(float);
   int threads;
   const CampaignKernel kernel = pick_kernel(d, threads);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int err = allow_dynamic_shared(kernel, shmem);
   if (err != 0) return err;
   kernel<<<n_replicas, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
@@ -733,6 +803,7 @@ extern "C" int mdx_campaign_kernel_info(const int* dims, int* out) {
   const Dims d = dims_of(dims);
   int threads;
   const CampaignKernel kernel = pick_kernel(d, threads);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return kernel_occupancy(kernel, threads, shared_floats(d) * sizeof(float),
                           out);
 }

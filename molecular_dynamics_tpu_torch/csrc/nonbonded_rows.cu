@@ -11,8 +11,8 @@
 // Design: grid (replica, tile of 128 rows), so that 96 replicas of 1,040
 // atoms still make 864 CTAs. A CTA stages its replica's coordinates in shared
 // memory; thread i sums over all j in a fixed order (atom_pair_sum of
-// pair_terms.cuh, the campaign kernel's pair loop), reading entry [j * N + i]
-// so that a warp's table loads are contiguous, and writes its atom's force
+// pair_terms.cuh), reading entry [j * N + i] so that a warp's table loads
+// are contiguous, and writes its atom's force
 // and half its pair energies. No atomics: bit-reproducible. CTAs of one tile
 // on neighbouring replicas read the same table rows, which keeps them in L2.
 #include <cuda_runtime.h>

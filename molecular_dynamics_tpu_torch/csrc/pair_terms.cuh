@@ -1,12 +1,14 @@
 // Every 2-body term of the force field, for one pair: reaction-field Coulomb
 // and cubic-switched LJ 12-6 under the cutoff mask, harmonic bond /
 // Urey-Bradley springs k (d - d0)^2, and pre-scaled 1-4 LJ + plain Coulomb.
-// The physics lives here once: the campaign kernel, the standalone pair
-// kernel and the dense kernel go through atom_pair_sum(), the pair-tile
-// kernel through pair_at().
+// The physics lives here once: the campaign kernel and the standalone pair
+// kernel call pair_term() from their pair loop (pair_loop.cuh), the dense
+// kernel goes through atom_pair_sum(), the pair-tile kernel through
+// pair_at().
 //
-// Table layout (built by ops/ring.py:pack_pair_tables from the nine dense
-// symmetric (N, N) tables). Entry [j * N + i] belongs to the pair (i, j):
+// Dense table layout of the last two (built by ops/nonbonded.py
+// pack_pair_tables from the nine dense symmetric (N, N) tables). Entry
+// [j * N + i] belongs to the pair (i, j):
 //   A: float4 (qq, lj_a, lj_b, w)   w = mask + 2 * special
 //   B: float4 (k_bond, d0, a14, b14)       read only where special
 //   C: float  qq14                          read only where special
@@ -23,8 +25,10 @@ struct PairConsts {
 };
 
 // One pair at squared distance d2: F_i = -coeff * (r_i - r_j), and pot is
-// the pair's full energy.
-template <bool kEnergy>
+// the pair's full energy. kSpecial = false skips the bond and 1-4 lines for
+// a plain pair (kb = a14 = b14 = qq14 = 0): they add exact zeros there, which
+// the compiler may not drop (0 * x is not 0 for an infinite x).
+template <bool kEnergy, bool kSpecial = true>
 __device__ __forceinline__ void pair_term(
     float d2, float qq, float aa, float bb, float msym, float kb, float d0,
     float a14, float b14, float qq14, const PairConsts& c, float& coeff,
@@ -56,19 +60,20 @@ __device__ __forceinline__ void pair_term(
 
   // harmonic bond / Urey-Bradley pairs: E = k (d - d0)^2
   const float delta = d - d0;
-  if (mb) coeff += 2.f * kb * delta * rinv;
+  if (kSpecial && mb) coeff += 2.f * kb * delta * rinv;
 
   // 1-4 scaled LJ + plain Coulomb
   const float a14_12 = a14 * rinv6 * rinv6;
   const float b14_6 = b14 * rinv6;
-  coeff += (6.f * b14_6 - 12.f * a14_12) * rinv2 - qq14 * rinv2 * rinv;
+  if (kSpecial)
+    coeff += (6.f * b14_6 - 12.f * a14_12) * rinv2 - qq14 * rinv2 * rinv;
 
   if (kEnergy) {
     const float pot_e = qq * (rinv + c.krf * d2 - c.crf);
     if (on) pot_l *= sw;
     pot = m * (pot_e + pot_l);
-    if (mb) pot += kb * delta * delta;
-    pot += a14_12 - b14_6 + qq14 * rinv;
+    if (kSpecial && mb) pot += kb * delta * delta;
+    if (kSpecial) pot += a14_12 - b14_6 + qq14 * rinv;
   }
 }
 

@@ -17,23 +17,26 @@ Kernel note. On CUDA tensors ``advance`` launches ``csrc/campaign_advance.cu``
 ``kernel`` with its cadence blocks; the implicit-solvent passes it calls are
 described in ``ops.gb`` and ``ops.sasa``. What suited the TPU stays behind:
 lane padding, the +-1 difference matrices that turned gathers and scatters
-into matmuls, the atan2 polynomial, the on-core PRNG. On an H100 the work is bound by
-float32 arithmetic, not memory: global memory sees the state once per launch
-while every step needs N*(N-1)/2 pairs (evaluated from both ends, twice
-that) and the bonded terms. The
+into matmuls, the atan2 polynomial, the on-core PRNG, the dense N x N pair
+tables. On an H100 the work is bound by float32 arithmetic, not memory:
+global memory sees the state once per launch while every step needs
+N*(N-1)/2 pair tests, the pairs inside the cutoff and the bonded terms. The
 design keeps one replica per CTA with its state in shared memory for all
-``n_inner`` steps, turns every scatter into a per-atom gather in a fixed
-order (no atomics: a launch is bit-reproducible, and cutting a campaign into
-launches differently does not change the trajectory), and draws noise from
-Philox4x32-10 keyed on ``(seed, replica, t0 + i, atom)``. The bonded and
-constraint buffers, the GB scratch and the LCPO scratch are never live at
-once and share one region of shared memory; under GBIS at 104 atoms the GB
-scratch (its dI cache) sets the region, and a CTA takes 46.7 KB (47.9 with a
-cadence), so that 4 CTAs of 256 threads fit an SM and 1024 replicas run in
-1.94 waves. Its limit is the 227 KB of shared memory a CTA may opt in to
-(the 416-atom unconstrained vacuum system needs 70.2 KB, the 1,040-atom one
-175.4 KB; with GB, whose cache grows as N^2, about 230 atoms);
-``campaign_shared_bytes`` says what a system needs.
+``n_inner`` steps (128, 512 or 1024 threads by size, 256 with GB or LCPO:
+``csrc/pair_loop.cuh``), evaluates each unordered pair once from
+per-atom parameters (``nonbonded.pair_layout``, ``csrc/pair_loop.cuh``),
+turns every scatter into a per-atom gather
+in a fixed order (no atomics: a launch is bit-reproducible, and cutting a
+campaign into launches differently does not change the trajectory), and
+draws noise from Philox4x32-10 keyed on ``(seed, replica, t0 + i, atom)``.
+The bonded and constraint buffers, the GB scratch and the LCPO scratch are
+never live at once and share one region of shared memory; under GBIS at 104
+atoms the GB scratch (its dI cache) sets the region, and a CTA takes 46.8 KB
+(48.0 with a cadence), so that 4 CTAs of 256 threads fit an SM and 1024
+replicas run in 1.94 waves. Its limit is the 227 KB of shared memory a CTA
+may opt in to (the 416-atom unconstrained vacuum system needs 70.5 KB, the
+1,040-atom one 176.2 KB, 12 copies 211.4 KB; with GB, whose cache grows as
+N^2, about 230 atoms); ``campaign_shared_bytes`` says what a system needs.
 
 ``campaign_advance_reference`` is the plain PyTorch version (any device, any
 float dtype): it runs for CPU tensors and is what the kernel is held against
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -63,9 +67,13 @@ from molecular_dynamics_tpu_torch.ops.gb import (
 )
 from molecular_dynamics_tpu_torch.ops.nonbonded import (
     _np,
+    PAIR_LAYOUT_SLOTS,
+    PAIR_LOOP_MAX_ATOMS,
     PairTables,
     build_pair_tables,
     check_kernel_input,
+    chunk_count,
+    csr_lists,
     dense_pair_math,
     pair_constants,
 )
@@ -86,7 +94,7 @@ SHARED_LIMIT_BYTES = SHARED_OPT_IN_BYTES
 
 #: order of the device pointers the kernel takes (enum Slot in the source)
 TABLE_SLOTS = (
-    "pair_a", "pair_b", "pair_c",
+    *PAIR_LAYOUT_SLOTS,
     "ang_idx", "ang_k", "ang_t0",
     "tor_idx", "tor_k", "tor_phi0", "tor_per",
     "minv", "c2", "wdiff",
@@ -104,26 +112,26 @@ def campaign_shared_bytes(
     gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
 ) -> int:
     """Shared memory one CTA of the campaign kernel needs: the 9 state
-    vectors; with a cadence > 1 (``slow_buffer``) the block's slow force; and
-    one region for what is never live at once, as large as the largest of
-    the angle (2 vectors a term), torsion (3) and constraint (3) buffers, the
-    GB scratch (``gb``) and the LCPO scratch (``n_sasa`` heavy atoms)."""
+    vectors; with a cadence > 1 (``slow_buffer``) the block's slow force; the
+    pair loop's chunk bounding boxes (6 floats a chunk); and one region for
+    what is never live at once, as large as the largest of the angle (2
+    vectors a term), torsion (3) and constraint (3) buffers, the GB scratch
+    (``gb``) and the LCPO scratch (``n_sasa`` heavy atoms)."""
     region = 4 * (6 * n_angles + 9 * n_tors + 9 * n_cons)
     if gb:
         region = max(region, gb_shared_bytes(n_atoms))
     if n_sasa:
         region = max(region, sasa_shared_bytes(n_sasa))
-    return 4 * 9 * n_atoms + (4 * 3 * n_atoms if slow_buffer else 0) + region
+    return (4 * 9 * n_atoms + (4 * 3 * n_atoms if slow_buffer else 0)
+            + 4 * 6 * chunk_count(n_atoms) + region)
 
 
-def _csr(n_atoms: int, atoms: np.ndarray, src: np.ndarray, weights: np.ndarray):
-    """Per-atom gather lists: for atom a, entries ``start[a]:start[a+1]`` of
-    ``(src, w)`` say which buffered 3-vectors it sums and with what weight.
-    A stable sort keeps each atom's entries in the order given."""
-    order = np.argsort(atoms, kind="stable")
-    start = np.zeros(n_atoms + 1, np.int32)
-    np.cumsum(np.bincount(atoms, minlength=n_atoms), out=start[1:])
-    return start, src[order].astype(np.int32), weights[order].astype(np.float32)
+def campaign_max_atoms(solvent: bool) -> int:
+    """Atoms the campaign kernel's instantiation for a system holds: 256
+    with GB or LCPO, else ``PAIR_LOOP_MAX_ATOMS``. Its CTA shape follows the
+    system's size (``csrc/pair_loop.cuh`` ``pair_loop_shape``); the op's
+    ``kernel_info()`` reads it back."""
+    return 256 if solvent else PAIR_LOOP_MAX_ATOMS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,10 +153,7 @@ class CampaignTables:
     sasa: Optional[SasaTables] = None
 
     def pointer_array(self):
-        named = dict(
-            self.tensors, pair_a=self.pair.pack_a, pair_b=self.pair.pack_b,
-            pair_c=self.pair.pack_c,
-        )
+        named = dict(self.tensors, **self.pair.layout)
         return (ctypes.c_void_p * len(TABLE_SLOTS))(
             *[named[k].data_ptr() for k in TABLE_SLOTS]
         )
@@ -231,7 +236,7 @@ def build_campaign_tables(
     # angle gather lists: buffer holds f0 (slot a) and f2 (slot A + a);
     # atom0 += f0, atom1 -= f0 + f2, atom2 += f2
     ar = np.arange(n_a)
-    arrays["ang_start"], arrays["ang_src"], arrays["ang_w"] = _csr(
+    arrays["ang_start"], arrays["ang_src"], arrays["ang_w"] = csr_lists(
         n,
         np.concatenate([angles[:, 0], angles[:, 1], angles[:, 1], angles[:, 2]]),
         np.concatenate([ar, ar, n_a + ar, n_a + ar]),
@@ -241,7 +246,7 @@ def build_campaign_tables(
     # atom0 -f0v, atom1 +f0v +s, atom2 -s +f3v, atom3 -f3v
     tr = np.arange(n_t)
     one = np.ones(n_t)
-    arrays["tor_start"], arrays["tor_src"], arrays["tor_w"] = _csr(
+    arrays["tor_start"], arrays["tor_src"], arrays["tor_w"] = csr_lists(
         n,
         np.concatenate([tor_idx[:, 0], tor_idx[:, 1], tor_idx[:, 1],
                         tor_idx[:, 2], tor_idx[:, 2], tor_idx[:, 3]]),
@@ -270,7 +275,7 @@ def build_campaign_tables(
         arrays["cons_winv"] = (1.0 / (wi + wj)).astype(np.float32)
         arrays["cons_d0sq"] = _np(constraints.lengths).astype(np.float32) ** 2
         # p[i] -= w_i corr, p[j] += w_j corr
-        arrays["cons_start"], arrays["cons_src"], arrays["cons_w"] = _csr(
+        arrays["cons_start"], arrays["cons_src"], arrays["cons_w"] = csr_lists(
             n, np.concatenate([pairs[:, 0], pairs[:, 1]]),
             np.concatenate([cr, cr]), np.concatenate([-wi, wj]),
         )
@@ -781,6 +786,11 @@ def make_fused_campaign_op(
             f"{tab.n_tors} torsions, {tab.n_cons} constraints, gb={use_gb}, "
             f"{n_sasa} LCPO atoms); the kernel holds {SHARED_LIMIT_BYTES}"
         )
+    most = campaign_max_atoms(use_gb or use_sasa)
+    if tab.n_atoms > most:
+        raise ValueError(
+            f"campaign op: {tab.n_atoms} atoms; the kernel holds {most}"
+            f"{' with GB or LCPO' if use_gb or use_sasa else ''}")
     pair_consts = pair_constants(cutoff, switch_dist, rfa, solvent_dielectric)
     dt = dt_fs / units.TIMEFACTOR
     gamma = gamma_ps * (units.TIMEFACTOR / 1000.0)
@@ -797,11 +807,16 @@ def make_fused_campaign_op(
     gb_consts = gb_constants(solvent_dielectric, ion_concentration) if use_gb else None
     gamma_sasa = float(surface_tension) if use_sasa else None
 
-    dims = (ctypes.c_int * 14)(
-        tab.n_atoms, tab.n_angles, tab.n_tors, tab.max_t, tab.n_cons,
-        tab.n_bias, n_inner, shake_iters, rattle_iters, int(use_noise),
-        int(use_gb), n_sasa, sasa_every, gb_every,
-    )
+    @functools.cache
+    def dims():
+        # built at the first launch: n_lj_types builds the pair layout,
+        # which only the kernel reads
+        return (ctypes.c_int * 15)(
+            tab.n_atoms, tab.n_angles, tab.n_tors, tab.max_t, tab.n_cons,
+            tab.n_bias, n_inner, shake_iters, rattle_iters, int(use_noise),
+            int(use_gb), n_sasa, sasa_every, gb_every, tab.pair.n_lj_types,
+        )
+
     consts = (ctypes.c_float * 17)(
         0.5 * dt, c1, *bias_consts, *pair_consts,
         *(gb_consts or (0.0,) * 5), gamma_sasa or 0.0,
@@ -830,14 +845,14 @@ def make_fused_campaign_op(
                 "the campaign kernel draws its own noise; `noise` is for "
                 "campaign_advance_reference"
             )
-        return campaign_advance(pos, vel, frc, int(t0), int(seed), tab, dims, consts)
+        return campaign_advance(pos, vel, frc, int(t0), int(seed), tab, dims(), consts)
 
     advance.n_inner = n_inner
     advance.shared_bytes = need
     #: build facts of the kernel instantiation this op launches, on the
     #: current CUDA device (``_build.kernel_info``)
     advance.kernel_info = lambda: kernel_info(
-        "campaign_advance", "mdx_campaign_kernel_info", [ctypes.c_void_p], dims)
+        "campaign_advance", "mdx_campaign_kernel_info", [ctypes.c_void_p], dims())
     advance.tables = tab
     #: keyword arguments that make campaign_advance_reference this op
     advance.settings = settings

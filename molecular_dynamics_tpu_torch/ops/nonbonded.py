@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,19 +122,53 @@ def _build_pair_tables(ff: FFParams, include_ub=None):
     return (qq, aa, bb, msym, kb, d0, a14, b14, qq14)
 
 
+#: atoms a chunk of the pair loop of the campaign and pair-forces kernels
+#: holds: a warp's lanes (csrc/pair_loop.cuh)
+CHUNK = 32
+
+#: order of the per-atom pair layout's arrays (struct PairLayout in
+#: csrc/pair_loop.cuh): LJ type and scaled charge per atom, the (T, T, 2) LJ
+#: table, the (N, chunks) exclusion words, the special pairs and their
+#: per-atom lists
+PAIR_LAYOUT_SLOTS = (
+    "lj_type", "lj_table", "charge", "excl",
+    "sp_idx", "sp_a", "sp_b", "sp_c", "sp_start", "sp_src",
+)
+
+
 @dataclasses.dataclass(frozen=True)
 class PairTables:
     """The 2-body tables of one system on one device.
 
     ``dense`` (9, N, N) float32 in ``PAIR_TABLE_NAMES`` order is what the
     plain version reads; ``pack_a`` (N, N, 4), ``pack_b`` (N, N, 4) and
-    ``pack_c`` (N, N) are the same numbers in the kernels' layout.
+    ``pack_c`` (N, N) are the same numbers in the dense kernels' layout (K5,
+    K6); ``charges`` (N,) the system's partial charges. ``layout`` (name ->
+    tensor, ``PAIR_LAYOUT_SLOTS``) is the per-atom layout of the campaign and
+    pair-forces kernels (:func:`pair_layout`), built on first use: only
+    their launches read it.
     """
 
     dense: Tensor
     pack_a: Tensor
     pack_b: Tensor
     pack_c: Tensor
+    charges: Tensor
+
+    @functools.cached_property
+    def layout(self) -> dict:
+        return {
+            k: torch.as_tensor(np.ascontiguousarray(v), device=self.dense.device)
+            for k, v in pair_layout(self.charges, self.dense.cpu().numpy()).items()
+        }
+
+    @property
+    def n_lj_types(self) -> int:
+        return int(self.layout["lj_table"].shape[0])
+
+    @property
+    def n_special(self) -> int:
+        return int(self.layout["sp_idx"].shape[0])
 
 
 def pack_pair_tables(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -150,6 +185,109 @@ def pack_pair_tables(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndar
         np.ascontiguousarray(pack_b, np.float32),
         np.ascontiguousarray(qq14, np.float32),
     )
+
+
+def chunk_count(n_atoms: int) -> int:
+    """Chunks the pair loop cuts a replica into: one a 32 atoms or part."""
+    return (n_atoms + CHUNK - 1) // CHUNK
+
+
+def chunk_size(n_atoms: int) -> int:
+    """Atoms a chunk of the pair loop (at most ``CHUNK``; the chunks as even
+    as that allows: 104 atoms make 4 chunks of 26)."""
+    n_chunks = chunk_count(n_atoms)
+    return (n_atoms + n_chunks - 1) // n_chunks
+
+
+def csr_lists(n_atoms: int, atoms: np.ndarray, src: np.ndarray, weights: np.ndarray):
+    """Per-atom gather lists: for atom a, entries ``start[a]:start[a+1]`` of
+    ``(src, w)`` say which buffered 3-vectors it sums and with what weight.
+    A stable sort keeps each atom's entries in the order given."""
+    order = np.argsort(atoms, kind="stable")
+    start = np.zeros(n_atoms + 1, np.int32)
+    np.cumsum(np.bincount(atoms, minlength=n_atoms), out=start[1:])
+    return start, src[order].astype(np.int32), weights[order].astype(np.float32)
+
+
+def lj_types(aa: np.ndarray, bb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Factor the symmetric LJ tables into a type a atom and a (T, T, 2)
+    table of ``(lj_a, lj_b)`` such that every off-diagonal entry is the same
+    float32 number: ``table[t[i], t[j]] == (aa[i, j], bb[i, j])``. Two atoms
+    share a type when their rows agree everywhere but at each other and at
+    themselves. Raises ``ValueError`` if the tables do not factor."""
+    n = aa.shape[0]
+    idx = np.arange(n)
+    reps, types = [], np.empty(n, np.int32)
+    for i in range(n):
+        for t, r in enumerate(reps):
+            keep = (idx != i) & (idx != r)
+            if np.array_equal(aa[i, keep], aa[r, keep]) and np.array_equal(bb[i, keep], bb[r, keep]):
+                types[i] = t
+                break
+        else:
+            types[i] = len(reps)
+            reps.append(i)
+    table = np.zeros((len(reps), len(reps), 2), np.float32)
+    off = ~np.eye(n, dtype=bool)
+    ti, tj = np.broadcast_arrays(types[:, None], types[None, :])
+    table[ti[off], tj[off], 0] = aa[off]
+    table[ti[off], tj[off], 1] = bb[off]
+    full = table[ti, tj]
+    if not (np.array_equal(full[..., 0][off], aa[off]) and np.array_equal(full[..., 1][off], bb[off])):
+        raise ValueError("the LJ pair tables do not factor into per-atom types")
+    return types, table
+
+
+def pair_layout(charges, dense: np.ndarray) -> dict:
+    """The per-atom layout of the campaign and pair-forces kernels' pair
+    loop (``csrc/pair_loop.cuh``), as numpy arrays in ``PAIR_LAYOUT_SLOTS``
+    order, from a system's partial charges and its nine dense tables
+    ``dense``:
+
+    - ``lj_type`` (N,) int32 and ``lj_table`` (T, T, 2): :func:`lj_types`;
+    - ``charge`` (N,): q sqrt(ELEC_FACTOR) in float32, so that the product of
+      two is the pair's ``qq`` to float32 rounding (``qq_pair`` is not
+      exactly a product, ROADMAP C1; raises where it is not one at all);
+    - ``excl`` (N, chunks) uint32 as int32: bit t of word [i, J] set where
+      the pair (i, C J + t), C = :func:`chunk_size`, does not go through the
+      plain pair loop: itself, past the chunk or the end, excluded (mask 0)
+      or special;
+    - the special pairs (a bond, Urey-Bradley or 1-4 entry), i < j in
+      row-major order: ``sp_idx`` (S, 2), ``sp_a`` (S, 4) = (qq, lj_a, lj_b,
+      mask), ``sp_b`` (S, 4) = (k_bond, d0, a14, b14), ``sp_c`` (S,) = qq14,
+      the dense tables' own numbers; and per-atom lists ``sp_start``,
+      ``sp_src`` of the special pairs each atom is part of, in that order
+      (the kernels evaluate a special pair from both of its ends).
+    """
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = dense
+    n = qq.shape[0]
+    types, table = lj_types(aa, bb)
+    charge = (_np(charges).astype(np.float64) * np.sqrt(units.ELEC_FACTOR)).astype(np.float32)
+    off = ~np.eye(n, dtype=bool)
+    prod = charge[:, None] * charge[None, :]
+    if n > 1 and np.max(np.abs(prod - qq)[off]) > 1e-5 * max(1.0, float(np.max(np.abs(qq)))):
+        raise ValueError("qq_pair is not the product of the charges times ELEC_FACTOR")
+
+    special = (kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)
+    cols = np.arange(chunk_count(n))[:, None] * chunk_size(n) + np.arange(CHUNK)
+    inside = (np.arange(CHUNK) < chunk_size(n)) & (cols < n)
+    skip = ~inside | ((msym == 0) | special | ~off)[:, np.minimum(cols, n - 1)]
+    bits = skip.astype(np.uint64) << np.arange(CHUNK, dtype=np.uint64)
+    excl = bits.sum(-1).astype(np.uint32).view(np.int32)
+
+    i, j = np.nonzero(np.triu(special, 1))
+    sp_idx = np.stack([i, j], axis=-1).astype(np.int32)
+    s = np.arange(len(i))
+    sp_start, sp_src, _ = csr_lists(
+        n, np.concatenate([i, j]), np.concatenate([s, s]), np.ones(2 * len(i)))
+    return {
+        "lj_type": types, "lj_table": table, "charge": charge, "excl": excl,
+        "sp_idx": sp_idx,
+        "sp_a": np.stack([qq[i, j], aa[i, j], bb[i, j], msym[i, j]], axis=-1).astype(np.float32),
+        "sp_b": np.stack([kb[i, j], d0[i, j], a14[i, j], b14[i, j]], axis=-1).astype(np.float32),
+        "sp_c": qq14[i, j].astype(np.float32),
+        "sp_start": sp_start, "sp_src": sp_src,
+    }
 
 
 def build_pair_tables(
@@ -170,6 +308,7 @@ def build_pair_tables(
         pack_a=torch.as_tensor(pa, device=ff.device),
         pack_b=torch.as_tensor(pb, device=ff.device),
         pack_c=torch.as_tensor(pc, device=ff.device),
+        charges=ff.charges,
     )
 
 
@@ -277,6 +416,18 @@ def check_pair_kernel_inputs(pos: Tensor, tables: PairTables) -> Tuple[int, int]
     if tables.pack_a.device != pos.device:
         raise ValueError("tables and pos live on different devices")
     return n_rep, n
+
+
+def pair_layout_pointers(tables: PairTables):
+    """The device pointers of ``tables.layout`` in ``PAIR_LAYOUT_SLOTS``
+    order, as the C array the campaign and pair-forces kernels take."""
+    return (ctypes.c_void_p * len(PAIR_LAYOUT_SLOTS))(
+        *[tables.layout[k].data_ptr() for k in PAIR_LAYOUT_SLOTS])
+
+
+#: atoms the pair loop's widest instantiation holds (csrc/pair_loop.cuh:
+#: 1024 threads, two chunks a warp, whose row sums stay in registers)
+PAIR_LOOP_MAX_ATOMS = 2048
 
 
 def pair_kernel_pointers(tables: PairTables):

@@ -16,13 +16,20 @@ them is carried over.
 
 Kernel notes.
 
-- ``pair_forces`` launches ``csrc/pair_forces.cu`` (CUDA C++, sm_90a). It
-  replaces the JAX package's ``molecular_dynamics_tpu/ops/ring.py``
-  ``ring_pair_forces`` as a device function (the ring-shift loop, its halved
-  halfway row and the lane padding stay behind: they suit the TPU's lanes,
-  not a GPU). One CTA per replica, coordinates in shared memory, thread i
-  sums over all j in a fixed order (no atomics), the nine tables packed so
-  that a plain nonbonded pair costs one 16-byte load (``pack_pair_tables``).
+- ``pair_forces`` launches ``csrc/pair_forces.cu`` (CUDA C++, sm_90a), the
+  standalone launch of the campaign kernel's pair loop
+  (``csrc/pair_loop.cuh``). It replaces the JAX package's
+  ``molecular_dynamics_tpu/ops/ring.py`` ``ring_pair_forces`` (the lane
+  padding and the dense tables stay behind: they suit the TPU's lanes and
+  matrix unit, not a GPU). One CTA per replica in the campaign kernel's
+  shape (128, 512 or 1024 threads by size, up to 2,048 atoms), coordinates
+  in shared memory, each unordered pair once: 32-atom chunks met warp by
+  warp with the partner's force accumulator rotating through the lanes,
+  chunk pairs whose bounding boxes lie beyond the cutoff skipped, the
+  exclusion bit and the cutoff tested before any parameter is read,
+  parameters from per-atom arrays (``nonbonded.pair_layout``), special
+  pairs from per-atom lists; every atom's sum in a fixed order (no
+  atomics).
 - ``pair_tiles`` launches ``csrc/pair_tiles.cu``. It replaces the JAX
   package's ``make_pair_ring_op`` -> ``_ring_kernel`` / ``_ring_chunk_kernel``:
   every unordered pair evaluated once. On an H100 the pair arithmetic
@@ -51,13 +58,14 @@ from molecular_dynamics_tpu_torch import units
 from molecular_dynamics_tpu_torch.ff.params import FFParams
 from molecular_dynamics_tpu_torch.ops._build import kernel_function
 from molecular_dynamics_tpu_torch.ops.nonbonded import (
+    PAIR_LOOP_MAX_ATOMS,
     PairTables,
-    _PAIR_KERNEL_ARGTYPES,
     check_pair_kernel_inputs,
     dense_pair_math,
     make_pair_op,
     pair_constants,
     pair_kernel_pointers,
+    pair_layout_pointers,
 )
 
 Tensor = torch.Tensor
@@ -100,14 +108,19 @@ def pair_forces(
             pos, tables, cutoff, switch_dist, rfa, solvent_dielectric
         )
     n_rep, n = check_pair_kernel_inputs(pos, tables)
+    if n > PAIR_LOOP_MAX_ATOMS:
+        raise ValueError(f"pair_forces: {n} atoms; the kernel holds {PAIR_LOOP_MAX_ATOMS}")
     consts = pair_constants(cutoff, switch_dist, rfa, solvent_dielectric)
-    fn = kernel_function("pair_forces", "mdx_pair_forces", _PAIR_KERNEL_ARGTYPES)
+    fn = kernel_function(
+        "pair_forces", "mdx_pair_forces",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
+    )
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         err = fn(
             pos.data_ptr(), forces.data_ptr(), energy.data_ptr(),
-            *pair_kernel_pointers(tables), n_rep, n, *consts,
+            pair_layout_pointers(tables), tables.n_lj_types, n_rep, n, *consts,
             torch.cuda.current_stream().cuda_stream,
         )
     pair_forces.launches += 1

@@ -168,16 +168,17 @@ def test_gb_and_sasa_tables(sysm):
     # what the kernels carve out of shared memory: 50 list entries a heavy
     # atom (three floats and a 16-bit index each) beside per-atom vectors;
     # GB's three vectors and its dI cache (104 rows of 103); the campaign
-    # kernel's state, its slow force with a cadence, and one region as large
-    # as its largest tenant, the GB scratch here
+    # kernel's state, its slow force with a cadence, the pair loop's chunk
+    # boxes (6 floats for each of 4 chunks), and one region as large as its
+    # largest tenant, the GB scratch here
     assert tsasa.sasa_shared_bytes(51) == 4 * (
         3 * 51 * 50 + 6 * 51 + 2 * 51 * 2 + 2 * 51 + 2 + 51 * 50 // 2) == 38156
     assert tgb.gb_shared_bytes(104) == 4 * (3 * 104 + 104 * 103) == 44096
     base = tfused.campaign_shared_bytes(104, 183, 273, 53)
     assert tfused.campaign_shared_bytes(104, 183, 273, 53, gb=True) == (
-        4 * 9 * 104 + tgb.gb_shared_bytes(104)) > base
+        4 * 9 * 104 + 4 * 24 + tgb.gb_shared_bytes(104)) > base
     need = tfused.campaign_shared_bytes(104, 183, 273, 53, gb=True, n_sasa=51, slow_buffer=True)
-    assert need == 4 * 12 * 104 + tgb.gb_shared_bytes(104) == 49088
+    assert need == 4 * 12 * 104 + 4 * 24 + tgb.gb_shared_bytes(104) == 49184
     # four CTAs an SM: 228 KB a Hopper SM, 1 KB of it reserved for each CTA
     assert 4 * (need + 1024) <= 228 * 1024
     bare = dataclasses.replace(tff, gb_radii=None, gb_screen=None, sasa_radii=None, sasa_params=None)

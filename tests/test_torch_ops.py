@@ -155,8 +155,8 @@ def test_gather_lists_reproduce_the_scatter(sysm):
     np.add.at(want, ci[:, 1], tt["cons_wj"][:, None] * buf)
     np.testing.assert_allclose(gathered("cons", buf), want, atol=1e-6)
     assert (n_a, n_t, tab.max_t, n_c, tab.n_bias) == (183, 273, 2, 53, 2)
-    assert tfused.campaign_shared_bytes(104, n_a, n_t, n_c) == 4 * (936 + 1098 + 2457 + 477)
-    for name in tfused.TABLE_SLOTS[3:]:
+    assert tfused.campaign_shared_bytes(104, n_a, n_t, n_c) == 4 * (936 + 24 + 1098 + 2457 + 477)
+    for name in tfused.TABLE_SLOTS[len(tnonbonded.PAIR_LAYOUT_SLOTS):]:
         want_dtype = torch.int32 if name.endswith(("idx", "start", "src")) else torch.float32
         assert tab.tensors[name].dtype == want_dtype and tab.tensors[name].is_contiguous(), name
 
@@ -408,18 +408,61 @@ def test_campaign_solvent_flags_raise(sysm, flag):
 
 def test_campaign_shared_memory_limit_raises(sysm, monkeypatch):
     """The kernel opts in to the card's 227 KB a CTA: the 416-atom system
-    (70.2 KB unconstrained) and the 1,040-atom one (175.4 KB) fit, 13 copies
-    (228.1 KB) do not."""
+    (70.5 KB unconstrained) and the 1,040-atom one (176.2 KB) fit, 13 copies
+    (229.1 KB) do not."""
     from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
 
     assert tfused.SHARED_LIMIT_BYTES == 232448
     counts = dict(n_angles=183, n_tors=273, n_cons=0)
     need = {m: tfused.campaign_shared_bytes(104 * m, *(m * c for c in counts.values()))
             for m in (4, 10, 13)}
-    assert need == {4: 71856, 10: 179640, 13: 233532}
+    assert need == {4: 72168, 10: 180432, 13: 234564}
     ff13, _, _ = tiled_decaalanine(13, device="cpu")
     with pytest.raises(ValueError, match="shared memory"):
         tfused.make_fused_campaign_op(ff13)
     monkeypatch.setattr(tfused, "SHARED_LIMIT_BYTES", 1024)
     with pytest.raises(ValueError, match="shared memory"):
+        tfused.make_fused_campaign_op(sysm["tff"])
+
+
+def _pair_loop_threads(n):
+    """Threads a CTA of the pair loop's kernels for ``n`` atoms, by the rule
+    of ``csrc/pair_loop.cuh`` ``pair_loop_shape`` with its constants read
+    from the source."""
+    import re
+    from molecular_dynamics_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "pair_loop.cuh").read_text()
+    k = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    if n <= k["kSmallAtoms"]:
+        return k["kSmallThreads"]
+    return k["kMediumThreads"] if n <= k["kMediumAtoms"] else k["kLargeThreads"]
+
+
+@pytest.mark.parametrize("m, threads, kb", [
+    (1, 128, 17.6), (4, 512, 70.5), (8, 1024, 141.0), (10, 1024, 176.2), (12, 1024, 211.4)])
+def test_campaign_cta_shape_at_the_tier_sizes(m, threads, kb):
+    """The CTA of the campaign kernel (and of the pair-forces kernel, which
+    takes the same shape) follows the system: 128 threads up to 128 atoms,
+    512 up to 512, 1024 above, and no warp owns more chunks of the pair loop
+    than its instantiation keeps in registers (one, two at 1024 threads);
+    the unconstrained tiled systems' shared memory fits the 227 KB a CTA may
+    opt in to up to 12 copies, and their atoms the vacuum kernel's limit."""
+    n = 104 * m
+    assert _pair_loop_threads(n) == threads
+    nc = tnonbonded.chunk_count(n)
+    assert nc <= (threads // 32) * (2 if threads == 1024 else 1)
+    assert tnonbonded.chunk_size(n) * nc >= n and tnonbonded.chunk_size(n) <= 32
+    need = tfused.campaign_shared_bytes(n, 183 * m, 273 * m, 0)
+    assert round(need / 1024, 1) == kb and need <= tfused.SHARED_LIMIT_BYTES
+    assert n <= tfused.campaign_max_atoms(solvent=False) == tnonbonded.PAIR_LOOP_MAX_ATOMS
+    assert (n <= tfused.campaign_max_atoms(solvent=True)) == (m <= 2)
+
+
+def test_campaign_atom_limit_raises(sysm, monkeypatch):
+    """The campaign op refuses a system past what its instantiation holds:
+    2,048 atoms in vacuum, 256 with GB or LCPO."""
+    assert tfused.campaign_max_atoms(False) == 2048 and tfused.campaign_max_atoms(True) == 256
+    monkeypatch.setattr(tfused, "PAIR_LOOP_MAX_ATOMS", 103)
+    with pytest.raises(ValueError, match="104 atoms; the kernel holds 103$"):
         tfused.make_fused_campaign_op(sysm["tff"])

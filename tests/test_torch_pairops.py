@@ -30,6 +30,7 @@ import torch
 from molecular_dynamics_tpu.examples import tiled_decaalanine as jtiled
 from molecular_dynamics_tpu.ops import make_nonbonded_op as jmake_nonbonded_op
 from molecular_dynamics_tpu.ops.ring import make_pair_ring_op as jmake_pair_ring_op
+from molecular_dynamics_tpu_torch import units
 from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
 from molecular_dynamics_tpu_torch.ops import nonbonded as tnonbonded
 from molecular_dynamics_tpu_torch.ops import ring as tring
@@ -204,3 +205,160 @@ def test_cpu_tensors_take_the_plain_version():
     assert [tring.tile_pair_count(n) for n in (104, 128, 129, 416, 1040)] == [1, 1, 3, 10, 45]
     with pytest.raises(ValueError, match="CUDA"):
         tnonbonded.check_pair_kernel_inputs(t(pos).float(), tables)
+
+
+# -- the per-atom pair layout of the campaign and pair-forces kernels ------------
+
+
+@functools.lru_cache(maxsize=None)
+def layout_case(m: int):
+    """The port's pair tables of system ``systems(m)`` and the JAX package's
+    dense tables of the same system (float32, n x n)."""
+    from molecular_dynamics_tpu.ops import nonbonded as jnonbonded
+
+    jff, tff, _ = systems(m)
+    n = tff.n_atoms
+    jtabs = [np.asarray(x)[:n, :n] for x in jnonbonded._build_pair_tables(jff, None, n)]
+    return tnonbonded.build_pair_tables(tff), jtabs
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_lj_types_reproduce_the_jax_tables(m):
+    """The LJ tables factored into per-atom types give back every
+    off-diagonal entry of the JAX package's lj_a / lj_b tables bit for bit,
+    with 8 types for deca-alanine and its tiled copies."""
+    tabs, jtabs = layout_case(m)
+    lay = {k: v.numpy() for k, v in tabs.layout.items()}
+    n = lay["lj_type"].shape[0]
+    full = lay["lj_table"][lay["lj_type"][:, None], lay["lj_type"][None, :]]
+    off = ~np.eye(n, dtype=bool)
+    assert lay["lj_table"].shape == (8, 8, 2) and lay["lj_type"].dtype == np.int32
+    assert np.array_equal(full[..., 0][off], jtabs[1][off])
+    assert np.array_equal(full[..., 1][off], jtabs[2][off])
+    # the charge product is the pair's qq to float32 rounding (ROADMAP C1)
+    qq = lay["charge"][:, None] * lay["charge"][None, :]
+    np.testing.assert_allclose(qq[off], np.triu(jtabs[0], 1)[off] + np.triu(jtabs[0], 1).T[off],
+                               rtol=3e-7, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_special_and_exclusion_lists(m):
+    """The special pairs are exactly the pairs i < j with w >= 2 (a bond,
+    Urey-Bradley or 1-4 entry of the JAX tables), with the tables' own
+    numbers, and each atom's list holds exactly its special pairs, those
+    where it is i first; the exclusion bits are set exactly where the pair
+    is itself, special, masked (mask 0) or past the chunk or the end."""
+    tabs, jtabs = layout_case(m)
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = jtabs
+    lay = {k: v.numpy() for k, v in tabs.layout.items()}
+    n = msym.shape[0]
+    special = (kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)
+    i, j = lay["sp_idx"].T
+    assert np.array_equal(np.stack(np.nonzero(np.triu(special, 1))), lay["sp_idx"].T)
+    assert np.array_equal(lay["sp_a"], np.stack([qq[i, j], aa[i, j], bb[i, j], msym[i, j]], -1))
+    assert np.array_equal(lay["sp_b"], np.stack([kb, d0, a14, b14], -1)[i, j])
+    assert np.array_equal(lay["sp_c"], qq14[i, j])
+    start, src = lay["sp_start"], lay["sp_src"]
+    assert start[0] == 0 and start[-1] == len(src) == 2 * tabs.n_special
+    for a in range(n):
+        mine = src[start[a]:start[a + 1]]
+        assert list(mine) == list(np.flatnonzero(i == a)) + list(np.flatnonzero(j == a))
+
+    cs, nc = tnonbonded.chunk_size(n), tnonbonded.chunk_count(n)
+    words = lay["excl"].view(np.uint32)
+    assert words.shape == (n, nc) and cs * nc >= n > cs * (nc - 1)
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    col = np.arange(nc)[:, None] * cs + np.arange(32)
+    inside = (np.arange(32) < cs) & (col < n)
+    skip = (msym == 0) | special | np.eye(n, dtype=bool)
+    assert np.array_equal(bits[:, ~inside], np.ones((n, int((~inside).sum())), np.uint32))
+    assert np.array_equal(bits[:, inside].astype(bool), skip[:, col[inside]])
+
+
+def _layout_pair_math(pos, tabs, consts):
+    """The 2-body sum the kernels' pair loop computes, from the layout alone:
+    plain pairs from types, charges and exclusion bits, special pairs from
+    their lists (the dense tables rebuilt and handed to the plain math)."""
+    lay = tabs.layout
+    n = pos.shape[-2]
+    cs = tnonbonded.chunk_size(n)
+    bits = (lay["excl"].long() & 0xFFFFFFFF)[..., None] >> torch.arange(32)
+    col = torch.arange(tnonbonded.chunk_count(n))[:, None] * cs + torch.arange(32)
+    inside = (torch.arange(32) < cs) & (col < n)
+    skip = torch.ones(n, n, dtype=torch.bool)
+    skip[:, col[inside]] = (bits[:, inside] & 1).bool()
+    t_ = lay["lj_type"].long()
+    dense = torch.zeros_like(tabs.dense)
+    dense[0] = lay["charge"][:, None] * lay["charge"][None, :]
+    dense[1:3] = lay["lj_table"][t_[:, None], t_[None, :]].permute(2, 0, 1)
+    dense[3] = (~skip).to(dense.dtype)
+    i, j = lay["sp_idx"].long().T
+    for a, b in ((i, j), (j, i)):
+        dense[0:4, a, b] = lay["sp_a"].T
+        dense[4:8, a, b] = lay["sp_b"].T
+        dense[8, a, b] = lay["sp_c"]
+    return tnonbonded.dense_pair_math(pos, dense, consts)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("m", [1, 2], ids=["104_atoms", "208_atoms"])
+def test_layout_pair_sum_matches_jax(m, case):
+    """The layout carries every 2-body term: its pair sum in float64 against
+    the JAX dense op's reference, to the float32 tables' 1e-4."""
+    _, _, pos = systems(m)
+    kw = CASES[case]
+    tabs, _ = layout_case(m)
+    e, f = _layout_pair_math(t(pos), tabs, tnonbonded.pair_constants(
+        kw["cutoff"], kw["switch_dist"], kw["rfa"],
+        kw.get("solvent_dielectric", units.SOLVENT_DIELECTRIC)))
+    je, jf = jax_reference(m, case)
+    np.testing.assert_allclose(f.numpy(), jf, atol=1e-4)
+    np.testing.assert_allclose(e.numpy(), je, atol=1e-4)
+
+
+def test_layout_is_built_on_first_use():
+    """The per-atom layout is built only when a kernel asks for it, once:
+    the plain pair version and the campaign op's plain path on CPU tensors
+    leave it unbuilt."""
+    from molecular_dynamics_tpu_torch.ops import fused_step as tfused
+
+    jff, tff, pos = systems(1)
+    tabs = tnonbonded.build_pair_tables(tff)
+    tring.pair_forces_reference(t(pos).float(), tabs)
+    assert "layout" not in vars(tabs)
+    op = tfused.make_fused_campaign_op(tff, n_inner=1, temperature=0.0)
+    p0 = t(pos).float()[:1].contiguous()
+    op(p0, torch.zeros_like(p0), torch.zeros_like(p0), 0, 1)
+    assert "layout" not in vars(op.tables.pair)
+    lay = tabs.layout
+    assert tabs.layout is lay and tabs.n_lj_types == 8
+    assert torch.equal(tabs.charges, tff.charges)
+
+
+@pytest.mark.parametrize("n", [22, 104, 416])
+def test_pair_loop_schedule_meets_every_pair_once(n):
+    """The pair loop's tasks as csrc/pair_loop.cuh runs them (the diagonal
+    with its halfway shift, then the rounds of (I, I + k)) meet every
+    unordered pair of atoms exactly once, and no round gives two tasks the
+    same column chunk."""
+    nc, cs = tnonbonded.chunk_count(n), tnonbonded.chunk_size(n)
+    met = np.zeros((n, n), int)
+    lane = np.arange(cs)
+
+    def task(i_chunk, j_chunk):
+        diag = i_chunk == j_chunk
+        for s in range(1, cs // 2 + 1) if diag else range(cs):
+            rows = lane if not (diag and 2 * s == cs) else lane[: cs // 2]
+            a, b = i_chunk * cs + rows, j_chunk * cs + (rows + s) % cs
+            keep = (a < n) & (b < n)
+            np.add.at(met, (a[keep], b[keep]), 1)
+
+    for c in range(nc):
+        task(c, c)
+    for k in range(1, nc // 2 + 1):
+        rows = [c for c in range(nc) if not (2 * k == nc and c >= k)]
+        cols = [(c + k) % nc for c in rows]
+        assert len(set(cols)) == len(cols)
+        for c, d in zip(rows, cols):
+            task(c, d)
+    assert np.array_equal(met + met.T, 1 - np.eye(n, dtype=int))
