@@ -14,10 +14,13 @@ Phases, one JSON line each on standard output:
    the shapes of the main path (1024 replicas x 104 atoms x 50 steps), with
    the tolerances below; the thermostat generator's statistics; the campaign
    kernel with GB and SASA on, at every step and at the ``sasa_every`` /
-   ``gb_every`` cadences; the two pair-op kernels (dense ``nonbonded_rows``
-   and each-pair-once ``pair_tiles``) and the pair-forces kernel (in each of
-   its three CTA shapes) at 104 x 1024, 416 x 192 and 1,040 x 96, at 9 A
-   with the reaction field and at 16 A without it, and the pair
+   ``gb_every`` cadences; the two pair-op kernels (dense-row
+   ``nonbonded_rows`` and each-pair-once ``pair_tiles``, both on the per-atom
+   pair layout with the chunk box test) and the pair-forces kernel (in each
+   of its three CTA shapes) at 104 x 1024, 416 x 192, 1,040 x 96 and (the
+   pair-op kernels only) 2,496 x 4, at 9 A with the reaction field and at
+   16 A without it, the pair-op kernels also at 4,056 x 2, where the
+   dense-row kernel opts in to more than 48 KB of shared memory, and the pair
    ops' backward at 8 x 416; the SASA kernel also above 48 KB of shared
    memory (two tiled copies, where it opts in to more), and raising when a
    neighbour list overflows (the pair pressed to a tenth); the GB kernel at
@@ -48,7 +51,10 @@ Phases, one JSON line each on standard output:
    and ``sasa_every=5``; then the GB and SASA kernels' own path (the same
    entry point on its composed per-step path, ``fused_campaign=False``,
    whose GB and LCPO forces are one ``gb_forces`` and one ``sasa_forces``
-   launch a step).
+   launch a step); then the same entry point with no kernel flag on states
+   the GB and SASA kernels do not hold (104 atoms in float64, 416 atoms in
+   float32), where those forces come from autograd, against 104 atoms in
+   float32, where both kernels launch (``solvent_dispatch``).
    ``tiers``: the composed, differentiable pair-op path at the system sizes
    of the tier table: ``tiled_decaalanine(m)`` for m = 1, 4, 8, 10 at 768, 192,
    96 and 96 replicas, FIRE, then 500 steps of 1 fs at 300 K, unconstrained,
@@ -61,14 +67,21 @@ Phases, one JSON line each on standard output:
    SM, SMs used, waves; the two kernels must run the same CTA shape);
    the campaign kernel alone at 12 copies (1,248 atoms, the most it holds:
    checked against its plain version, one launch through
-   ``simulate_ensemble``, timed); and the CTA-shape levers at 416 x 192 and
-   1,040 x 96.
+   ``simulate_ensemble``, timed); and the CTA-shape levers of the campaign
+   kernel and the group, box-test and CTA levers of the pair-op kernels at
+   416 x 192 and 1,040 x 96. The pair kernels (pair-forces, dense-row,
+   pair-tile) are timed on the card (``device_ms``: torch.profiler's kernel
+   time, the median of three 20-call windows), their back-to-back launches
+   beside.
    ``grad``: gradients through 10 steps of the composed path (ring, dense)
    against the all-autograd path, 416 atoms x 8 replicas.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
-   it launches a step.
+   it launches a step; and a launch census of one composed step there (ring
+   and dense, with the SMD bias): launches and host ms by source (pair op,
+   angle-torsion forward and its autograd pass, bias gradient, BAOAB
+   update) and the device's busy share.
 6. the card's name and power limit as ``nvidia-smi`` prints them, the
    ``kernels`` line (per kernel: launches counted on the main path, error
    against the plain version, time per launch, the plain version's time, the
@@ -78,10 +91,11 @@ Phases, one JSON line each on standard output:
    and the waves 1024 replicas make; for the campaign kernel the split of a
    vacuum launch into plain pairs, special pairs, angles and torsions,
    constraints and the rest, and of a GBIS launch into its fast part, GB and
-   LCPO; for the pair-forces and campaign kernels the bound counts the pair
-   tests of the chunk pairs whose boxes lie within the cutoff and the bytes
-   of the per-atom pair layout, and ``bound_ms_dense`` beside it the
-   dense-table design's count), and the final ``ok`` line.
+   LCPO; for the pair-forces, pair-op and campaign kernels the bound counts
+   the pair tests of the chunk pairs whose boxes lie within the cutoff and
+   the bytes of the per-atom pair layout, and ``bound_ms_dense`` beside it
+   the dense-table design's count; for the pair-op kernels also registers,
+   CTAs an SM and SMs used), and the final ``ok`` line.
    The ``build`` phase carries what ``nvcc -Xptxas -v`` printed of each
    kernel's registers, shared memory and spills.
 
@@ -141,9 +155,12 @@ SEED = 20240914
 # table (scripts/bench_tiers.py): m tiled copies of the 104-atom system and
 # the replicas of each, 768/m as there, and 1,040 atoms x 96 replicas
 TIERS = ((1, 768), (4, 192), (8, 96), (10, 96))
-# the shapes K5 and K6 are checked at: the main path's, and the tier table's
-# 416 x 192 and 1,040 x 96
-PAIR_OP_SHAPES = ((1, 1024), (4, 192), (10, 96))
+# the shapes K5 and K6 are checked at: the main path's, the tier table's
+# 416 x 192 and 1,040 x 96, and 2,496 x 4 (above the 2,048 atoms the
+# pair-forces kernel holds)
+PAIR_OP_SHAPES = ((1, 1024), (4, 192), (10, 96), (24, 4))
+# the dense-row kernel above 48 KB of shared memory: 39 copies, 4,056 atoms
+K5_OPT_IN_SHAPE = (39, 2)
 TIER_STEPS = 500
 TIER_SAVE = 50
 GRAD_STEPS = 10  # the grad phase: 416 atoms x 8 replicas, T = 0
@@ -264,6 +281,32 @@ def time_ms(fn, repeats, warmup=1):
     return start.elapsed_time(stop) / repeats
 
 
+def device_ms(fn, repeats=20, windows=3):
+    """Device time of one call of ``fn``: every kernel it launches, summed
+    over ``repeats`` calls under torch.profiler, over the count; the median
+    of ``windows`` such windows. The pair kernels take less time on the card
+    than their wrappers take on the host, so back-to-back launches
+    (``time_ms``) time the host there. A window now and then reports part of
+    its kernels or none (seen at 1,040 x 96): the median of the windows that
+    report any stands, and the run fails only if none does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            reads.append(total / 1e3 / repeats)
+    check(bool(reads), "torch.profiler reported no device time: nothing was measured")
+    return float(np.median(reads))
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -300,6 +343,101 @@ def profile_call(fn):
         "top_kernels": [
             {"name": k[:60], "device_seconds": sec, "calls": c} for k, sec, c in rows[:5]
         ],
+    }
+
+
+#: what the launch census attributes a composed step's work to (sim's
+#: fused_nonbonded force): the pair op, the angle-torsion op (its forward
+#: inside it; the rest is its autograd pass), the bias gradient
+CENSUS_SOURCES = ("pair_op", "angle_torsion", "angle_torsion_forward", "bias_gradient")
+
+
+def launch_census(ff_m, ens, variant, bias, steps=5):
+    """Kernel launches and host ms of one composed step (``fused_nonbonded``,
+    ``kernel_variant=variant``, with the SMD bias), by source. Each source is
+    wrapped in a ``torch.profiler.record_function`` range for this run only
+    (the factories ``sim`` calls and the functions the angle-torsion op and
+    the bias gradient go through, restored after); a launch is attributed to
+    the innermost range its runtime call lies in, and whatever lies outside
+    every range is the BAOAB update (its kicks, drifts, noise and the step
+    counter). Averaged over ``steps`` steps after one warm-up step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from molecular_dynamics_tpu_torch import sim as sim_module
+    from molecular_dynamics_tpu_torch.ops import bonded
+
+    def labelled(label, fn):
+        def run(*args, **kwargs):
+            with record_function(f"census:{label}"):
+                return fn(*args, **kwargs)
+        return run
+
+    def labelled_op(label, make):
+        return lambda *args, **kwargs: labelled(label, make(*args, **kwargs))
+
+    patches = (
+        (ring, "make_pair_ring_op", labelled_op("pair_op", ring.make_pair_ring_op)),
+        (nonbonded, "make_nonbonded_op", labelled_op("pair_op", nonbonded.make_nonbonded_op)),
+        (bonded, "make_angle_torsion_op",
+         labelled_op("angle_torsion", bonded.make_angle_torsion_op)),
+        (bonded, "_angle_energy", labelled("angle_torsion_forward", bonded._angle_energy)),
+        (bonded, "_torsion_energy", labelled("angle_torsion_forward", bonded._torsion_energy)),
+        (sim_module, "_neg_grad", labelled("bias_gradient", sim_module._neg_grad)),
+    )
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, new in patches:
+            setattr(mod, name, new)
+        step_fn = make_ensemble_step_fn(ff_m, SimulationConfig(
+            dt_fs=1.0, temperature=300.0, fused_nonbonded=True, kernel_variant=variant), bias)
+        state = step_fn(ens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                with record_function("census:step"):
+                    state = step_fn(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, name, old in saved:
+            setattr(mod, name, old)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = {label: [(e.time_range.start, e.time_range.end) for e in events
+                     if e.name == f"census:{label}"] for label in (*CENSUS_SOURCES, "step")}
+    launches = [e.time_range.start for e in events if "LaunchKernel" in e.name]
+    # the device's own events: kernels, copies and sets (the ranges above
+    # appear on the device's timeline too, as annotations)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("census:")]
+    count = dict.fromkeys((*CENSUS_SOURCES, "step"), 0)
+    for t in launches:
+        # innermost first: the forward lies inside the angle-torsion op
+        for label in ("angle_torsion_forward", "pair_op", "bias_gradient", "angle_torsion", "step"):
+            if any(a <= t < b for a, b in spans[label]):
+                count[label] += 1
+                break
+    host = {label: sum(b - a for a, b in spans[label]) / 1e3 / steps for label in spans}
+    per_step = {
+        "pair_op": (count["pair_op"], host["pair_op"]),
+        "angle_torsion_forward": (count["angle_torsion_forward"], host["angle_torsion_forward"]),
+        "angle_torsion_autograd": (count["angle_torsion"],
+                                   host["angle_torsion"] - host["angle_torsion_forward"]),
+        "bias_gradient": (count["bias_gradient"], host["bias_gradient"]),
+        "baoab_update": (count["step"], host["step"] - host["pair_op"] - host["angle_torsion"]
+                         - host["bias_gradient"]),
+    }
+    device_s = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6
+    return {
+        "variant": variant, "atoms": ff_m.n_atoms, "replicas": int(ens.pos.shape[0]),
+        "steps": steps,
+        "by_source": {k: {"launches_per_step": c / steps, "host_ms_per_step": ms}
+                      for k, (c, ms) in per_step.items()},
+        "launches_per_step": len(launches) / steps,
+        "device_kernels_per_step": len(kernels) / steps,
+        "host_ms_per_step": host["step"], "wall_ms_per_step": 1e3 * wall / steps,
+        "device_ms_per_step": 1e3 * device_s / steps,
+        "device_busy_share": device_s / wall,
     }
 
 
@@ -349,18 +487,16 @@ def pair_flops(tests, live, with_energy):
     )
 
 
-def pair_table_bytes(tables, each_pair_once):
-    """Bytes of the packed pair tables one launch of K5 or K6 reads (pair_at
-    in csrc/pair_terms.cuh): table A's 16 bytes for every ordered pair i != j
-    (K5: each pair from both ends) or for every unordered pair once (K6),
-    and tables B and C's 20 bytes only where A marks a bond, UB or 1-4
-    entry. Replicas share the tables, so they count once a launch."""
-    n = tables.pack_a.shape[0]
-    entries = n * (n - 1)
-    special = int((tables.pack_a[..., 3] >= 2.0).sum())  # symmetric, off the diagonal
-    if each_pair_once:
-        entries, special = entries // 2, special // 2
-    return entries * 16 + special * 20
+def dense_table_bytes(tables):
+    """Bytes of the dense tables one launch of the dense-table design read
+    (the pair kernels before the per-atom layout): 16 bytes for every
+    ordered pair i != j (qq, lj_a, lj_b, mask) and 20 more for every ordered
+    entry of a bond, Urey-Bradley or 1-4 pair. Replicas share the tables, so
+    they count once a launch. Kept to compare with those designs' rows."""
+    n = tables.dense.shape[-1]
+    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = tables.dense
+    special = int(((kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)).sum())
+    return n * (n - 1) * 16 + special * 20
 
 
 def pair_layout_bytes(tables):
@@ -375,20 +511,19 @@ def bound_of(flops, nbytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def pair_bound_ms(n_rep, n, live, tables, with_energy, each_pair_once):
-    """The dense pair kernels' bound (K5, K6): every unordered pair tested,
-    the dense tables read."""
-    flops = pair_flops(n_rep * (n * (n - 1) // 2), live, with_energy)
-    nbytes = 2 * n_rep * n * 12 + n_rep * 4 + pair_table_bytes(tables, each_pair_once)
-    return (*bound_of(flops, nbytes), flops, nbytes)
+def dense_design_bound_ms(n_rep, n, live, tables):
+    """The dense-table design's bound (``bound_ms_dense``): every unordered
+    pair tested, the dense tables read (``dense_table_bytes``)."""
+    flops = pair_flops(n_rep * (n * (n - 1) // 2), live, True)
+    return bound_of(flops, 2 * n_rep * n * 12 + n_rep * 4 + dense_table_bytes(tables))[0]
 
 
 def loop_pair_bound(pos, tables, live, cutoff2):
-    """The pair-forces kernel's bound (K2): the pair tests ``loop_pair_tests``
-    counts at ``pos``, the per-atom layout read; and beside it, as
-    ``bound_ms_dense``, the count of the dense-table design (every unordered
-    pair tested, table A read for every ordered pair), which keeps its rows
-    comparable with that design's."""
+    """The bound of the pair kernels K2, K5 and K6 (one count for the three,
+    each pair once): the pair tests ``loop_pair_tests`` counts at ``pos``,
+    the per-atom layout read; and beside it, as ``bound_ms_dense``, the
+    count of the dense-table design (every unordered pair tested, the dense
+    tables read), which keeps its rows comparable with that design's."""
     n_rep, n = pos.shape[:2]
     tests = loop_pair_tests(pos, tables, cutoff2)
     flops = pair_flops(tests, live, True)
@@ -396,7 +531,7 @@ def loop_pair_bound(pos, tables, live, cutoff2):
     bound, by = bound_of(flops, nbytes)
     return {"bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
             "pair_tests": tests, "layout_bytes": pair_layout_bytes(tables),
-            "bound_ms_dense": pair_bound_ms(n_rep, n, live, tables, True, False)[0]}
+            "bound_ms_dense": dense_design_bound_ms(n_rep, n, live, tables)}
 
 
 def campaign_bound(pos, tab, live, n_inner, shake_iters, rattle_iters, cutoff2):
@@ -419,7 +554,7 @@ def campaign_bound(pos, tab, live, n_inner, shake_iters, rattle_iters, cutoff2):
     nbytes = state_bytes + pair_layout_bytes(tab.pair)
     bound, by = bound_of(flops, nbytes)
     dense_flops = n_inner * (pair_flops(n_rep * (n * (n - 1) // 2), live, False) + rest)
-    dense_bytes = state_bytes + pair_table_bytes(tab.pair, each_pair_once=False)
+    dense_bytes = state_bytes + dense_table_bytes(tab.pair)
     return {"bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
             "pair_tests_per_step": tests, "layout_bytes": pair_layout_bytes(tab.pair),
             "bound_ms_dense": bound_of(dense_flops, dense_bytes)[0]}
@@ -741,6 +876,30 @@ LEVERS = (
     ("vacuum kernel without its register cap (8 CTAs an SM)", [
         ("__launch_bounds__(kSmallThreads, kVacuumCtasPerSm)", "__launch_bounds__(kSmallThreads)")],
      ("campaign_advance[vacuum]",)),
+    # the pair-op kernels (csrc/pair_tiles.cu, csrc/nonbonded_rows.cu)
+    ("pair-tile kernel without the box test (every chunk pair met)", [
+        ("  return !boxes_apart(p, q, cutoff2);", "  return true;")],
+     ("pair_tiles[1040x96]",)),
+    ("pair-tile kernel, one CTA a replica (it walks every group in turn)", [
+        ("pair_tiles_kernel<<<dim3(n_replicas, n_groups), kThreads, 0, s>>>(",
+         "pair_tiles_kernel<<<dim3(n_replicas, 1), kThreads, 0, s>>>(")],
+     ("pair_tiles[416x192]", "pair_tiles[1040x96]")),
+    ("pair-tile kernel with tiles of 2 chunks", [
+        ("constexpr int kTileChunks = 4;", "constexpr int kTileChunks = 2;")],
+     ("pair_tiles[416x192]", "pair_tiles[1040x96]")),
+    ("pair-tile kernel with tiles of 8 chunks", [
+        ("constexpr int kTileChunks = 4;", "constexpr int kTileChunks = 8;")],
+     ("pair_tiles[416x192]", "pair_tiles[1040x96]")),
+    ("pair-tile kernel without its register cap (80 registers, 6 CTAs an SM)", [
+        ("__launch_bounds__(kThreads, kCtasPerSm)", "__launch_bounds__(kThreads)")],
+     ("pair_tiles[1040x96]",)),
+    ("dense-row kernel without the box test (every column chunk met)", [
+        ("      if (boxes_apart(box, I, J, pc.cutoff2)) continue;\n", "")],
+     ("nonbonded_rows[1040x96]",)),
+    ("dense-row kernel, one CTA a replica (it walks every row chunk in turn)", [
+        ("  const dim3 grid(n_replicas, (chunk_count(n_atoms) + kWarps - 1) / kWarps);",
+         "  const dim3 grid(n_replicas, 1);")],
+     ("nonbonded_rows[416x192]", "nonbonded_rows[1040x96]")),
     # the vacuum split: each variant compiles one part of a step out
     ("split: no plain pairs", [
         ("  pair_rounds<kThreads, kRows, false>(n, s.x, s.y, s.z, s.fx, s.fy, s.fz,\n"
@@ -810,6 +969,11 @@ def finish_lever_builds(started, skipped):
     return libs
 
 
+#: libraries whose launches take less time on the card than on the host:
+#: their levers are timed on the card (``device_ms``)
+DEVICE_TIMED = ("pair_forces", "nonbonded_rows", "pair_tiles")
+
+
 def levers_phase(libs, runs):
     """Each variant against the kernel as built, in turns (built, variant,
     variant, built), in every run of ``runs`` its lever names: ``runs`` maps a
@@ -826,7 +990,9 @@ def levers_phase(libs, runs):
             times = {"built": [], "variant": []}
             for which in ("built", "variant", "variant", "built"):
                 _build._libraries[lib] = built if which == "built" else variant
-                times[which].append(time_ms(call, repeats=3 if lib == "campaign_advance" else 20))
+                times[which].append(
+                    device_ms(call) if lib in DEVICE_TIMED
+                    else time_ms(call, repeats=3 if lib == "campaign_advance" else 20))
             _build._libraries[lib] = variant
             err = error(call()) if error else None
             facts_v = facts() if facts else None
@@ -881,14 +1047,15 @@ def cutoff_clear(pos, tables, cutoff, margin=5e-6):
 
 
 def pair_op_checks(rng, checks):
-    """K5, K6 and K2 (``ring.pair_forces``, in each of its CTA shapes)
-    against their plain version (float32) at PAIR_OP_SHAPES, at
-    9 A with the reaction field and at 16 A without it (the halfway pairs of
-    a diagonal tile live there); the plain version in float32 against
-    float64; two launches give the same bits; the ops' backward against
-    autograd of their float32 reference at 8 replicas x 416 atoms, for the
-    energy's and the forces' cotangent. Returns the largest force error of
-    each kernel."""
+    """K5, K6 and K2 (``ring.pair_forces``, in each of its CTA shapes, up to
+    the 2,048 atoms it holds) against their plain version (float32) at
+    PAIR_OP_SHAPES, at 9 A with the reaction field and at 16 A without it
+    (the halfway pairs of a diagonal tile live there); the plain version in
+    float32 against float64; two launches give the same bits; K5 and K6 at
+    K5_OPT_IN_SHAPE, where K5 takes more than 48 KB of shared memory; the
+    ops' backward against autograd of their float32 reference at 8
+    replicas x 416 atoms, for the energy's and the forces' cotangent.
+    Returns the largest force error of each kernel."""
     worst = {name: 0.0 for name in (*PAIR_OP_KERNELS, "pair_forces")}
     for m, n_rep in PAIR_OP_SHAPES:
         ff_m, coords_m, _ = tiled_decaalanine(m)
@@ -907,8 +1074,9 @@ def pair_op_checks(rng, checks):
             check(res["force_err_plain_f32_vs_f64"] <= TOL_PAIR_FORCE
                   and res["energy_err_plain_f32_vs_f64"] <= m * TOL_PAIR_ENERGY,
                   f"{tag} plain f32 vs f64: {res}")
-            kernels_here = {**PAIR_OP_KERNELS,
-                            "pair_forces": lambda p, t_, _, c=c: ring.pair_forces(p, t_, *c)}
+            kernels_here = dict(PAIR_OP_KERNELS)
+            if ff_m.n_atoms <= nonbonded.PAIR_LOOP_MAX_ATOMS:
+                kernels_here["pair_forces"] = lambda p, t_, _, c=c: ring.pair_forces(p, t_, *c)
             for name, fn in kernels_here.items():
                 e_k, f_k = fn(pos, tabs, consts)
                 e_k2, f_k2 = fn(pos, tabs, consts)
@@ -928,6 +1096,36 @@ def pair_op_checks(rng, checks):
                 worst[name] = max(worst[name], r["force_err_kernel_vs_plain"])
             checks[tag] = res
             del e_p, f_p, e_d, f_d
+
+    # K5 above 48 KB of shared memory (it opts in), K6 beside it; at 9 A with
+    # the reaction field, a replica with a pair on the cutoff left out
+    m, n_rep = K5_OPT_IN_SHAPE
+    ff_m, coords_m, _ = tiled_decaalanine(m)
+    pos = jittered(coords_m, n_rep, rng)
+    tabs = nonbonded.build_pair_tables(ff_m)
+    consts = nonbonded.pair_constants(*PAIR_CASES["9A_rf"])
+    keep = cutoff_clear(pos, tabs, PAIR_CASES["9A_rf"][0])
+    e_p, f_p = nonbonded.dense_pair_math(pos, tabs.dense, consts)
+    tag = f"pair_ops[{ff_m.n_atoms}x{n_rep},9A_rf]"
+    res = {"replicas_compared": int(keep.sum()),
+           "k5_shared_bytes": nonbonded.nonbonded_rows_shared_bytes(ff_m.n_atoms)}
+    check(res["replicas_compared"] >= 1 and res["k5_shared_bytes"] > 48 * 1024, f"{tag}: {res}")
+    for name, fn in PAIR_OP_KERNELS.items():
+        e_k, f_k = fn(pos, tabs, consts)
+        e_k2, f_k2 = fn(pos, tabs, consts)
+        torch.cuda.synchronize()
+        r = {"force_err_kernel_vs_plain": max_err(f_k[keep], f_p[keep]),
+             "energy_err_kernel_vs_plain": max_err(e_k[keep], e_p[keep]),
+             "reproducible": bool(torch.equal(f_k, f_k2) and torch.equal(e_k, e_k2))}
+        res[name] = r
+        check(bool(torch.isfinite(f_k).all() and torch.isfinite(e_k).all()),
+              f"{tag} {name}: non-finite output")
+        check(r["force_err_kernel_vs_plain"] <= TOL_PAIR_FORCE
+              and r["energy_err_kernel_vs_plain"] <= m * TOL_PAIR_ENERGY and r["reproducible"],
+              f"{tag} {name} vs plain: {r}")
+        worst[name] = max(worst[name], r["force_err_kernel_vs_plain"])
+    checks[tag] = res
+    del e_p, f_p, pos, tabs
 
     ff4, coords4, _ = tiled_decaalanine(4)
     pos = jittered(coords4, 8, rng)
@@ -949,6 +1147,74 @@ def pair_op_checks(rng, checks):
             check(bool(torch.isfinite(g).all()) and scale > 0.0 and rel <= TOL_BACKWARD,
                   f"{name} backward, {cot} cotangent: {rel} of {scale}")
     return worst
+
+
+def solvent_dispatch_check(n_steps=3, n_rep=4):
+    """Fault C8 on the card: with no kernel flag, the step under GBIS_CONFIG
+    takes the GB and LCPO forces from K3 and K4 only where they hold the
+    state (``gb_forces_holds``, ``sasa_forces_holds``: float32 within their
+    shared memory), else from autograd of the energy, as the JAX package
+    does. 104 atoms in float64 (both from autograd), 416 atoms in float32 (GB
+    from autograd; K4 holds the 204 heavy atoms) and 104 atoms in float32
+    (both kernels), a few steps at T = 0 from the packaged coordinates: the
+    force each step carries equals autograd of the whole energy at its
+    positions, and the launch counters show the route. A direct call of a
+    wrapper on a state its kernel does not hold still raises."""
+    res = {}
+    cases = (("104_atoms_f64", 1, torch.float64, TOL_AUTOGRAD_F64),
+             ("416_atoms_f32", 4, torch.float32, TOL_F32_VS_F64),
+             ("104_atoms_f32", 1, torch.float32, TOL_F32_VS_F64))
+    for label, m, dtype, tol in cases:
+        ff_m, coords_m, _ = decaalanine_full(dtype=dtype) if m == 1 else tiled_decaalanine(m, dtype=dtype)
+        n_m = ff_m.n_atoms
+        state = replicate(system_init(torch.as_tensor(coords_m, dtype=dtype, device="cuda"),
+                                      dtype=dtype), n_rep, seed=1)
+        energy = lambda q, ff_m=ff_m: total_energy(q, ff_m, config=GBIS_CONFIG)
+        state = state.replace(forces=_neg_grad(energy, state.pos).detach())
+        step_fn = make_ensemble_step_fn(
+            ff_m, SimulationConfig(energy=GBIS_CONFIG, dt_fs=1.0, temperature=0.0))
+        gb.gb_forces.launches = sasa.sasa_forces.launches = 0
+        for _ in range(n_steps):
+            state = step_fn(state)
+        torch.cuda.synchronize()
+        launches = {"gb_forces": gb.gb_forces.launches, "sasa_forces": sasa.sasa_forces.launches}
+        nc = sasa.build_sasa_tables(ff_m).n_compact
+        holds = {"gb_forces": gb.gb_forces_holds("cuda", dtype, n_m),
+                 "sasa_forces": sasa.sasa_forces_holds("cuda", dtype, n_m, nc)}
+        res[label] = {"atoms": n_m, "heavy_atoms": nc, "dtype": str(dtype), "steps": n_steps,
+                      "kernel_holds": holds, "launches": launches, "tolerance": tol,
+                      "force_err_vs_autograd": max_err(state.forces, _neg_grad(energy, state.pos))}
+        check(bool(torch.isfinite(state.pos).all()) and state.pos.dtype == dtype,
+              f"solvent dispatch {label}: {res[label]}")
+        check(all(launches[k] == (n_steps if holds[k] else 0) for k in launches),
+              f"solvent dispatch {label}: launches against the predicates: {res[label]}")
+        check(res[label]["force_err_vs_autograd"] <= tol, f"solvent dispatch {label}: {res[label]}")
+    skipped = {"gb_forces": 0, "sasa_forces": 0}
+    check(res["104_atoms_f64"]["launches"] == skipped
+          and res["416_atoms_f32"]["launches"]["gb_forces"] == 0
+          and res["104_atoms_f32"]["launches"] == {k: n_steps for k in skipped},
+          f"solvent dispatch: K3 and K4 skipped at float64, K3 at 416 atoms, both launched "
+          f"at 104 atoms in float32: {res}")
+    # the wrappers themselves launch or raise
+    ff4, coords4, _ = tiled_decaalanine(4)
+    pos4 = torch.as_tensor(coords4, dtype=torch.float32, device="cuda")[None].contiguous()
+    ff1, coords1, _ = decaalanine_full()
+    pos64 = torch.as_tensor(coords1, dtype=torch.float64, device="cuda")[None].contiguous()
+    consts = gb.gb_constants(GBIS_CONFIG.solvent_dielectric, GBIS_CONFIG.ion_concentration)
+    raised = {}
+    for label, call in (
+        ("gb_forces_416_atoms_f32", lambda: gb.gb_forces(pos4, gb.build_gb_tables(ff4), consts)),
+        ("gb_forces_104_atoms_f64", lambda: gb.gb_forces(pos64, gb.build_gb_tables(ff1), consts)),
+        ("sasa_forces_104_atoms_f64", lambda: sasa.sasa_forces(pos64, sasa.build_sasa_tables(ff1))),
+    ):
+        try:
+            call()
+            raised[label] = False
+        except (ValueError, TypeError):
+            raised[label] = True
+    res["wrappers_raise"] = raised
+    check(all(raised.values()), f"solvent dispatch: a wrapper ran on a state it does not hold: {raised}")
+    return res
 
 
 def minimised_ensemble(ff_m, coords_m, n_rep, seed):
@@ -1018,17 +1284,48 @@ def campaign_tier_row(k1_op, pos, vel, frc, n_rep, live, launches):
 
 def pair_forces_tier_row(pos, tabs, live, consts, plain_ms=None):
     """The pair-forces kernel (the campaign kernel's pair loop alone) at a
-    tier: ms a launch at 9 A with the reaction field beside its bound
-    (``loop_pair_bound``) and its build facts. Its launches: 0, no path
-    launches it."""
+    tier: device ms a launch at 9 A with the reaction field (and the time of
+    back-to-back launches) beside its bound (``loop_pair_bound``) and its
+    build facts. Its launches: 0, no path launches it."""
     n_rep, n = pos.shape[:2]
+    call = lambda: ring.pair_forces(pos, tabs, *PAIR_CASES["9A_rf"])
     return {
-        "ms": time_ms(lambda: ring.pair_forces(pos, tabs, *PAIR_CASES["9A_rf"]), repeats=20),
+        "ms": device_ms(call), "ms_back_to_back": time_ms(call, repeats=20),
         **loop_pair_bound(pos, tabs, live, consts[0]), "live_unordered_pairs": live,
         "launches": 0, "plain_ms": plain_ms,
         **build_facts(_build.kernel_info("pair_forces", "mdx_pair_forces_info", [ctypes.c_int], n),
                       n_ctas=n_rep),
     }
+
+
+#: the C entries that report the build facts of K5 and K6
+PAIR_OP_INFO = {"nonbonded_rows": "mdx_nonbonded_rows_info", "pair_tiles": "mdx_pair_tiles_info"}
+#: row chunks a CTA of the dense-row kernel takes (csrc/nonbonded_rows.cu kWarps)
+K5_ROW_CHUNKS_A_CTA = 4
+
+
+def pair_op_ctas(name, n_rep, n):
+    """CTAs one launch of K5 (a replica's row chunks, four a CTA) or K6 (a
+    replica's tile pairs) runs."""
+    if name == "pair_tiles":
+        return n_rep * ring.tile_pair_count(n)
+    return n_rep * -(-nonbonded.chunk_count(n) // K5_ROW_CHUNKS_A_CTA)
+
+
+def pair_op_tier_row(name, pos, tabs, live, consts, plain_ms, launches):
+    """K5 or K6 at a tier: device ms a launch at 9 A with the reaction field
+    (and the time of back-to-back launches) beside the bound the pair-forces
+    kernel has (``loop_pair_bound``: the same work, each pair once) and the
+    dense-table design's, its build facts and the SMs its CTAs cover."""
+    n_rep, n = pos.shape[:2]
+    call = lambda: PAIR_OP_KERNELS[name](pos, tabs, consts)
+    ctas = pair_op_ctas(name, n_rep, n)
+    facts = build_facts(_build.kernel_info(name, PAIR_OP_INFO[name], [ctypes.c_int], n),
+                        n_ctas=ctas)
+    return {"ms": device_ms(call), "ms_back_to_back": time_ms(call, repeats=20),
+            "plain_ms": plain_ms, **loop_pair_bound(pos, tabs, live, consts[0]),
+            "live_unordered_pairs": live, "launches": launches, "ctas": ctas, **facts,
+            "sms_used": min(facts["sm_count"], ctas)}
 
 
 def same_shape(times, shape):
@@ -1102,14 +1399,9 @@ def tiers_phase(lever_libs):
         plain_ms = time_ms(lambda: nonbonded.dense_pair_math(pos, tabs.dense, consts), repeats=2)
         shape = f"{n_m}x{n_rep}"
         for name, fn in PAIR_OP_KERNELS.items():
-            bound, by, flops, nbytes = pair_bound_ms(
-                n_rep, n_m, live, tabs, True, each_pair_once=name == "pair_tiles")
-            times.setdefault(name, {})[shape] = {
-                "ms": time_ms(lambda fn=fn: fn(pos, tabs, consts), repeats=20),
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "flops": flops, "bytes": nbytes, "live_unordered_pairs": live,
-                "launches": rows[f"{shape}/{'ring' if name == 'pair_tiles' else 'dense'}"]["launches"][name],
-            }
+            times.setdefault(name, {})[shape] = pair_op_tier_row(
+                name, pos, tabs, live, consts, plain_ms,
+                rows[f"{shape}/{'ring' if name == 'pair_tiles' else 'dense'}"]["launches"][name])
         times.setdefault("pair_forces", {})[shape] = pair_forces_tier_row(
             pos, tabs, live, consts, plain_ms)
         vel = final.vel.contiguous()
@@ -1119,10 +1411,19 @@ def tiers_phase(lever_libs):
             rows[f"{shape}/campaign"]["launches"]["campaign_advance"])
         same_shape(times, shape)
         if shape in ("416x192", "1040x96"):
-            rows_m = levers_phase(lever_libs, {f"campaign_advance[{shape}]": (
-                lambda: k1_op(pos, vel, frc, 0, 3), k1_error, k1_op.kernel_info)})
-            hold_levers(rows_m, {f"campaign_advance[{shape}]": TOL_POS})
+            runs = {f"campaign_advance[{shape}]": (
+                lambda: k1_op(pos, vel, frc, 0, 3), k1_error, k1_op.kernel_info)}
+            plain_f = nonbonded.dense_pair_math(pos, tabs.dense, consts)[1]
+            for name, fn in PAIR_OP_KERNELS.items():
+                runs[f"{name}[{shape}]"] = (
+                    lambda fn=fn: fn(pos, tabs, consts), lambda out: max_err(out[1], plain_f),
+                    lambda name=name: _build.kernel_info(
+                        name, PAIR_OP_INFO[name], [ctypes.c_int], n_m))
+            rows_m = levers_phase(lever_libs, runs)
+            hold_levers(rows_m, {f"campaign_advance[{shape}]": TOL_POS,
+                                 **{f"{name}[{shape}]": TOL_PAIR_FORCE for name in PAIR_OP_KERNELS}})
             lever_rows.update(rows_m)
+            del plain_f
         del tabs, final, frames
 
     # the largest system the campaign kernel holds: 12 copies, 96 replicas
@@ -1281,7 +1582,8 @@ def main():
     ref_kw = pair_cases["reference_9A_rf_sw7.5"]
     pair_consts = nonbonded.pair_constants(9.0, 7.5, True, mdx.units.SOLVENT_DIELECTRIC)
     live = live_pair_count(pos_pert, tables, pair_consts)
-    k2_ms = time_ms(lambda: ring.pair_forces(pos_pert, tables, **ref_kw), repeats=20)
+    k2_ms = device_ms(lambda: ring.pair_forces(pos_pert, tables, **ref_kw))
+    k2_b2b_ms = time_ms(lambda: ring.pair_forces(pos_pert, tables, **ref_kw), repeats=20)
     k2_plain_ms = time_ms(lambda: ring.pair_forces_reference(pos_pert, tables, **ref_kw), repeats=3)
     k2_plain = ring.pair_forces_reference(pos_pert, tables, **ref_kw)
     k2_bound = loop_pair_bound(pos_pert, tables, live, pair_consts[0])
@@ -1294,7 +1596,7 @@ def main():
         "max_abs_err": max(ref_res["force_err_kernel_vs_plain"],
                            checks["pair_forces[gbis_16A_norf_sw15]"]["force_err_kernel_vs_plain"]),
         "tolerance": TOL_PAIR_FORCE,
-        "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
+        "ms": k2_ms, "ms_back_to_back": k2_b2b_ms, "plain_ms": k2_plain_ms, **k2_bound,
         "library_ms": None, "sfu_bound_ms": sfu_ms(pair_sfu_ops(live)),
         **build_facts(_build.kernel_info("pair_forces", "mdx_pair_forces_info", [ctypes.c_int], n)),
         "shape": [N_REPLICAS, n, 3], "live_unordered_pairs": live,
@@ -2084,11 +2386,15 @@ def main():
     check(solvent_path_err < TOL_F32_VS_F64,
           f"composed GBIS path, carried force vs autograd: {solvent_path_err} kcal/mol/A")
 
+    # fault C8: the same entry point with no kernel flag on states its
+    # kernels do not hold (float64, 416 atoms)
+    dispatch_res = solvent_dispatch_check()
+
     emit("gbis_campaign", replicas=N_REPLICAS, atoms=n, steps=N_STEPS, save_every=N_INNER,
          fire_seconds=round(fire_g_s, 2), energy_terms_at_minimum=terms_g,
          end_to_end_distance_A=d0_g, **gbis_runs,
          gb_kernel_launches=launches_k3, sasa_kernel_launches=launches_k4,
-         composed_path_force_vs_autograd=solvent_path_err,
+         composed_path_force_vs_autograd=solvent_path_err, solvent_dispatch=dispatch_res,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
 
@@ -2115,9 +2421,12 @@ def main():
             "max_abs_err": pair_op_err[name], "tolerance": TOL_PAIR_FORCE,
             "max_abs_err_what": "forces (kcal/mol/A) vs the plain float32 version, "
                                 "at every checked shape and both cutoffs",
-            "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-            "bound_by": at["bound_by"], "library_ms": None,
-            "sfu_bound_ms": sfu_ms(pair_sfu_ops(at["live_unordered_pairs"])),
+            "ms": at["ms"], "ms_back_to_back": at["ms_back_to_back"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_ms_dense": at["bound_ms_dense"], "bound_by": at["bound_by"],
+            "library_ms": None, "sfu_bound_ms": sfu_ms(pair_sfu_ops(at["live_unordered_pairs"])),
+            "registers_per_thread": at["registers_per_thread"], "ctas_per_sm": at["ctas_per_sm"],
+            "sms_used": at["sms_used"],
             "shape": [TIERS[-1][1], 104 * TIERS[-1][0], 3], "by_shape": by_shape,
         }
     kernels["campaign_advance"]["by_tier"] = tier_times["campaign_advance"]
@@ -2146,6 +2455,15 @@ def main():
     check(res["device_seconds"] > 0.0, "torch.profiler reported no device time: nothing was measured")
     res["kernel_launches_per_step"] = res["kernel_launches"] / TIER_SAVE
     profile_res[f"composed_ring_{ff4.n_atoms}x{ens4.pos.shape[0]}_{TIER_SAVE}_steps"] = res
+    # one composed step at 416 x 192 taken apart by source, ring and dense,
+    # with the SMD bias on the chain's ends
+    pos4 = ens4.pos[0]
+    d4 = float(torch.linalg.norm(pos4[ff4.n_atoms - 1] - pos4[0]))
+    bias4 = HarmonicSMDBias.create(n_atoms=ff4.n_atoms, group1=[0], group2=[ff4.n_atoms - 1],
+                                   fk=1.0, cent_0=d4, cent_1=d4 + 22.0, T=500_000.0)
+    for variant in ("ring", "dense"):
+        profile_res[f"census_{variant}_{ff4.n_atoms}x{ens4.pos.shape[0]}"] = launch_census(
+            ff4, ens4, variant, bias4)
     for every, (cfg_g, start_g) in finals_g.items():
         res = profile_call(lambda: simulate_ensemble(
             start_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g))

@@ -102,16 +102,6 @@ size_t shared_bytes(int n) {
   return (6 * static_cast<size_t>(n) + 6 * chunk_count(n)) * sizeof(float);
 }
 
-PairLayout layout_of(const void* const* ptrs, int n_types) {
-  return PairLayout{
-      static_cast<const int*>(ptrs[0]),      static_cast<const float2*>(ptrs[1]),
-      static_cast<const float*>(ptrs[2]),    static_cast<const unsigned*>(ptrs[3]),
-      static_cast<const int2*>(ptrs[4]),     static_cast<const float4*>(ptrs[5]),
-      static_cast<const float4*>(ptrs[6]),   static_cast<const float*>(ptrs[7]),
-      static_cast<const int*>(ptrs[8]),      static_cast<const int*>(ptrs[9]),
-      n_types};
-}
-
 }  // namespace
 
 // pos (R, N, 3) -> frc (R, N, 3), energy (R,). `layout` holds the device
@@ -132,7 +122,8 @@ extern "C" int mdx_pair_forces(const void* pos, void* frc, void* energy,
   if (err != 0) return err;
   kernel<<<n_replicas, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<float*>(frc),
-      static_cast<float*>(energy), layout_of(layout, n_types), n_atoms, pc);
+      static_cast<float*>(energy), pair_layout_of(layout, n_types), n_atoms,
+      pc);
   return static_cast<int>(cudaGetLastError());
 }
 

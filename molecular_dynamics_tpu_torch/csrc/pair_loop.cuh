@@ -1,6 +1,8 @@
-// The pair loop of the campaign kernel (K1) and the pair-forces kernel (K2):
-// every 2-body term of a replica whose coordinates sit in shared memory,
-// each unordered pair evaluated once, with the physics of pair_term().
+// The pair loop of the campaign kernel (K1), the pair-forces kernel (K2)
+// and the pair-tile kernel (K6), and the pieces the dense-row kernel (K5)
+// shares with them: every 2-body term of a replica whose coordinates sit in
+// shared memory, each unordered pair evaluated once, with the physics of
+// pair_term().
 //
 // Layout (built by ops/nonbonded.py pair_layout; no N x N table is read):
 //   lj_type (N) and lj_table (T x T of (lj_a, lj_b)): the LJ tables factored
@@ -16,24 +18,25 @@
 // chunk is mostly padding), chunk I owned by warp I mod (warps). A task
 // (I, J) is one warp meeting chunk J with chunk I: lane l < C holds row atom
 // C I + l in registers and meets column C J + (l + s) mod C at step s, the
-// column's force accumulator moving one lane a step with __shfl_sync
-// (pair_tiles.cu does the same with C = 32), so every pair of the two
-// chunks is met once. A lane tests its exclusion bit and the cutoff before
-// it reads any parameter. Tasks: the diagonal (I, I), shifts 1..C/2, an
-// even C's halfway shift on lanes below C/2 only; then rounds k = 1..chunks/2
-// of the tasks (I, I + k mod chunks) (at k = chunks/2 for an even count only
-// I < k): every unordered pair of chunks once. In a round no two tasks share
-// a column chunk, so each adds its column sums straight into the shared
-// force array, and a barrier closes the round; the row sums stay in the
-// owner's registers until the caller's per-atom pass. A task whose two
-// chunks' bounding boxes lie farther apart than the cutoff is skipped
-// (every pair in it is beyond the cutoff: it adds nothing). Special pairs
-// are evaluated in the per-atom pass from both ends (about 8 % of the
-// pairs). Every atom's sum runs in a fixed order: no atomics, the same bits
-// every run. What each choice buys (chip_smoke.py's levers, campaign kernel
-// per launch): every pair from both ends instead takes 24 % longer at 104
-// atoms and 49 % at 1,040; without the box test the 1,040-atom launch takes
-// 2.5 times as long.
+// column's force accumulator moving one lane a step with __shfl_sync, so
+// every pair of the two chunks is met once. A lane tests its exclusion bit
+// and the cutoff before it reads any parameter. Tasks: the diagonal (I, I),
+// shifts 1..C/2, an even C's halfway shift on lanes below C/2 only; then
+// rounds k = 1..chunks/2 of the tasks (I, I + k mod chunks) (at k = chunks/2
+// for an even count only I < k): every unordered pair of chunks once. In a
+// round no two tasks share a column chunk, so each adds its column sums
+// straight into the shared force array, and a barrier closes the round; the
+// row sums stay in the owner's registers until the caller's per-atom pass.
+// A task whose two chunks' bounding boxes lie farther apart than the cutoff
+// is skipped (every pair in it is beyond the cutoff: it adds nothing). A task
+// reads its row and column chunks through pointers to their first atoms, so
+// the pair-tile kernel runs the same tasks on the two tiles it holds in
+// shared memory. Special pairs are evaluated in the per-atom pass from both
+// ends (about 8 % of the pairs). Every atom's sum runs in a fixed order: no
+// atomics, the same bits every run. What each choice buys (chip_smoke.py's
+// levers, campaign kernel per launch): every pair from both ends instead
+// takes 24 % longer at 104 atoms and 49 % at 1,040; without the box test the
+// 1,040-atom launch takes 2.5 times as long.
 #pragma once
 
 #include "pair_terms.cuh"
@@ -94,17 +97,20 @@ __host__ __device__ inline int chunk_size(int n) {
   return (n + nc - 1) / nc;
 }
 
-// Bounding box of every chunk into box[6 I .. 6 I + 5] (lo xyz, hi xyz), by
-// the warp that owns the chunk. min and max are exact in any order.
+// Bounding boxes of the `count` chunks from chunk `first` on into box[6 q ..
+// 6 q + 5] (lo xyz, hi xyz) for the q-th, warp w taking q = w, w + warps,
+// ...; x, y, z hold the coordinates from chunk `first`'s first atom on. min
+// and max are exact in any order.
 template <int kThreads>
-__device__ __forceinline__ void chunk_boxes(int n, const float* x,
-                                            const float* y, const float* z,
-                                            float* box) {
+__device__ __forceinline__ void chunk_boxes(int n, int first, int count,
+                                            const float* x, const float* y,
+                                            const float* z, float* box) {
   constexpr int kWarps = kThreads / 32;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int cs = chunk_size(n);
-  for (int I = w; I < chunk_count(n); I += kWarps) {
-    const int a = min(I * cs + min(lane, cs - 1), n - 1);
+  for (int I = w; I < count; I += kWarps) {
+    const int a =
+        min((first + I) * cs + min(lane, cs - 1), n - 1) - first * cs;
     float lo[3] = {x[a], y[a], z[a]}, hi[3] = {x[a], y[a], z[a]};
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -121,38 +127,55 @@ __device__ __forceinline__ void chunk_boxes(int n, const float* x,
   }
 }
 
-// True where no pair of chunks I and J can lie inside the cutoff. The margin
-// keeps the test on the safe side of float32 rounding.
-__device__ __forceinline__ bool boxes_apart(const float* box, int I, int J,
+// Every chunk of the replica, chunk I's box at box[6 I].
+template <int kThreads>
+__device__ __forceinline__ void chunk_boxes(int n, const float* x,
+                                            const float* y, const float* z,
+                                            float* box) {
+  chunk_boxes<kThreads>(n, 0, chunk_count(n), x, y, z, box);
+}
+
+// True where no pair of two chunks with the boxes p and q can lie inside the
+// cutoff. The margin keeps the test on the safe side of float32 rounding.
+__device__ __forceinline__ bool boxes_apart(const float* p, const float* q,
                                             float cutoff2) {
-  const float* p = box + 6 * I;
-  const float* q = box + 6 * J;
   const float gx = fmaxf(0.f, fmaxf(q[0] - p[3], p[0] - q[3]));
   const float gy = fmaxf(0.f, fmaxf(q[1] - p[4], p[1] - q[4]));
   const float gz = fmaxf(0.f, fmaxf(q[2] - p[5], p[2] - q[5]));
   return gx * gx + gy * gy + gz * gz > cutoff2 * 1.0001f;
 }
 
-// One warp, one task (I, J): row sums into (rx, ry, rz) of this lane's row
-// atom; column sums added into (fx, fy, fz), or, on the diagonal, into the
-// row sums of the same atom. With kEnergy each pair's energy goes to e once.
+// The same for chunks I and J of one box array.
+__device__ __forceinline__ bool boxes_apart(const float* box, int I, int J,
+                                            float cutoff2) {
+  return boxes_apart(box + 6 * I, box + 6 * J, cutoff2);
+}
+
+// One warp, one task (I, J): xr, yr, zr hold chunk I's coordinates from its
+// first atom on, xc, yc, zc and the column sums fxc, fyc, fzc chunk J's. Row
+// sums into (rx, ry, rz) of this lane's row atom; column sums added into
+// (fxc, fyc, fzc), or, on the diagonal, into the row sums of the same atom.
+// With kEnergy each pair's energy goes to e once.
 template <bool kEnergy>
 __device__ __forceinline__ void chunk_task(
-    int I, int J, int n, const float* x, const float* y, const float* z,
-    float* fx, float* fy, float* fz, const PairLayout& L, const PairConsts& c,
+    int I, int J, int n, const float* xr, const float* yr, const float* zr,
+    const float* xc, const float* yc, const float* zc, float* fxc,
+    float* fyc, float* fzc, const PairLayout& L, const PairConsts& c,
     float& rx, float& ry, float& rz, float& e) {
   const int lane = threadIdx.x & 31;
   const int cs = chunk_size(n);
   const int a = I * cs + lane;
   const bool diag = I == J;
+  const bool row = lane < cs && a < n;
   const unsigned word =
-      lane < cs && a < n
-          ? __ldg(&L.excl[static_cast<size_t>(a) * chunk_count(n) + J])
+      row ? __ldg(&L.excl[static_cast<size_t>(a) * chunk_count(n) + J])
           : kAllLanes;
-  const int ar = min(a, n - 1);
-  const float xi = x[ar], yi = y[ar], zi = z[ar];
-  const int ti = __ldg(&L.lj_type[ar]) * L.n_types;
-  const float qi = __ldg(&L.charge[ar]);
+  // a lane without a row atom stands on the chunk's first (its word skips
+  // every pair)
+  const int l = row ? lane : 0;
+  const float xi = xr[l], yi = yr[l], zi = zr[l];
+  const int ti = __ldg(&L.lj_type[I * cs + l]) * L.n_types;
+  const float qi = __ldg(&L.charge[I * cs + l]);
   const int half = cs / 2;
   const int s_lo = diag ? 1 : 0, s_hi = diag ? half : cs - 1;
   // a lane past the chunk keeps its (empty) accumulator
@@ -165,9 +188,9 @@ __device__ __forceinline__ void chunk_task(
     // pairs twice: lanes half..C-1 hold the pairs lanes below half count
     if (!((word >> t) & 1u) && !(diag && 2 * s == cs && lane >= half)) {
       const int b = J * cs + t;
-      const float dx = xi - x[b];
-      const float dy = yi - y[b];
-      const float dz = zi - z[b];
+      const float dx = xi - xc[t];
+      const float dy = yi - yc[t];
+      const float dz = zi - zc[t];
       const float d2 = dx * dx + dy * dy + dz * dz;
       if (d2 <= c.cutoff2) {
         const float2 lj = __ldg(&L.lj_table[ti + __ldg(&L.lj_type[b])]);
@@ -201,10 +224,9 @@ __device__ __forceinline__ void chunk_task(
     ry += cy;
     rz += cz;
   } else if (lane < cs && J * cs + lane < n) {
-    const int b = J * cs + lane;
-    fx[b] += cx;
-    fy[b] += cy;
-    fz[b] += cz;
+    fxc[lane] += cx;
+    fyc[lane] += cy;
+    fzc[lane] += cz;
   }
 }
 
@@ -231,15 +253,17 @@ __device__ __forceinline__ float pair_rounds(
     float (&rz)[kMaxQ]) {
   constexpr int kWarps = kThreads / 32;
   const int w = threadIdx.x >> 5;
-  const int nc = chunk_count(n);
+  const int nc = chunk_count(n), cs = chunk_size(n);
   float e = 0.f;
 #pragma unroll
   for (int q = 0; q < kMaxQ; ++q) {
     rx[q] = ry[q] = rz[q] = 0.f;
     const int I = w + q * kWarps;
     if (I < nc)
-      chunk_task<kEnergy>(I, I, n, x, y, z, fx, fy, fz, L, c, rx[q], ry[q],
-                          rz[q], e);
+      chunk_task<kEnergy>(I, I, n, x + I * cs, y + I * cs, z + I * cs,
+                          x + I * cs, y + I * cs, z + I * cs, fx + I * cs,
+                          fy + I * cs, fz + I * cs, L, c, rx[q], ry[q], rz[q],
+                          e);
   }
   for (int k = 1; k <= nc / 2; ++k) {
 #pragma unroll
@@ -248,8 +272,10 @@ __device__ __forceinline__ float pair_rounds(
       if (I >= nc || (2 * k == nc && I >= k)) continue;
       const int J = (I + k) % nc;
       if (boxes_apart(box, I, J, c.cutoff2)) continue;
-      chunk_task<kEnergy>(I, J, n, x, y, z, fx, fy, fz, L, c, rx[q], ry[q],
-                          rz[q], e);
+      chunk_task<kEnergy>(I, J, n, x + I * cs, y + I * cs, z + I * cs,
+                          x + J * cs, y + J * cs, z + J * cs, fx + J * cs,
+                          fy + J * cs, fz + J * cs, L, c, rx[q], ry[q], rz[q],
+                          e);
     }
     __syncthreads();
   }
@@ -257,23 +283,40 @@ __device__ __forceinline__ float pair_rounds(
   return e;
 }
 
+// Coordinates of atom i: from three arrays (shared memory), or from a
+// replica's (N, 3) rows in device memory.
+struct SoaCoords {
+  const float *x, *y, *z;
+  __device__ __forceinline__ float3 operator()(int i) const {
+    return make_float3(x[i], y[i], z[i]);
+  }
+};
+struct AosCoords {
+  const float* p;
+  __device__ __forceinline__ float3 operator()(int i) const {
+    return make_float3(__ldg(&p[3 * i]), __ldg(&p[3 * i + 1]),
+                       __ldg(&p[3 * i + 2]));
+  }
+};
+
 // Force on atom a from its special pairs (F_a = -coeff (r_a - r_p), both ends
 // compute the same coeff), in list order; with kEnergy a pair's energy is
 // counted at its first atom.
-template <bool kEnergy>
-__device__ __forceinline__ void special_sum(int a, const float* x,
-                                            const float* y, const float* z,
-                                            const PairLayout& L,
-                                            const PairConsts& c, float& fx,
-                                            float& fy, float& fz, float& e) {
+template <bool kEnergy, typename Coords>
+__device__ __forceinline__ void special_pairs(int a, const Coords& r,
+                                              const PairLayout& L,
+                                              const PairConsts& c, float& fx,
+                                              float& fy, float& fz, float& e) {
+  const float3 ra = r(a);
   const int e1 = __ldg(&L.sp_start[a + 1]);
   for (int k = __ldg(&L.sp_start[a]); k < e1; ++k) {
     const int s = __ldg(&L.sp_src[k]);
     const int2 ij = __ldg(&L.sp_idx[s]);
     const int p = ij.x == a ? ij.y : ij.x;
-    const float dx = x[a] - x[p];
-    const float dy = y[a] - y[p];
-    const float dz = z[a] - z[p];
+    const float3 rp = r(p);
+    const float dx = ra.x - rp.x;
+    const float dy = ra.y - rp.y;
+    const float dz = ra.z - rp.z;
     const float d2 = dx * dx + dy * dy + dz * dz;
     const float4 pa = __ldg(&L.sp_a[s]);
     const float4 pb = __ldg(&L.sp_b[s]);
@@ -285,4 +328,30 @@ __device__ __forceinline__ void special_sum(int a, const float* x,
     fz -= coeff * dz;
     if (kEnergy && ij.x == a) e += pot;
   }
+}
+
+// The same with the coordinates in three arrays.
+template <bool kEnergy>
+__device__ __forceinline__ void special_sum(int a, const float* x,
+                                            const float* y, const float* z,
+                                            const PairLayout& L,
+                                            const PairConsts& c, float& fx,
+                                            float& fy, float& fz, float& e) {
+  special_pairs<kEnergy>(a, SoaCoords{x, y, z}, L, c, fx, fy, fz, e);
+}
+
+// The layout from the device pointers of ops/nonbonded.py PAIR_LAYOUT_SLOTS,
+// in order.
+inline PairLayout pair_layout_of(const void* const* ptrs, int n_types) {
+  return PairLayout{static_cast<const int*>(ptrs[0]),
+                    static_cast<const float2*>(ptrs[1]),
+                    static_cast<const float*>(ptrs[2]),
+                    static_cast<const unsigned*>(ptrs[3]),
+                    static_cast<const int2*>(ptrs[4]),
+                    static_cast<const float4*>(ptrs[5]),
+                    static_cast<const float4*>(ptrs[6]),
+                    static_cast<const float*>(ptrs[7]),
+                    static_cast<const int*>(ptrs[8]),
+                    static_cast<const int*>(ptrs[9]),
+                    n_types};
 }

@@ -1,20 +1,10 @@
 // Every 2-body term of the force field, for one pair: reaction-field Coulomb
 // and cubic-switched LJ 12-6 under the cutoff mask, harmonic bond /
 // Urey-Bradley springs k (d - d0)^2, and pre-scaled 1-4 LJ + plain Coulomb.
-// The physics lives here once: the campaign kernel and the standalone pair
-// kernel call pair_term() from their pair loop (pair_loop.cuh), the dense
-// kernel goes through atom_pair_sum(), the pair-tile kernel through
-// pair_at().
-//
-// Dense table layout of the last two (built by ops/nonbonded.py
-// pack_pair_tables from the nine dense symmetric (N, N) tables). Entry
-// [j * N + i] belongs to the pair (i, j):
-//   A: float4 (qq, lj_a, lj_b, w)   w = mask + 2 * special
-//   B: float4 (k_bond, d0, a14, b14)       read only where special
-//   C: float  qq14                          read only where special
-// Thread i walks j and reads entry [j * N + i], so a warp's loads are
-// contiguous. 92 % of the pairs of a peptide are plain nonbonded pairs and
-// need the 16 bytes of A alone.
+// The physics lives here once: every pair kernel (campaign, pair-forces,
+// pair-tile and dense-row) calls pair_term() from the loops of pair_loop.cuh,
+// with parameters from the per-atom layout built by ops/nonbonded.py
+// pair_layout.
 #pragma once
 
 struct PairConsts {
@@ -42,7 +32,7 @@ __device__ __forceinline__ void pair_term(
   // r^-13 turn a relative error of rinv into kcal/mol/A
   const float rinv = 1.0f / sqrtf(safe);
   const float rinv2 = rinv * rinv;
-  const float d = d2 * rinv;  // == sqrt(d2) where live
+  const float d = safe * rinv;  // == sqrt(d2) where live, 1 where masked
 
   // cutoff nonbonded: reaction-field Coulomb + switched LJ
   const float coeff_e = qq * (2.f * c.krf - rinv2 * rinv);
@@ -74,60 +64,5 @@ __device__ __forceinline__ void pair_term(
     pot = m * (pot_e + pot_l);
     if (kSpecial && mb) pot += kb * delta * delta;
     if (kSpecial) pot += a14_12 - b14_6 + qq14 * rinv;
-  }
-}
-
-// The pair whose tables sit at entry idx (j * N + i, or i * N + j: the
-// tables are symmetric), at squared distance d2. Returns false where the pair
-// carries no term (excluded, or beyond the cutoff without a bond/1-4 entry:
-// it contributes exactly zero); otherwise F_i = -coeff * (r_i - r_j) and,
-// with kEnergy, pot is the pair's full energy.
-template <bool kEnergy>
-__device__ __forceinline__ bool pair_at(
-    int idx, float d2, const float4* __restrict__ tab_a,
-    const float4* __restrict__ tab_b, const float* __restrict__ tab_c,
-    const PairConsts& c, float& coeff, float& pot) {
-  const float4 a = __ldg(&tab_a[idx]);
-  float msym = a.w, kb = 0.f, d0 = 0.f, a14 = 0.f, b14 = 0.f, qq14 = 0.f;
-  if (a.w >= 2.f) {
-    const float4 b = __ldg(&tab_b[idx]);
-    kb = b.x; d0 = b.y; a14 = b.z; b14 = b.w;
-    qq14 = __ldg(&tab_c[idx]);
-    msym = a.w - 2.f;
-  } else if (msym == 0.f || d2 > c.cutoff2) {
-    return false;
-  }
-  pot = 0.f;
-  pair_term<kEnergy>(d2, a.x, a.y, a.z, msym, kb, d0, a14, b14, qq14, c,
-                     coeff, pot);
-  return true;
-}
-
-// Force on atom i (and, with kEnergy, the sum of its pair energies, each
-// pair counted in full: the caller halves the total) from all j != i.
-// sx/sy/sz hold the replica's coordinates in shared memory. Each thread sums
-// its own atom in a fixed order: no atomics, the same bits every run.
-template <bool kEnergy>
-__device__ __forceinline__ void atom_pair_sum(
-    int i, int n, const float* sx, const float* sy, const float* sz,
-    const float4* __restrict__ tab_a, const float4* __restrict__ tab_b,
-    const float* __restrict__ tab_c, const PairConsts& c, float& fx,
-    float& fy, float& fz, float& e) {
-  const float xi = sx[i], yi = sy[i], zi = sz[i];
-  fx = fy = fz = 0.f;
-  e = 0.f;
-  for (int j = 0; j < n; ++j) {
-    if (j == i) continue;
-    const float dx = xi - sx[j];
-    const float dy = yi - sy[j];
-    const float dz = zi - sz[j];
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    float coeff, pot;
-    if (!pair_at<kEnergy>(j * n + i, d2, tab_a, tab_b, tab_c, c, coeff, pot))
-      continue;
-    fx -= coeff * dx;
-    fy -= coeff * dy;
-    fz -= coeff * dz;
-    if (kEnergy) e += pot;
   }
 }

@@ -1,184 +1,233 @@
-// Pair-tile kernel: energy and forces of every 2-body term, each unordered
-// pair evaluated once.
+// Pair-tile kernel (K6): energy and forces of every 2-body term, each
+// unordered pair evaluated once, a replica's work split over several CTAs.
 //
 // Replaces: molecular_dynamics_tpu/ops/ring.py make_pair_ring_op ->
 // _ring_kernel / _ring_chunk_kernel (the ring-shift pass over lane-padded
-// rows; its shift chunks exist to bound Mosaic's compile time and stay
-// behind).
-// Bound on an H100: float32 arithmetic at every size (N*(N-1)/2 pairs of ~60
-// flops a replica). The tables cost 16 bytes an unordered pair (20 more where
-// it carries a bond or 1-4 term): 8.6 MB at 1,040 atoms.
-// Design: the atoms are cut into tiles of 128, and a CTA takes one replica
-// and one pair of tiles I <= J (45 pairs at 1,040 atoms). Its four warps
-// each own 32 rows of tile I and meet 32-atom chunks of tile J with the ring
-// idea done in registers: at step s lane l pairs its row with column
-// (l + s) mod 32, and the columns' force accumulator moves one lane a step
-// with __shfl_sync (the rolled-accumulator identity of the TPU kernel), so
-// after 32 steps every lane holds its own column's sum. On a diagonal tile
-// (I == J) each unordered pair must be met once: a chunk against itself takes
-// the shifts 1..16, and the halfway shift 16, which meets every pair of it
-// twice, only on lanes 0..15; of the chunk pairs, (w, w+1) are met by warp w
-// and (w, w+2) by warps 0 and 1 only. The CTA writes tile I's and tile J's
-// partial forces and its partial energy to a scratch buffer; a second kernel
-// sums each atom's partials over the tile pairs in a fixed order. No atomics:
-// bit-reproducible.
+// rows and its dense tables; its shift chunks exist to bound Mosaic's compile
+// time and stay behind).
+// Bound on an H100: float32 arithmetic. A replica moves N*3*4 bytes in and
+// N*3*4+4 out and needs a test of ~9 flops for each plain pair of the chunk
+// pairs whose boxes lie within the cutoff, ~70 more for each pair inside it;
+// its parameters are the per-atom layout of pair_loop.cuh (no N x N table).
+// Design: the tasks of pair_loop.cuh (32-atom chunks met warp by warp, the
+// partner's force accumulator rotating through the lanes, the exclusion bit
+// and the cutoff tested before any parameter is read, far chunk pairs
+// skipped), split into groups: the chunks into tiles of kTileChunks, and a
+// CTA of one warp a chunk takes one replica and one pair of tiles A <= B (45
+// groups at 1,040 atoms, so that 96 replicas fill the card where the
+// pair-forces kernel runs one CTA a replica). It holds the two tiles'
+// coordinates and boxes in shared memory. Warp w keeps the rows of chunk w
+// of tile A in registers and meets every chunk of tile B (on the diagonal
+// group, the tile's own chunks as pair_rounds does: itself, then (w, w + k)
+// for k = 1..chunks/2), adding the column sums into its own shared array, so
+// that no warp waits on another until the group's end; the arrays are then
+// summed in warp order. The diagonal group also adds each of its atoms'
+// special pairs (from both ends, the energy at the first). A group whose
+// chunk pairs all lie beyond the cutoff writes only its flag; the others
+// write their atoms' partial forces and a partial energy, and a second
+// kernel sums each atom's partials over the groups in a fixed order,
+// skipping the empty ones. With one group (up to kTileChunks chunks) the CTA
+// writes the result itself and the second kernel is not launched. No
+// atomics: the same bits every run.
 #include <cuda_runtime.h>
 
-#include "pair_terms.cuh"
+#include "pair_loop.cuh"
+#include "shared_memory.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-constexpr int kWarps = kTile / 32;
-constexpr unsigned kAll = 0xffffffffu;
+// chunks a tile, and warps a CTA (chip_smoke.py's levers time other sizes)
+constexpr int kTileChunks = 4;
+constexpr int kThreads = kTileChunks * 32;
+// CTAs an SM the register cap allows: 1024 threads, 64 registers a thread
+constexpr int kCtasPerSm = 1024 / kThreads;
+// a tile's slots in the partial forces
+constexpr int kTileAtoms = kTileChunks * kChunk;
 
-// index of the tile pair (I, J), I <= J, in row-major upper-triangle order
-__device__ __forceinline__ int tile_pair_index(int I, int J, int nt) {
-  return I * nt - I * (I - 1) / 2 + (J - I);
+__host__ __device__ inline int tile_count(int n) {
+  return (chunk_count(n) + kTileChunks - 1) / kTileChunks;
 }
 
-__global__ void __launch_bounds__(kTile)
-pair_tiles_kernel(const float* __restrict__ pos, float* __restrict__ part,
-                  float* __restrict__ e_part, const float4* tab_a,
-                  const float4* tab_b, const float* tab_c, int n, int nt,
-                  PairConsts pc) {
-  __shared__ float rx[kTile], ry[kTile], rz[kTile];  // tile I
-  __shared__ float cx[kTile], cy[kTile], cz[kTile];  // tile J
-  __shared__ float col[kWarps][3][kTile];  // each warp's column sums
-  __shared__ float warp_e[kWarps];
+__host__ __device__ inline int group_count(int n) {
+  const int nt = tile_count(n);
+  return nt * (nt + 1) / 2;
+}
 
-  const int rep = blockIdx.x;
-  const int p = blockIdx.y;
-  const int n_pairs = gridDim.y;
-  int I = 0, rem = p;
-  while (rem >= nt - I) {
-    rem -= nt - I;
-    ++I;
-  }
-  const int J = I + rem;
+// index of the group (A, B), A <= B, in row-major upper-triangle order
+__device__ __forceinline__ int group_index(int A, int B, int nt) {
+  return A * nt - A * (A - 1) / 2 + (B - A);
+}
+
+// whether two chunks with the boxes p and q may hold a pair within the cutoff
+__device__ __forceinline__ bool near_chunks(const float* p, const float* q,
+                                            float cutoff2) {
+  return !boxes_apart(p, q, cutoff2);
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+pair_tiles_kernel(const float* __restrict__ pos, float* __restrict__ frc,
+                  float* __restrict__ energy, float* __restrict__ part,
+                  float* __restrict__ e_part, int* __restrict__ live,
+                  PairLayout L, int n, PairConsts pc) {
+  __shared__ float ax[kTileAtoms], ay[kTileAtoms], az[kTileAtoms];  // tile A
+  __shared__ float bx[kTileAtoms], by[kTileAtoms], bz[kTileAtoms];  // tile B
+  // each warp's column sums of tile B (of tile A on the diagonal)
+  __shared__ float cx[kTileChunks][kTileAtoms], cy[kTileChunks][kTileAtoms],
+      cz[kTileChunks][kTileAtoms];
+  __shared__ float box[2 * kTileChunks * 6];  // tile A's chunks, then B's
+  __shared__ float warp_e[kTileChunks];
+
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int i0 = I * kTile, j0 = J * kTile;
+  const int rep = blockIdx.x;
+  const int cs = chunk_size(n), nc = chunk_count(n), nt = tile_count(n);
+  const int n_groups = group_count(n);
   const float* P = pos + static_cast<size_t>(rep) * n * 3;
-  {
-    const int a = i0 + tid, b = j0 + tid;
-    rx[tid] = a < n ? P[3 * a + 0] : 0.f;
-    ry[tid] = a < n ? P[3 * a + 1] : 0.f;
-    rz[tid] = a < n ? P[3 * a + 2] : 0.f;
-    cx[tid] = b < n ? P[3 * b + 0] : 0.f;
-    cy[tid] = b < n ? P[3 * b + 1] : 0.f;
-    cz[tid] = b < n ? P[3 * b + 2] : 0.f;
-    for (int q = 0; q < kWarps; ++q)
-      col[q][0][tid] = col[q][1][tid] = col[q][2][tid] = 0.f;
-  }
-  __syncthreads();
+  float* const box_b = box + 6 * kTileChunks;
 
-  const bool diag = I == J;
-  const int i = i0 + tid;  // this lane's row atom
-  const bool row_ok = i < n;
-  const float xi = rx[tid], yi = ry[tid], zi = rz[tid];
-  float fx = 0.f, fy = 0.f, fz = 0.f, e = 0.f;
-  for (int k = 0; k < kWarps; ++k) {
-    // chunk pair (w, c = w + k mod 4); on a diagonal tile k = 3 is the pair
-    // (w - 1, w), met by warp w - 1, and k = 2 is met by warps 0 and 1 only
-    // (the pairs (0, 2) and (1, 3)). The branch is uniform in the warp.
-    if (diag && (k == 3 || (k == 2 && w >= 2))) continue;
-    const int c = (w + k) & (kWarps - 1);
-    const bool self = diag && k == 0;
-    const int s_lo = self ? 1 : 0;
-    const int s_hi = self ? 16 : 31;
-    float ax = 0.f, ay = 0.f, az = 0.f;  // at step s: column (lane + s) & 31
-    for (int s = s_lo; s <= s_hi; ++s) {
-      const int jc = c * 32 + ((lane + s) & 31);
-      const int j = j0 + jc;
-      // the halfway shift of a chunk against itself meets each of its pairs
-      // twice: lanes 16..31 hold the pairs lanes 0..15 already count
-      const bool live = row_ok && j < n && !(self && s == 16 && lane >= 16);
-      if (live) {
-        const float dx = xi - cx[jc];
-        const float dy = yi - cy[jc];
-        const float dz = zi - cz[jc];
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        float coeff, pot;
-        if (pair_at<true>(j * n + i, d2, tab_a, tab_b, tab_c, pc, coeff,
-                          pot)) {
-          const float gx = coeff * dx, gy = coeff * dy, gz = coeff * dz;
-          fx -= gx;
-          fy -= gy;
-          fz -= gz;
-          ax += gx;
-          ay += gy;
-          az += gz;
-          e += pot;
-        }
-      }
-      const int next = (lane + 1) & 31;
-      ax = __shfl_sync(kAll, ax, next);
-      ay = __shfl_sync(kAll, ay, next);
-      az = __shfl_sync(kAll, az, next);
+  for (int g = blockIdx.y; g < n_groups; g += gridDim.y) {
+    int A = 0, rem = g;
+    while (rem >= nt - A) {
+      rem -= nt - A;
+      ++A;
     }
-    // the lane now holds column (lane + s_hi + 1) & 31: bring its own home
-    const int home = (lane - s_hi - 1) & 31;
-    ax = __shfl_sync(kAll, ax, home);
-    ay = __shfl_sync(kAll, ay, home);
-    az = __shfl_sync(kAll, az, home);
-    col[w][0][c * 32 + lane] = ax;
-    col[w][1][c * 32 + lane] = ay;
-    col[w][2][c * 32 + lane] = az;
-  }
+    const int B = A + rem;
+    const bool diag = A == B;
+    const int ca = A * kTileChunks, cb = B * kTileChunks;  // first chunks
+    const int na = min(kTileChunks, nc - ca), nb = min(kTileChunks, nc - cb);
+    const int a0 = ca * cs, b0 = cb * cs;  // first atoms
+    {
+      const int a = a0 + tid, b = b0 + tid;
+      const bool in_a = tid < na * cs && a < n, in_b = tid < nb * cs && b < n;
+      ax[tid] = in_a ? P[3 * a + 0] : 0.f;
+      ay[tid] = in_a ? P[3 * a + 1] : 0.f;
+      az[tid] = in_a ? P[3 * a + 2] : 0.f;
+      if (!diag) {  // the diagonal group reads tile A twice
+        bx[tid] = in_b ? P[3 * b + 0] : 0.f;
+        by[tid] = in_b ? P[3 * b + 1] : 0.f;
+        bz[tid] = in_b ? P[3 * b + 2] : 0.f;
+      }
+    }
+    __syncthreads();
+    chunk_boxes<kThreads>(n, ca, na, ax, ay, az, box);
+    if (!diag) chunk_boxes<kThreads>(n, cb, nb, bx, by, bz, box_b);
+    __syncthreads();
+    // a chunk always meets itself; an off-diagonal group may meet nothing
+    bool any = diag;
+    if (!diag && tid < na * nb)
+      any = near_chunks(box + 6 * (tid / nb), box_b + 6 * (tid % nb),
+                        pc.cutoff2);
+    if (!__syncthreads_or(any)) {
+      if (tid == 0) live[static_cast<size_t>(rep) * n_groups + g] = 0;
+      continue;
+    }
 
-  for (int off = 16; off > 0; off >>= 1) e += __shfl_down_sync(kAll, e, off);
-  if (lane == 0) warp_e[w] = e;
-  __syncthreads();
+    float rx = 0.f, ry = 0.f, rz = 0.f, e = 0.f;
+    const int r0 = w * cs;  // this warp's row chunk in tile A
+    float *const sx = cx[w], *const sy = cy[w], *const sz = cz[w];
+    for (int l = lane; l < kTileAtoms; l += 32) sx[l] = sy[l] = sz[l] = 0.f;
+    __syncwarp();
+    if (w < na && diag) {
+      chunk_task<true>(ca + w, ca + w, n, ax + r0, ay + r0, az + r0, ax + r0,
+                       ay + r0, az + r0, sx + r0, sy + r0, sz + r0, L, pc, rx,
+                       ry, rz, e);
+      for (int k = 1; k <= na / 2; ++k) {
+        const int j = (w + k) % na, c0 = j * cs;
+        if (!(2 * k == na && w >= k) &&
+            near_chunks(box + 6 * w, box + 6 * j, pc.cutoff2))
+          chunk_task<true>(ca + w, ca + j, n, ax + r0, ay + r0, az + r0,
+                           ax + c0, ay + c0, az + c0, sx + c0, sy + c0,
+                           sz + c0, L, pc, rx, ry, rz, e);
+      }
+    } else if (w < na) {
+      for (int j = 0; j < nb; ++j) {
+        const int c0 = j * cs;
+        if (near_chunks(box + 6 * w, box_b + 6 * j, pc.cutoff2))
+          chunk_task<true>(ca + w, cb + j, n, ax + r0, ay + r0, az + r0,
+                           bx + c0, by + c0, bz + c0, sx + c0, sy + c0,
+                           sz + c0, L, pc, rx, ry, rz, e);
+      }
+    }
+    __syncthreads();
 
-  float* out = part + (static_cast<size_t>(rep) * n_pairs + p) * 2 * kTile * 3;
-  out[3 * tid + 0] = fx;  // tile I, row sums
-  out[3 * tid + 1] = fy;
-  out[3 * tid + 2] = fz;
-  float sx = 0.f, sy = 0.f, sz = 0.f;  // tile J, column sums in warp order
-  for (int q = 0; q < kWarps; ++q) {
-    sx += col[q][0][tid];
-    sy += col[q][1][tid];
-    sz += col[q][2][tid];
-  }
-  out[3 * kTile + 3 * tid + 0] = sx;
-  out[3 * kTile + 3 * tid + 1] = sy;
-  out[3 * kTile + 3 * tid + 2] = sz;
-  if (tid == 0) {
-    float total = 0.f;
-    for (int q = 0; q < kWarps; ++q) total += warp_e[q];
-    e_part[static_cast<size_t>(rep) * n_pairs + p] = total;
+    // this group's part: the row sums of tile A (on the diagonal with the
+    // column sums of the same tile and the special pairs), then the column
+    // sums of tile B
+    const size_t slot =
+        (static_cast<size_t>(rep) * n_groups + g) * 2 * kTileAtoms * 3;
+    const int l = r0 + lane, a = a0 + l;
+    if (w < na && lane < cs && a < n) {
+      float fx = rx, fy = ry, fz = rz;
+      if (diag) {
+        for (int q = 0; q < kTileChunks; ++q) {
+          fx += cx[q][l];
+          fy += cy[q][l];
+          fz += cz[q][l];
+        }
+        special_pairs<true>(a, AosCoords{P}, L, pc, fx, fy, fz, e);
+      }
+      float* out = n_groups == 1
+                       ? frc + (static_cast<size_t>(rep) * n + a) * 3
+                       : part + slot + 3 * l;
+      out[0] = fx;
+      out[1] = fy;
+      out[2] = fz;
+    }
+    if (!diag && tid < nb * cs && b0 + tid < n) {
+      float fx = 0.f, fy = 0.f, fz = 0.f;
+      for (int q = 0; q < kTileChunks; ++q) {
+        fx += cx[q][tid];
+        fy += cy[q][tid];
+        fz += cz[q][tid];
+      }
+      float* out = part + slot + 3 * kTileAtoms + 3 * tid;
+      out[0] = fx;
+      out[1] = fy;
+      out[2] = fz;
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      e += __shfl_down_sync(kAllLanes, e, off);
+    if (lane == 0) warp_e[w] = e;
+    __syncthreads();
+    if (tid == 0) {
+      float total = 0.f;
+      for (int q = 0; q < kTileChunks; ++q) total += warp_e[q];
+      if (n_groups == 1) {
+        energy[rep] = total;
+      } else {
+        e_part[static_cast<size_t>(rep) * n_groups + g] = total;
+        live[static_cast<size_t>(rep) * n_groups + g] = 1;
+      }
+    }
+    __syncthreads();  // the next group reuses the shared arrays
   }
 }
 
-// Each atom's force: its tile's partials over every tile pair it is part
-// of, in the order of the partner tile; each replica's energy: its partial
-// energies in tile-pair order.
-__global__ void __launch_bounds__(kTile)
+// Each atom's force: its tile's parts over every group it belongs to, in the
+// order of the partner tile, skipping the groups that met nothing; each
+// replica's energy: its partial energies in group order.
+__global__ void __launch_bounds__(kThreads)
 pair_tiles_sum(const float* __restrict__ part, const float* __restrict__ e_part,
-               float* __restrict__ frc, float* __restrict__ energy, int n,
-               int nt) {
+               const int* __restrict__ live, float* __restrict__ frc,
+               float* __restrict__ energy, int n) {
   const int rep = blockIdx.x;
   const int T = blockIdx.y;
   const int tid = threadIdx.x;
-  const int n_pairs = nt * (nt + 1) / 2;
-  const int a = T * kTile + tid;
-  if (a < n) {
+  const int cs = chunk_size(n), nt = tile_count(n);
+  const int n_groups = group_count(n);
+  const size_t first = static_cast<size_t>(rep) * n_groups;
+  const int nat = min(kTileChunks, chunk_count(n) - T * kTileChunks) * cs;
+  const int a = T * kTileChunks * cs + tid;
+  if (tid < nat && a < n) {
     float fx = 0.f, fy = 0.f, fz = 0.f;
     for (int u = 0; u < nt; ++u) {
-      const int I = min(T, u), J = max(T, u);
-      const float* q = part + (static_cast<size_t>(rep) * n_pairs +
-                               tile_pair_index(I, J, nt)) *
-                                  2 * kTile * 3;
-      if (T == I) {
-        fx += q[3 * tid + 0];
-        fy += q[3 * tid + 1];
-        fz += q[3 * tid + 2];
-      }
-      if (T == J) {
-        fx += q[3 * kTile + 3 * tid + 0];
-        fy += q[3 * kTile + 3 * tid + 1];
-        fz += q[3 * kTile + 3 * tid + 2];
-      }
+      const int A = min(T, u), B = max(T, u);
+      const size_t g = first + group_index(A, B, nt);
+      if (!live[g]) continue;
+      const float* q =
+          part + g * 2 * kTileAtoms * 3 + (T == A ? 0 : 3 * kTileAtoms);
+      fx += q[3 * tid + 0];
+      fy += q[3 * tid + 1];
+      fz += q[3 * tid + 2];
     }
     const size_t o = (static_cast<size_t>(rep) * n + a) * 3;
     frc[o + 0] = fx;
@@ -187,35 +236,54 @@ pair_tiles_sum(const float* __restrict__ part, const float* __restrict__ e_part,
   }
   if (T == 0 && tid == 0) {
     float total = 0.f;
-    for (int q = 0; q < n_pairs; ++q)
-      total += e_part[static_cast<size_t>(rep) * n_pairs + q];
+    for (int g = 0; g < n_groups; ++g)
+      if (live[first + g]) total += e_part[first + g];
     energy[rep] = total;
   }
 }
 
 }  // namespace
 
-// pos (R, N, 3) -> frc (R, N, 3), energy (R,); part (R, P, 2, 128, 3) and
-// e_part (R, P) are scratch, P = nt (nt + 1) / 2 tile pairs of nt = ceil(N /
-// 128) tiles. Returns cudaGetLastError() after each of the two launches.
+// The scratch a launch for n_atoms needs a replica, into out[0..1]: groups,
+// and floats of partial forces a group (e_part and live take one entry a
+// group). With one group the launch uses no scratch.
+extern "C" int mdx_pair_tiles_scratch(int n_atoms, int* out) {
+  out[0] = group_count(n_atoms);
+  out[1] = 2 * kTileAtoms * 3;
+  return 0;
+}
+
+// pos (R, N, 3) -> frc (R, N, 3), energy (R,); part (R, G, 2, kTileAtoms, 3),
+// e_part (R, G) and live (R, G) int are scratch (mdx_pair_tiles_scratch),
+// unread with one group. `layout` holds the device pointers of
+// ops/nonbonded.py PAIR_LAYOUT_SLOTS in order. Returns cudaGetLastError()
+// after each launch.
 extern "C" int mdx_pair_tiles(const void* pos, void* frc, void* energy,
-                              void* part, void* e_part, const void* tab_a,
-                              const void* tab_b, const void* tab_c,
+                              void* part, void* e_part, void* live,
+                              const void* const* layout, int n_types,
                               int n_replicas, int n_atoms, float cutoff2,
                               float krf, float crf, float switch_dist,
                               float inv_switch_span, void* stream) {
   PairConsts pc{cutoff2, krf, crf, switch_dist, inv_switch_span};
-  const int nt = (n_atoms + kTile - 1) / kTile;
+  const int n_groups = group_count(n_atoms);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pair_tiles_kernel<<<dim3(n_replicas, nt * (nt + 1) / 2), kTile, 0, s>>>(
-      static_cast<const float*>(pos), static_cast<float*>(part),
-      static_cast<float*>(e_part), static_cast<const float4*>(tab_a),
-      static_cast<const float4*>(tab_b), static_cast<const float*>(tab_c),
-      n_atoms, nt, pc);
+  pair_tiles_kernel<<<dim3(n_replicas, n_groups), kThreads, 0, s>>>(
+      static_cast<const float*>(pos), static_cast<float*>(frc),
+      static_cast<float*>(energy), static_cast<float*>(part),
+      static_cast<float*>(e_part), static_cast<int*>(live),
+      pair_layout_of(layout, n_types), n_atoms, pc);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pair_tiles_sum<<<dim3(n_replicas, nt), kTile, 0, s>>>(
+  if (err != cudaSuccess || n_groups == 1) return static_cast<int>(err);
+  pair_tiles_sum<<<dim3(n_replicas, tile_count(n_atoms)), kThreads, 0, s>>>(
       static_cast<const float*>(part), static_cast<const float*>(e_part),
-      static_cast<float*>(frc), static_cast<float*>(energy), n_atoms, nt);
+      static_cast<const int*>(live), static_cast<float*>(frc),
+      static_cast<float*>(energy), n_atoms);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Build facts of the group kernel into out[0..4] (kernel_occupancy in
+// shared_memory.cuh); it takes no dynamic shared memory at any size.
+extern "C" int mdx_pair_tiles_info(int n_atoms, int* out) {
+  (void)n_atoms;
+  return kernel_occupancy(pair_tiles_kernel, kThreads, 0, out);
 }

@@ -33,7 +33,7 @@ it measured the same. No atomics: bit-reproducible.
 ones: far pairs cancel to a small remainder in the HCT integral, and a 2-ulp
 ``rsqrtf`` shows there; the HCT integral's two other reciprocals are the
 SFU's (``__fdividef``, within 2e-5 kcal/mol/A of the plain float32 forces).
-The cache bounds the kernel to 236 atoms (``gb_shared_bytes``); above, the
+The cache bounds the kernel to 236 atoms (``gb_forces_holds``); above, the
 wrapper raises.
 
 ``gb_forces_reference`` is the plain PyTorch version (any device, any float
@@ -67,6 +67,20 @@ def gb_shared_bytes(n_atoms: int) -> int:
     vectors (Born radius, its reciprocal, dR/dpsi then the chain cotangent)
     and the dI cache, N rows of an odd stride >= N - 1."""
     return 4 * (3 * n_atoms + n_atoms * ((n_atoms - 1) | 1))
+
+
+def gb_forces_holds(device_type: str, dtype: torch.dtype, n_atoms: int) -> bool:
+    """Whether :func:`gb_forces` answers an input of this device type, dtype
+    and size: off CUDA its plain version answers any; on CUDA the kernel
+    takes float32 only, and a replica's dI cache, coordinates and forces
+    (``gb_shared_bytes(n) + 24 n``) must fit the shared memory a CTA may opt
+    in to (236 atoms). The wrapper raises where this is false."""
+    if device_type != "cuda":
+        return True
+    return (
+        dtype == torch.float32
+        and gb_shared_bytes(n_atoms) + 4 * 6 * n_atoms <= SHARED_OPT_IN_BYTES
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,12 +261,11 @@ def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Te
     check_kernel_input("tables.atom", tables.atom, (n, len(GB_ATOM_COLUMNS)))
     if tables.atom.device != pos.device:
         raise ValueError("tables and pos live on different devices")
-    need = gb_shared_bytes(n) + 4 * 6 * n  # + coordinates and forces
-    if need > SHARED_OPT_IN_BYTES:
+    if not gb_forces_holds(pos.device.type, pos.dtype, n):
         raise ValueError(
-            f"gb_forces: {n} atoms need {need} bytes of shared memory a "
-            f"replica (the dI cache is N(N-1) floats); the kernel holds "
-            f"{SHARED_OPT_IN_BYTES}"
+            f"gb_forces: {n} atoms need {gb_shared_bytes(n) + 4 * 6 * n} bytes of "
+            f"shared memory a replica (the dI cache is N(N-1) floats); the kernel "
+            f"holds {SHARED_OPT_IN_BYTES}"
         )
     fn = kernel_function(
         "gb_forces", "mdx_gb_forces",

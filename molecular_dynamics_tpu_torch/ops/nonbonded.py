@@ -1,9 +1,10 @@
 """Dense pair tables, the dense pair math, and the dense pair-terms op (B5).
 
 One ``(N, N)`` float32 table per parameter, symmetric, unpadded:
-``qq, lj_a, lj_b, mask, k_bond, d0_bond, a14, b14, qq14``. The pair kernels
-(``ops.nonbonded``, ``ops.ring``, ``ops.fused_step``) and their plain
-versions read these.
+``qq, lj_a, lj_b, mask, k_bond, d0_bond, a14, b14, qq14``. The plain
+versions of the pair kernels (``ops.nonbonded``, ``ops.ring``,
+``ops.fused_step``) read these; the kernels read the per-atom layout built
+from them (:func:`pair_layout`).
 
 - ``mask`` is the symmetrised ``nb_mask`` (``FFParams`` stores i<j only).
 - Harmonic bonds and Urey-Bradley 1-3 springs share the ``k``/``d0`` tables;
@@ -23,14 +24,19 @@ Kernel note. On a CUDA tensor the op's forward is ``nonbonded_rows``, which
 launches ``csrc/nonbonded_rows.cu`` (CUDA C++, sm_90a). It replaces the JAX
 package's ``molecular_dynamics_tpu/ops/nonbonded.py`` ``make_nonbonded_op``
 -> ``_kernel`` -> ``dense_pair_forces``: the dense pass, every pair
-evaluated from both ends. Its lane padding, the ``block_r`` replica blocks
-and the ``interpret`` switch stay behind. On an H100 the pair arithmetic
-bounds it at every size: it reads 16 bytes of table an ordered pair (20 more
-where the pair carries a bond or 1-4 term), 17.3 MB at 1,040 atoms, against
-0.75 GFLOP at 96 replicas. The design: a CTA per (replica, tile
-of 128 rows), the replica's coordinates in shared memory, one thread per
-row summing over every j in a fixed order (no atomics, bit-reproducible),
-per-row half energies summed outside the kernel as the JAX op does.
+evaluated from both ends. Its lane padding, the ``block_r`` replica blocks,
+the ``interpret`` switch and the dense (N, N) tables stay behind: the kernel
+reads the per-atom layout of :func:`pair_layout`, as the campaign and
+pair-forces kernels do. On an H100 the pair arithmetic bounds it. The
+design: one launch, a CTA per (replica, four 32-atom row chunks), the
+replica's coordinates and every chunk's bounding box in shared memory, a
+lane per row atom walking the column chunks in order, skipping those whose
+box lies beyond the cutoff from its chunk's, its exclusion bit and the
+cutoff tested before a parameter is read, then its special pairs; each atom
+summed from its own end in a fixed order (no partial buffer, no atomics,
+bit-reproducible), per-row half energies summed outside the kernel as the
+JAX op does. It holds up to 18,230 atoms (coordinates and boxes in the
+shared memory a CTA may opt in to, ``nonbonded_rows_shared_bytes``).
 
 ``dense_pair_math`` is the plain PyTorch version of that function (and of
 ``ops.ring``'s kernels): it runs for CPU tensors and is what the kernels are
@@ -51,15 +57,12 @@ from torch.autograd.function import once_differentiable
 from molecular_dynamics_tpu_torch import units
 from molecular_dynamics_tpu_torch.energy import EnergyConfig, _neg_grad, energy_terms
 from molecular_dynamics_tpu_torch.ff.params import FFParams
-from molecular_dynamics_tpu_torch.ops._build import kernel_function
+from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES, kernel_function
 
 Tensor = torch.Tensor
 
 #: order of the tables in the tuple ``_build_pair_tables`` returns
 PAIR_TABLE_NAMES = ("qq", "lj_a", "lj_b", "mask", "kb", "d0", "a14", "b14", "qq14")
-
-#: shared memory a CTA may use without opting in to more
-_STATIC_SHARED_BYTES = 48 * 1024
 
 
 def _resolve_ub(ff: FFParams, include_ub) -> bool:
@@ -122,8 +125,8 @@ def _build_pair_tables(ff: FFParams, include_ub=None):
     return (qq, aa, bb, msym, kb, d0, a14, b14, qq14)
 
 
-#: atoms a chunk of the pair loop of the campaign and pair-forces kernels
-#: holds: a warp's lanes (csrc/pair_loop.cuh)
+#: atoms a chunk of the pair kernels' loop holds: a warp's lanes
+#: (csrc/pair_loop.cuh)
 CHUNK = 32
 
 #: order of the per-atom pair layout's arrays (struct PairLayout in
@@ -141,18 +144,13 @@ class PairTables:
     """The 2-body tables of one system on one device.
 
     ``dense`` (9, N, N) float32 in ``PAIR_TABLE_NAMES`` order is what the
-    plain version reads; ``pack_a`` (N, N, 4), ``pack_b`` (N, N, 4) and
-    ``pack_c`` (N, N) are the same numbers in the dense kernels' layout (K5,
-    K6); ``charges`` (N,) the system's partial charges. ``layout`` (name ->
-    tensor, ``PAIR_LAYOUT_SLOTS``) is the per-atom layout of the campaign and
-    pair-forces kernels (:func:`pair_layout`), built on first use: only
+    plain version reads; ``charges`` (N,) the system's partial charges.
+    ``layout`` (name -> tensor, ``PAIR_LAYOUT_SLOTS``) is the per-atom layout
+    every pair kernel reads (:func:`pair_layout`), built on first use: only
     their launches read it.
     """
 
     dense: Tensor
-    pack_a: Tensor
-    pack_b: Tensor
-    pack_c: Tensor
     charges: Tensor
 
     @functools.cached_property
@@ -162,6 +160,13 @@ class PairTables:
             for k, v in pair_layout(self.charges, self.dense.cpu().numpy()).items()
         }
 
+    @functools.cached_property
+    def layout_pointers(self):
+        """The device pointers of ``layout`` in ``PAIR_LAYOUT_SLOTS`` order,
+        as the C array the pair kernels take."""
+        return (ctypes.c_void_p * len(PAIR_LAYOUT_SLOTS))(
+            *[self.layout[k].data_ptr() for k in PAIR_LAYOUT_SLOTS])
+
     @property
     def n_lj_types(self) -> int:
         return int(self.layout["lj_table"].shape[0])
@@ -169,22 +174,6 @@ class PairTables:
     @property
     def n_special(self) -> int:
         return int(self.layout["sp_idx"].shape[0])
-
-
-def pack_pair_tables(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Kernel layout of the nine dense tables (see ``csrc/pair_terms.cuh``):
-    A = (qq, lj_a, lj_b, mask + 2*special), B = (kb, d0, a14, b14), C = qq14,
-    where ``special`` marks the pairs that carry a bond/UB spring or a 1-4
-    term. Entry [j, i] belongs to the pair (i, j); the tables are symmetric."""
-    qq, aa, bb, msym, kb, d0, a14, b14, qq14 = dense
-    special = (kb > 0) | (a14 != 0) | (b14 != 0) | (qq14 != 0)
-    pack_a = np.stack([qq, aa, bb, msym + 2.0 * special], axis=-1)
-    pack_b = np.stack([kb, d0, a14, b14], axis=-1)
-    return (
-        np.ascontiguousarray(pack_a, np.float32),
-        np.ascontiguousarray(pack_b, np.float32),
-        np.ascontiguousarray(qq14, np.float32),
-    )
 
 
 def chunk_count(n_atoms: int) -> int:
@@ -239,10 +228,9 @@ def lj_types(aa: np.ndarray, bb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def pair_layout(charges, dense: np.ndarray) -> dict:
-    """The per-atom layout of the campaign and pair-forces kernels' pair
-    loop (``csrc/pair_loop.cuh``), as numpy arrays in ``PAIR_LAYOUT_SLOTS``
-    order, from a system's partial charges and its nine dense tables
-    ``dense``:
+    """The per-atom layout every pair kernel reads (``csrc/pair_loop.cuh``),
+    as numpy arrays in ``PAIR_LAYOUT_SLOTS`` order, from a system's partial
+    charges and its nine dense tables ``dense``:
 
     - ``lj_type`` (N,) int32 and ``lj_table`` (T, T, 2): :func:`lj_types`;
     - ``charge`` (N,): q sqrt(ELEC_FACTOR) in float32, so that the product of
@@ -302,14 +290,7 @@ def build_pair_tables(
         dense[[4, 5]] = 0.0
     if not include_14:
         dense[[6, 7, 8]] = 0.0
-    pa, pb, pc = pack_pair_tables(dense)
-    return PairTables(
-        dense=torch.as_tensor(dense, device=ff.device),
-        pack_a=torch.as_tensor(pa, device=ff.device),
-        pack_b=torch.as_tensor(pb, device=ff.device),
-        pack_c=torch.as_tensor(pc, device=ff.device),
-        charges=ff.charges,
-    )
+    return PairTables(dense=torch.as_tensor(dense, device=ff.device), charges=ff.charges)
 
 
 def pair_constants(
@@ -353,7 +334,9 @@ def dense_pair_math(pos: Tensor, dense: Tensor, consts) -> Tuple[Tensor, Tensor]
     safe = torch.where(live, d2, torch.ones_like(d2))
     rinv = 1.0 / torch.sqrt(safe)  # not rsqrt: 2 ulp on a GPU, see pair_terms.cuh
     rinv2 = rinv * rinv
-    d = d2 * rinv  # == sqrt(d2) where live
+    # == sqrt(d2) where live, 1 where masked: far beyond the cutoff (1,000 A)
+    # the switch polynomial of a masked lane would leave float32's range
+    d = safe * rinv
 
     # cutoff nonbonded: reaction-field Coulomb + switched LJ
     pot_e = qq * (rinv + krf * d2 - crf)
@@ -404,25 +387,17 @@ def check_kernel_input(name: str, t: Tensor, shape) -> None:
 
 
 def check_pair_kernel_inputs(pos: Tensor, tables: PairTables) -> Tuple[int, int]:
-    """Raise unless a pair kernel takes ``pos`` with ``tables``; returns
-    ``(replicas, atoms)``."""
+    """Raise unless a pair kernel takes ``pos`` with ``tables`` (whose
+    per-atom layout it reads); returns ``(replicas, atoms)``."""
     if pos.ndim != 3 or pos.shape[-1] != 3:
         raise ValueError(f"pos must be (R, N, 3), got {tuple(pos.shape)}")
     n_rep, n = pos.shape[0], pos.shape[1]
     check_kernel_input("pos", pos, (n_rep, n, 3))
-    check_kernel_input("tables.pack_a", tables.pack_a, (n, n, 4))
-    check_kernel_input("tables.pack_b", tables.pack_b, (n, n, 4))
-    check_kernel_input("tables.pack_c", tables.pack_c, (n, n))
-    if tables.pack_a.device != pos.device:
+    if tables.dense.shape[-1] != n:
+        raise ValueError(f"tables hold {tables.dense.shape[-1]} atoms, pos {n}")
+    if tables.dense.device != pos.device:
         raise ValueError("tables and pos live on different devices")
     return n_rep, n
-
-
-def pair_layout_pointers(tables: PairTables):
-    """The device pointers of ``tables.layout`` in ``PAIR_LAYOUT_SLOTS``
-    order, as the C array the campaign and pair-forces kernels take."""
-    return (ctypes.c_void_p * len(PAIR_LAYOUT_SLOTS))(
-        *[tables.layout[k].data_ptr() for k in PAIR_LAYOUT_SLOTS])
 
 
 #: atoms the pair loop's widest instantiation holds (csrc/pair_loop.cuh:
@@ -430,39 +405,42 @@ def pair_layout_pointers(tables: PairTables):
 PAIR_LOOP_MAX_ATOMS = 2048
 
 
-def pair_kernel_pointers(tables: PairTables):
-    return tables.pack_a.data_ptr(), tables.pack_b.data_ptr(), tables.pack_c.data_ptr()
-
-
-_PAIR_KERNEL_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
-)
+def nonbonded_rows_shared_bytes(n_atoms: int) -> int:
+    """Shared memory a CTA of the dense-row kernel takes
+    (``csrc/nonbonded_rows.cu``): the replica's coordinates and every
+    chunk's bounding box. It must fit what a CTA may opt in to: 4,096 atoms
+    take 52 KB, 18,230 the most."""
+    return 4 * (3 * n_atoms + 6 * chunk_count(n_atoms))
 
 
 def nonbonded_rows(pos: Tensor, tables: PairTables, consts) -> Tuple[Tensor, Tensor]:
     """``pos (R, N, 3) -> (energy (R,), forces (R, N, 3))`` over every 2-body
     term in ``tables``, ``consts`` from :func:`pair_constants`.
 
-    A CUDA tensor goes through the dense kernel (float32, contiguous, or it
-    raises; the launch is counted in ``nonbonded_rows.launches``); a CPU
-    tensor takes :func:`dense_pair_math`. Not differentiable: the op of
+    A CUDA tensor goes through the dense-row kernel (float32, contiguous,
+    within :func:`nonbonded_rows_shared_bytes`, or it raises; the launch is
+    counted in ``nonbonded_rows.launches``); a CPU tensor takes
+    :func:`dense_pair_math`. Not differentiable: the op of
     :func:`make_nonbonded_op` is.
     """
     if not pos.is_cuda:
         return dense_pair_math(pos, tables.dense, consts)
     n_rep, n = check_pair_kernel_inputs(pos, tables)
-    if 12 * n > _STATIC_SHARED_BYTES:
+    if nonbonded_rows_shared_bytes(n) > SHARED_OPT_IN_BYTES:
         raise ValueError(
-            f"nonbonded_rows: {n} atoms need {12 * n} bytes of shared memory "
-            f"a CTA; the kernel holds {_STATIC_SHARED_BYTES}"
+            f"nonbonded_rows: {n} atoms need {nonbonded_rows_shared_bytes(n)} bytes of "
+            f"shared memory a CTA; the kernel holds {SHARED_OPT_IN_BYTES}"
         )
-    fn = kernel_function("nonbonded_rows", "mdx_nonbonded_rows", _PAIR_KERNEL_ARGTYPES)
+    fn = kernel_function(
+        "nonbonded_rows", "mdx_nonbonded_rows",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
+    )
     forces = torch.empty_like(pos)
     e_rows = torch.empty((n_rep, n), dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
         err = fn(
             pos.data_ptr(), forces.data_ptr(), e_rows.data_ptr(),
-            *pair_kernel_pointers(tables), n_rep, n, *consts,
+            tables.layout_pointers, tables.n_lj_types, n_rep, n, *consts,
             torch.cuda.current_stream().cuda_stream,
         )
     nonbonded_rows.launches += 1

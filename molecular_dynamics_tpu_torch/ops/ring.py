@@ -33,14 +33,15 @@ Kernel notes.
 - ``pair_tiles`` launches ``csrc/pair_tiles.cu``. It replaces the JAX
   package's ``make_pair_ring_op`` -> ``_ring_kernel`` / ``_ring_chunk_kernel``:
   every unordered pair evaluated once. On an H100 the pair arithmetic
-  bounds it at every size (it reads each unordered pair's table entry once:
-  8.6 MB at 1,040 atoms). The design: a CTA per
-  (replica, pair of 128-atom tiles I <= J); inside it the ring idea in
-  registers (lane l meets partner (l + s) mod 32 at step s, the partner's
-  force accumulator rotating one lane a step with ``__shfl_sync``); partial
-  forces of both tiles and a partial energy go to a scratch buffer, and a
-  second pass sums each atom's partials in a fixed order: no atomics,
-  bit-reproducible.
+  bounds it. The design: the pair loop's tasks (``csrc/pair_loop.cuh``, on
+  the same per-atom layout, with the same box test) split into groups, the
+  chunks into tiles of ``TILE_CHUNKS`` and a CTA per (replica, pair of tiles
+  A <= B), so that a replica's work spreads over several CTAs and any N fits;
+  a group whose chunk pairs all lie beyond the cutoff writes only its flag,
+  the others their atoms' partial forces and a partial energy, and a second
+  pass sums each atom's partials in a fixed order: no atomics,
+  bit-reproducible. With one group (up to four chunks, 128 atoms) the CTA
+  writes the result itself.
 
 The plain PyTorch version of both is ``ops.nonbonded.dense_pair_math``: it
 runs for a CPU tensor, and it is what the kernels are held against on the
@@ -61,17 +62,17 @@ from molecular_dynamics_tpu_torch.ops.nonbonded import (
     PAIR_LOOP_MAX_ATOMS,
     PairTables,
     check_pair_kernel_inputs,
+    chunk_count,
     dense_pair_math,
     make_pair_op,
     pair_constants,
-    pair_kernel_pointers,
-    pair_layout_pointers,
 )
 
 Tensor = torch.Tensor
 
-#: atoms a tile of the pair-tile kernel holds (csrc/pair_tiles.cu)
-TILE = 128
+#: chunks a tile of the pair-tile kernel holds (csrc/pair_tiles.cu
+#: kTileChunks; the wrapper sizes its scratch by what the library reports)
+TILE_CHUNKS = 4
 
 
 def pair_forces_reference(
@@ -120,7 +121,7 @@ def pair_forces(
     with torch.cuda.device(pos.device):
         err = fn(
             pos.data_ptr(), forces.data_ptr(), energy.data_ptr(),
-            pair_layout_pointers(tables), tables.n_lj_types, n_rep, n, *consts,
+            tables.layout_pointers, tables.n_lj_types, n_rep, n, *consts,
             torch.cuda.current_stream().cuda_stream,
         )
     pair_forces.launches += 1
@@ -134,8 +135,9 @@ pair_forces.launches = 0
 
 
 def tile_pair_count(n_atoms: int) -> int:
-    """Pairs of tiles I <= J the pair-tile kernel runs a replica."""
-    n_tiles = (n_atoms + TILE - 1) // TILE
+    """Groups (pairs of tiles A <= B of ``TILE_CHUNKS`` chunks) the pair-tile
+    kernel runs a replica."""
+    n_tiles = (chunk_count(n_atoms) + TILE_CHUNKS - 1) // TILE_CHUNKS
     return n_tiles * (n_tiles + 1) // 2
 
 
@@ -152,22 +154,30 @@ def pair_tiles(pos: Tensor, tables: PairTables, consts) -> Tuple[Tensor, Tensor]
     if not pos.is_cuda:
         return dense_pair_math(pos, tables.dense, consts)
     n_rep, n = check_pair_kernel_inputs(pos, tables)
-    n_pairs = tile_pair_count(n)
+    # groups a replica and floats a group of the built kernel's scratch
+    sizes = (ctypes.c_int * 2)()
+    kernel_function("pair_tiles", "mdx_pair_tiles_scratch", [ctypes.c_int, ctypes.c_void_p])(
+        n, sizes)
+    n_groups, group_floats = sizes
     fn = kernel_function(
         "pair_tiles", "mdx_pair_tiles",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
     )
     dev = pos.device
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=dev)
-    # per tile pair: the partial forces of tile I, then of tile J
-    partial = torch.empty((n_rep, n_pairs, 2, TILE, 3), dtype=torch.float32, device=dev)
-    e_partial = torch.empty((n_rep, n_pairs), dtype=torch.float32, device=dev)
+    scratch, parts = None, (None, None, None)  # one group writes the result itself
+    if n_groups > 1:
+        # every group's partial forces (tile A's, then tile B's), then every
+        # group's energy, then whether it met a pair (int32), in one buffer
+        cells = n_rep * n_groups
+        scratch = torch.empty(cells * (group_floats + 2), dtype=torch.float32, device=dev)
+        base = scratch.data_ptr()
+        parts = (base, base + 4 * cells * group_floats, base + 4 * cells * (group_floats + 1))
     with torch.cuda.device(dev):
         err = fn(
-            pos.data_ptr(), forces.data_ptr(), energy.data_ptr(),
-            partial.data_ptr(), e_partial.data_ptr(),
-            *pair_kernel_pointers(tables), n_rep, n, *consts,
+            pos.data_ptr(), forces.data_ptr(), energy.data_ptr(), *parts,
+            tables.layout_pointers, tables.n_lj_types, n_rep, n, *consts,
             torch.cuda.current_stream().cuda_stream,
         )
     pair_tiles.launches += 1

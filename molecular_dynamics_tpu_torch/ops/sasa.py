@@ -183,6 +183,22 @@ def sasa_shared_bytes(n_compact: int) -> int:
     return 4 * (3 * n * cap + 6 * n + 2 * n * words + 2 * n + 2 + (n * cap + 1) // 2)
 
 
+def sasa_forces_holds(device_type: str, dtype: torch.dtype, n_atoms: int, n_compact: int) -> bool:
+    """Whether :func:`sasa_forces` answers an input of this device type,
+    dtype and size (``n_atoms`` atoms, ``n_compact`` of them in the LCPO
+    set): off CUDA its plain version answers any; on CUDA the kernel takes
+    float32 only, and a replica's lists, coordinates and forces
+    (``sasa_shared_bytes(nc) + 24 n``) must fit the shared memory a CTA may
+    opt in to (224 heavy atoms of deca-alanine's mix). The wrapper raises
+    where this is false."""
+    if device_type != "cuda":
+        return True
+    return (
+        dtype == torch.float32
+        and sasa_shared_bytes(n_compact) + 4 * 6 * n_atoms <= SHARED_OPT_IN_BYTES
+    )
+
+
 def raise_on_overflow(flag: Tensor, n_compact: int, where: str) -> None:
     """Read the kernel's overflow flag (one int; waits for the device) and
     raise if a neighbour list overflowed: the forces of that launch are
@@ -213,11 +229,10 @@ def sasa_forces(
     check_kernel_input("tables.atom", tables.atom, (nc, len(SASA_ATOM_COLUMNS)))
     if tables.atom.device != pos.device or tables.idx.device != pos.device:
         raise ValueError("tables and pos live on different devices")
-    need = sasa_shared_bytes(nc) + 4 * 6 * n  # + coordinates and forces
-    if need > SHARED_OPT_IN_BYTES:
+    if not sasa_forces_holds(pos.device.type, pos.dtype, n, nc):
         raise ValueError(
-            f"sasa_forces: {nc} heavy atoms need {need} bytes of shared memory "
-            f"a replica; the kernel holds {SHARED_OPT_IN_BYTES}"
+            f"sasa_forces: {nc} heavy atoms need {sasa_shared_bytes(nc) + 4 * 6 * n} "
+            f"bytes of shared memory a replica; the kernel holds {SHARED_OPT_IN_BYTES}"
         )
     fn = kernel_function(
         "sasa_forces", "mdx_sasa_forces",

@@ -184,11 +184,15 @@ def make_ensemble_step_fn(
     are differentiable, so a rollout differentiated through this path keeps
     every force's gradient. Otherwise the forces are autograd of the total
     energy, except those of the ``gb`` and ``sasa`` terms, which are analytic
-    (``ops.gb.gb_forces``, ``ops.sasa.sasa_forces``: their kernels on a CUDA
-    state, float32 only) wherever the step need not be differentiated
-    through. Positions that carry a graph keep every force on autograd.
-    ``fused_nonbonded`` with PBC or a term set its kernels do not cover
-    raises. ``step_fn(states, noise=None, generator=None)``.
+    (``ops.gb.gb_forces``, ``ops.sasa.sasa_forces``) wherever the step need
+    not be differentiated through and the wrapper answers the state: on a
+    CUDA state their kernels take float32 within their shared-memory limits
+    only (``gb_forces_holds``, ``sasa_forces_holds``, decided by dtype and
+    size before any launch); a term they do not hold stays on autograd, as
+    the JAX package computes every force. Positions that carry a graph keep
+    every force on autograd. ``fused_nonbonded`` with PBC or a term set its
+    kernels do not cover raises. ``step_fn(states, noise=None,
+    generator=None)``.
     """
     potential = _potential(ff, config, bias)
     use_fused = config.fused_nonbonded
@@ -219,19 +223,26 @@ def make_ensemble_step_fn(
         at_op = make_angle_torsion_op(ff, dtype=ff.masses.dtype)
     elif solvent_terms:
         # neither term sees the box, so this holds with PBC too
-        from molecular_dynamics_tpu_torch.ops.gb import (
-            build_gb_tables,
-            gb_constants,
-            gb_forces,
-        )
-        from molecular_dynamics_tpu_torch.ops.sasa import build_sasa_tables, sasa_forces
+        from molecular_dynamics_tpu_torch.ops import gb, sasa
 
-        gb_tables = build_gb_tables(ff) if "gb" in solvent_terms else None
-        gb_consts = gb_constants(ecfg.solvent_dielectric, ecfg.ion_concentration)
-        sasa_tables = build_sasa_tables(ff) if "sasa" in solvent_terms else None
-        rest_cfg = dataclasses.replace(
-            ecfg, terms=tuple(t for t in ecfg.terms if t not in solvent_terms)
-        )
+        gb_tables = gb.build_gb_tables(ff) if "gb" in solvent_terms else None
+        gb_consts = gb.gb_constants(ecfg.solvent_dielectric, ecfg.ion_concentration)
+        sasa_tables = sasa.build_sasa_tables(ff) if "sasa" in solvent_terms else None
+        # the analytic terms -> the energy config of the rest
+        rest_cfgs = {}
+
+        def analytic_terms(pos) -> Tuple[str, ...]:
+            """The solvent terms whose wrapper answers ``pos`` (its device
+            type, dtype and size); the others stay on autograd."""
+            dev, dtype = pos.device.type, pos.dtype
+            held = []
+            if gb_tables is not None and gb.gb_forces_holds(dev, dtype, ff.n_atoms):
+                held.append("gb")
+            if sasa_tables is not None and sasa.sasa_forces_holds(
+                dev, dtype, ff.n_atoms, sasa_tables.n_compact
+            ):
+                held.append("sasa")
+            return tuple(held)
 
     cons = hydrogen_bond_constraints(ff) if config.constrain_h_bonds else None
 
@@ -246,15 +257,25 @@ def make_ensemble_step_fn(
                 if bias is not None:
                     f = f + _neg_grad(lambda p: bias.energy(p, step), pos)
                 return f
-            if solvent_terms and not (torch.is_grad_enabled() and pos.requires_grad):
-                # the analytic forces carry no graph: positions that are
-                # differentiated through stay on autograd below
+            # the analytic forces carry no graph: positions that are
+            # differentiated through stay on autograd below
+            analytic = (
+                analytic_terms(pos)
+                if solvent_terms and not (torch.is_grad_enabled() and pos.requires_grad)
+                else ()
+            )
+            if analytic:
+                if analytic not in rest_cfgs:
+                    rest_cfgs[analytic] = dataclasses.replace(
+                        ecfg, terms=tuple(t for t in ecfg.terms if t not in analytic)
+                    )
+                rest_cfg = rest_cfgs[analytic]
                 flat = pos.reshape(-1, *pos.shape[-2:]).contiguous()
                 rest = _neg_grad(lambda p: potential(p, box, step, rest_cfg), pos)
-                if gb_tables is not None:
-                    rest = rest + gb_forces(flat, gb_tables, gb_consts)[0].reshape(pos.shape)
-                if sasa_tables is not None:
-                    rest = rest + sasa_forces(
+                if "gb" in analytic:
+                    rest = rest + gb.gb_forces(flat, gb_tables, gb_consts)[0].reshape(pos.shape)
+                if "sasa" in analytic:
+                    rest = rest + sasa.sasa_forces(
                         flat, sasa_tables, ecfg.surface_tension
                     )[0].reshape(pos.shape)
                 return rest

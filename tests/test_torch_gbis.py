@@ -42,6 +42,7 @@ from molecular_dynamics_tpu_torch import solvent as tsolvent
 from molecular_dynamics_tpu_torch import system as tsystem
 from molecular_dynamics_tpu_torch import units as tunits
 from molecular_dynamics_tpu_torch.ops import fused_step as tfused
+from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES
 from molecular_dynamics_tpu_torch.ops import gb as tgb
 from molecular_dynamics_tpu_torch.ops import sasa as tsasa
 
@@ -758,3 +759,65 @@ def test_composed_path_without_gb_tables_raises(world):
     with pytest.raises(ValueError, match="GB tables"):
         tsim.simulate_ensemble(
             world["tens"], bare, n_steps=2, save_every=2, config=tsim.SimulationConfig(energy=GBIS))
+
+
+# -- which solvent forces the unflagged step takes analytic (fault C8) ----------------
+
+
+@pytest.mark.parametrize("m", [1, 2, 4], ids=["104_atoms", "208_atoms", "416_atoms"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_solvent_kernel_predicates(m, dtype):
+    """The GB kernel holds float32 up to 236 atoms (its dI cache), the LCPO
+    kernel float32 up to the heavy-atom count whose lists fit a CTA's shared
+    memory (204 of the 416-atom system fit); a CPU input goes to the plain
+    versions at any dtype and size. Deca-alanine has 51 heavy atoms a copy."""
+    n, nc = 104 * m, 51 * m
+    f32 = dtype == torch.float32
+    assert tgb.gb_forces_holds("cuda", dtype, n) == (f32 and n <= 236)
+    assert tsasa.sasa_forces_holds("cuda", dtype, n, nc) == f32
+    assert tgb.gb_forces_holds("cpu", dtype, n) and tsasa.sasa_forces_holds("cpu", dtype, n, nc)
+    # the size rule is the shared memory a CTA may opt in to, in one place
+    assert tgb.gb_forces_holds("cuda", torch.float32, n) == (
+        tgb.gb_shared_bytes(n) + 24 * n <= SHARED_OPT_IN_BYTES)
+    assert tgb.gb_forces_holds("cuda", torch.float32, 236)
+    assert not tgb.gb_forces_holds("cuda", torch.float32, 237)
+
+
+def test_unflagged_gbis_step_off_the_kernels_matches_jax(world, monkeypatch):
+    """With both predicates false (what a float64 CUDA state, or one above the
+    kernels' sizes, gives) the unflagged step takes the GB and LCPO forces
+    from autograd of the energy and never calls the analytic wrappers; three
+    float64 steps under GBIS_CONFIG (T = 0, 2 replicas, no constraints, so
+    that only the forces can differ) agree with JAX ``make_ensemble_step_fn``
+    from the same state to 1e-9 A."""
+    jff64, _ = jax_system("full_da", f64=True)
+    tff64, _ = torch_system("full_da", f64=True)
+    pos = minimized_full_da().astype(np.float64)
+    vel = thermal_velocities(np.asarray(jff64.masses), 2, seed=21).astype(np.float64)
+    f0 = -jax.jit(jax.vmap(jax.grad(
+        lambda q: jenergy.total_energy(q, jff64, config=jenergy.GBIS_CONFIG))))(
+            jnp.asarray(np.stack([pos, pos])))
+    kw = dict(dt_fs=2.0, temperature=0.0)
+    jst = jsystem.replicate(jsystem.system_init(
+        jnp.asarray(pos), key=jax.random.PRNGKey(1), dtype=jnp.float64), 2, seed=3)
+    jst = jst.replace(vel=jnp.asarray(vel), forces=f0)
+    jstep = jax.jit(jsim.make_ensemble_step_fn(
+        jff64, jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **kw)))
+    tst = tsystem.replicate(tsystem.system_init(
+        torch.as_tensor(pos), device="cpu", key=1, dtype=torch.float64), 2, seed=3)
+    tst = tst.replace(vel=torch.as_tensor(vel), forces=torch.as_tensor(np.array(f0)))
+
+    monkeypatch.setattr(tgb, "gb_forces_holds", lambda *a: False)
+    monkeypatch.setattr(tsasa, "sasa_forces_holds", lambda *a: False)
+    calls = []
+    for mod, name in ((tgb, "gb_forces_reference"), (tsasa, "sasa_forces_reference")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, real=real: calls.append(1) or real(*a))
+    tstep = tsim.make_ensemble_step_fn(tff64, tsim.SimulationConfig(energy=GBIS, **kw))
+    with torch.no_grad():
+        for _ in range(3):
+            jst, tst = jstep(jst), tstep(tst)
+    assert calls == [] and tst.pos.dtype == torch.float64
+    np.testing.assert_allclose(tst.pos.numpy(), np.asarray(jst.pos), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(tst.vel.numpy(), np.asarray(jst.vel), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(tst.forces.numpy(), np.asarray(jst.forces), rtol=0, atol=1e-6)

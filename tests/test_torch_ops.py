@@ -88,19 +88,6 @@ def test_pair_table_counts(tables):
     assert int((ours[names.index("kb")] > 0).sum()) == 2 * (103 + 65)  # bonds + UB
 
 
-def test_pack_pair_tables_roundtrip(tables):
-    dense = np.stack(tables[0])
-    pa, pb, pc = tnonbonded.pack_pair_tables(dense)
-    assert pa.shape == (104, 104, 4) and pb.shape == (104, 104, 4) and pc.shape == (104, 104)
-    special = pa[..., 3] >= 2
-    np.testing.assert_array_equal(pa[..., 3] - 2 * special, dense[3])
-    np.testing.assert_array_equal(pa[..., :3], np.moveaxis(dense[:3], 0, -1))
-    np.testing.assert_array_equal(pb, np.moveaxis(dense[4:8], 0, -1))
-    np.testing.assert_array_equal(pc, dense[8])
-    # everything the kernel skips reading is zero
-    assert not dense[4:9][:, ~special].any()
-
-
 def test_harmonic_pair_collision_is_refused(sysm):
     import dataclasses
 

@@ -192,7 +192,8 @@ def test_ring_op_matches_jax_interpret_kernel_at_208_atoms():
 
 def test_cpu_tensors_take_the_plain_version():
     """The CUDA wrappers take their plain version on a CPU tensor and launch
-    nothing; the pair-tile scratch holds a tile's worth of partials."""
+    nothing; the pair-tile kernel runs a group for each pair of 4-chunk
+    tiles."""
     _, tff, pos = systems(2)
     tables = tnonbonded.build_pair_tables(tff)
     consts = tnonbonded.pair_constants(9.0, 7.5, True, 78.5)
@@ -203,6 +204,8 @@ def test_cpu_tensors_take_the_plain_version():
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (tnonbonded.nonbonded_rows.launches, tring.pair_tiles.launches) == before == (0, 0)
     assert [tring.tile_pair_count(n) for n in (104, 128, 129, 416, 1040)] == [1, 1, 3, 10, 45]
+    # the dense-row kernel opts in above 48 KB: 4,096 atoms take 52 KB
+    assert tnonbonded.nonbonded_rows_shared_bytes(4096) == 52224
     with pytest.raises(ValueError, match="CUDA"):
         tnonbonded.check_pair_kernel_inputs(t(pos).float(), tables)
 
@@ -301,10 +304,12 @@ def _layout_pair_math(pos, tabs, consts):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("m", [1, 2], ids=["104_atoms", "208_atoms"])
+@pytest.mark.parametrize("m", [1, 2, 4], ids=["104_atoms", "208_atoms", "416_atoms"])
 def test_layout_pair_sum_matches_jax(m, case):
     """The layout carries every 2-body term: its pair sum in float64 against
-    the JAX dense op's reference, to the float32 tables' 1e-4."""
+    the JAX dense op's reference, to the float32 tables' 1e-4. Every pair
+    kernel reads this layout; 416 atoms are 13 chunks, four tiles of the
+    pair-tile kernel."""
     _, _, pos = systems(m)
     kw = CASES[case]
     tabs, _ = layout_case(m)
@@ -313,7 +318,12 @@ def test_layout_pair_sum_matches_jax(m, case):
         kw.get("solvent_dielectric", units.SOLVENT_DIELECTRIC)))
     je, jf = jax_reference(m, case)
     np.testing.assert_allclose(f.numpy(), jf, atol=1e-4)
-    np.testing.assert_allclose(e.numpy(), je, atol=1e-4)
+    if m <= 2:
+        np.testing.assert_allclose(e.numpy(), je, atol=1e-4)
+    else:
+        # the energy is extensive: the float32 tables' error adds up over the
+        # copies (5.4e-5 kcal/mol a copy at 16 A), so it is held a copy
+        np.testing.assert_allclose(e.numpy() / m, je / m, atol=1e-4)
 
 
 def test_layout_is_built_on_first_use():
@@ -335,23 +345,35 @@ def test_layout_is_built_on_first_use():
     assert torch.equal(tabs.charges, tff.charges)
 
 
+def _task_pairs(n, i_chunk, j_chunk):
+    """The atom pairs (row, column) that one task (I, J) of the pair loop
+    meets (``chunk_task`` in csrc/pair_loop.cuh): lane l of row chunk I
+    against column (l + s) mod C at step s, on the diagonal the shifts
+    1..C/2 with an even C's halfway shift on the lower half of the lanes."""
+    cs = tnonbonded.chunk_size(n)
+    lane = np.arange(cs)
+    diag = i_chunk == j_chunk
+    rows_out, cols_out = [], []
+    for s in range(1, cs // 2 + 1) if diag else range(cs):
+        rows = lane if not (diag and 2 * s == cs) else lane[: cs // 2]
+        a, b = i_chunk * cs + rows, j_chunk * cs + (rows + s) % cs
+        keep = (a < n) & (b < n)
+        rows_out.append(a[keep])
+        cols_out.append(b[keep])
+    return np.concatenate(rows_out), np.concatenate(cols_out)
+
+
 @pytest.mark.parametrize("n", [22, 104, 416])
 def test_pair_loop_schedule_meets_every_pair_once(n):
     """The pair loop's tasks as csrc/pair_loop.cuh runs them (the diagonal
     with its halfway shift, then the rounds of (I, I + k)) meet every
     unordered pair of atoms exactly once, and no round gives two tasks the
     same column chunk."""
-    nc, cs = tnonbonded.chunk_count(n), tnonbonded.chunk_size(n)
+    nc = tnonbonded.chunk_count(n)
     met = np.zeros((n, n), int)
-    lane = np.arange(cs)
 
     def task(i_chunk, j_chunk):
-        diag = i_chunk == j_chunk
-        for s in range(1, cs // 2 + 1) if diag else range(cs):
-            rows = lane if not (diag and 2 * s == cs) else lane[: cs // 2]
-            a, b = i_chunk * cs + rows, j_chunk * cs + (rows + s) % cs
-            keep = (a < n) & (b < n)
-            np.add.at(met, (a[keep], b[keep]), 1)
+        np.add.at(met, _task_pairs(n, i_chunk, j_chunk), 1)
 
     for c in range(nc):
         task(c, c)
@@ -362,3 +384,104 @@ def test_pair_loop_schedule_meets_every_pair_once(n):
         for c, d in zip(rows, cols):
             task(c, d)
     assert np.array_equal(met + met.T, 1 - np.eye(n, dtype=int))
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_system(n: int) -> np.ndarray:
+    """Coordinates of an n-atom system for the schedule models: di-alanine
+    (22 atoms) or n / 104 tiled copies of deca-alanine, 50 A apart."""
+    if n == 22:
+        return np.asarray(torch_system("diala")[1], np.float64)
+    return np.asarray(tiled_decaalanine(n // 104, device="cpu")[1], np.float64)
+
+
+def _near_chunks(pos, cutoff):
+    """near[I, J]: the bounding boxes of chunks I and J (``chunk_boxes``: a
+    lane past the end stands on the last atom) lie within the cutoff
+    (``boxes_apart`` with its margin)."""
+    n = len(pos)
+    cs, nc = tnonbonded.chunk_size(n), tnonbonded.chunk_count(n)
+    chunks = pos[np.minimum(np.arange(nc * cs), n - 1)].reshape(nc, cs, 3)
+    lo, hi = chunks.min(1), chunks.max(1)
+    gap = np.maximum(0.0, np.maximum(lo[None] - hi[:, None], lo[:, None] - hi[None]))
+    return (gap * gap).sum(-1) <= cutoff * cutoff * 1.0001
+
+
+def _within(pos, cutoff):
+    d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1)
+    return (d2 <= cutoff * cutoff) & ~np.eye(len(pos), dtype=bool)
+
+
+SCHEDULE_SIZES = [22, 104, 416, 2496]
+
+
+@pytest.mark.parametrize("n", SCHEDULE_SIZES)
+def test_pair_tiles_schedule_meets_every_near_pair_once(n):
+    """The pair-tile kernel's schedule (csrc/pair_tiles.cu): groups of tile
+    pairs A <= B of ``TILE_CHUNKS`` chunks, a group whose chunk pairs all
+    lie beyond the cutoff skipped whole; in the diagonal group row chunk w
+    meets itself and then chunk (w + k) mod chunks for k = 1..chunks/2 (at
+    the halfway k of an even count only w < k), in an off-diagonal group
+    every chunk of the other tile; far tasks skipped. At 9 A and at 16 A it
+    meets every pair within the cutoff exactly once and no pair twice, and
+    the group count is the wrapper's ``tile_pair_count``."""
+    pos = schedule_system(n)
+    nc, tc = tnonbonded.chunk_count(n), tring.TILE_CHUNKS
+    nt = -(-nc // tc)
+    for cutoff in (9.0, 16.0):
+        near = _near_chunks(pos, cutoff)
+        met = np.zeros((n, n), np.int16)
+
+        def task(i_chunk, j_chunk):
+            if near[i_chunk, j_chunk]:
+                np.add.at(met, _task_pairs(n, i_chunk, j_chunk), 1)
+
+        groups = live = 0
+        for A in range(nt):
+            for B in range(A, nt):
+                groups += 1
+                ca, cb = A * tc, B * tc
+                na, nb = min(tc, nc - ca), min(tc, nc - cb)
+                if A != B and not near[ca:ca + na, cb:cb + nb].any():
+                    continue
+                live += 1
+                for w in range(na):
+                    if A == B:
+                        task(ca + w, ca + w)
+                        for k in range(1, na // 2 + 1):
+                            if not (2 * k == na and w >= k):
+                                task(ca + w, ca + (w + k) % na)
+                    else:
+                        for j in range(nb):
+                            task(ca + w, cb + j)
+        pairs = met + met.T
+        assert groups == tring.tile_pair_count(n)
+        assert pairs.max() <= 1
+        assert np.array_equal(pairs[_within(pos, cutoff)], np.ones(int(_within(pos, cutoff).sum())))
+        if n == 2496:
+            assert live < groups  # the tiles of far copies meet nothing
+
+
+@pytest.mark.parametrize("n", SCHEDULE_SIZES)
+def test_nonbonded_rows_schedule_meets_every_near_pair_once_from_its_row(n):
+    """The dense-row kernel's schedule (csrc/nonbonded_rows.cu): every row
+    chunk walks the column chunks in order, skipping those whose box lies
+    beyond the cutoff from its own, and each of its lanes meets every atom
+    of a near chunk but itself. At 9 A and at 16 A every ordered pair within
+    the cutoff is met exactly once, from its row."""
+    pos = schedule_system(n)
+    cs, nc = tnonbonded.chunk_size(n), tnonbonded.chunk_count(n)
+    for cutoff in (9.0, 16.0):
+        near = _near_chunks(pos, cutoff)
+        met = np.zeros((n, n), np.int16)
+        for i_chunk in range(nc):
+            rows = np.arange(i_chunk * cs, min(n, (i_chunk + 1) * cs))
+            for j_chunk in np.flatnonzero(near[i_chunk]):
+                cols = np.arange(j_chunk * cs, min(n, (j_chunk + 1) * cs))
+                met[np.ix_(rows, cols)] += 1
+        np.fill_diagonal(met, 0)  # an atom's own exclusion bit
+        within = _within(pos, cutoff)
+        assert met.max() <= 1
+        assert np.array_equal(met[within], np.ones(int(within.sum())))
+        if n == 2496:
+            assert met.sum() < n * (n - 1) // 4  # far chunks are skipped
