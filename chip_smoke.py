@@ -13,6 +13,8 @@ Phases, one JSON line each on standard output:
 3. ``checks``: each kernel against its plain PyTorch version on the card, at
    the shapes of the main path (1024 replicas x 104 atoms x 50 steps), with
    the tolerances below; the thermostat generator's statistics; the campaign
+   kernel on the tables build_ff_params makes for the 40-atom backbone (50 steps at
+   1024 replicas, T = 0 and 300 K, and 50 = 25 + 25); the campaign
    kernel with GB and SASA on, at every step and at the ``sasa_every`` /
    ``gb_every`` cadences; the two pair-op kernels (dense-row
    ``nonbonded_rows`` and each-pair-once ``pair_tiles``, both on the per-atom
@@ -75,6 +77,21 @@ Phases, one JSON line each on standard output:
    beside.
    ``grad``: gradients through 10 steps of the composed path (ring, dense)
    against the all-autograd path, 416 atoms x 8 replicas.
+   ``cli``: the command line (``molecular_dynamics_tpu_torch.cli.main``),
+   three ``simulate`` campaigns of 1024 replicas x 2000 steps through the
+   campaign kernel into a temporary directory: (a) ``example:full`` in
+   vacuum (rigid X-H bonds, 2 fs), (b) the same under ``GBIS_CONFIG`` from a
+   JSON config, (c) the generated 40-atom backbone at 1 fs. Each: 40 kernel
+   launches, the printed rate, the seconds outside ``simulate_ensemble``,
+   frames finite, T in 150-350 K, mean abs(colvar - centre) < 2 A, replicas
+   apart, every file there with its shape and ``rep0.dcd`` read back equal
+   to replica 0's frames. Then ``energy`` on ``example:full`` and on the
+   in-repo PSF / PDB / YAML system against ``energy_terms`` in float64, and
+   ``simulate`` with ``fused_nonbonded`` at both ``kernel_variant``s, 8
+   replicas x 50 steps, one pair-tile or dense-row launch a step.
+   ``bench``: ``bench_torch.py``'s three protocols (vacuum, ``gbis``,
+   ``gbis_sasa``; a warm-up and three timed calls each): its record with
+   the median and the spread, and the campaign kernel's launches.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
@@ -83,7 +100,8 @@ Phases, one JSON line each on standard output:
    angle-torsion forward and its autograd pass, bias gradient, BAOAB
    update) and the device's busy share.
 6. the card's name and power limit as ``nvidia-smi`` prints them, the
-   ``kernels`` line (per kernel: launches counted on the main path, error
+   ``kernels`` line (per kernel: launches counted on the main path and, in
+   ``launches_by_path``, on each path that runs it, error
    against the plain version, time per launch, the plain version's time, the
    least time the card could take, and beside it the least time its SFU
    could take for the transcendentals; for the campaign, GB and SASA kernels
@@ -102,13 +120,19 @@ Phases, one JSON line each on standard output:
 Any failed check ends the run with a non-zero exit code.
 """
 
+import ast
+import contextlib
+import csv
 import ctypes
+import dataclasses
+import io
 import json
 import math
 import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,20 +153,32 @@ from molecular_dynamics_tpu_torch.energy import (
     energy_terms,
     total_energy,
 )
-from molecular_dynamics_tpu_torch.examples import decaalanine_full, dialanine, tiled_decaalanine
+from molecular_dynamics_tpu_torch import cli
+from molecular_dynamics_tpu_torch.examples import (
+    BACKBONE_FF_PRM,
+    decaalanine_backbone,
+    decaalanine_full,
+    dialanine,
+    tiled_decaalanine,
+)
+from molecular_dynamics_tpu_torch.ff import YamlForceField, build_ff_params
+from molecular_dynamics_tpu_torch.config import CampaignConfig, apply_overrides, load_config
 from molecular_dynamics_tpu_torch.integrate import (
     initialize_forces,
     maxwell_boltzmann,
     minimize_fire,
+    mix_seed,
 )
 from molecular_dynamics_tpu_torch.ops import _build
 from molecular_dynamics_tpu_torch.ops import fused_step, gb, nonbonded, ring, sasa
 from molecular_dynamics_tpu_torch import solvent
 from molecular_dynamics_tpu_torch.sim import (
     SimulationConfig,
+    _campaign_advance_fn,
     make_ensemble_step_fn,
     simulate_ensemble,
 )
+from molecular_dynamics_tpu_torch.io import read_dcd, read_pdb, read_psf, read_xyz
 from molecular_dynamics_tpu_torch.system import MDState, replicate, system_init
 
 N_REPLICAS = 1024
@@ -164,6 +200,10 @@ K5_OPT_IN_SHAPE = (39, 2)
 TIER_STEPS = 500
 TIER_SAVE = 50
 GRAD_STEPS = 10  # the grad phase: 416 atoms x 8 replicas, T = 0
+CLI_CHECK_REPLICAS = 8   # the cli phase's fused_nonbonded runs: 8 replicas x 50 steps
+CLI_CHECK_STEPS = 50
+#: the in-repo PSF / PDB / YAML system (TorchMD's recorded backbone)
+GOLDENS = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth. The kernels do float32 arithmetic only.
@@ -1489,6 +1529,324 @@ def grad_phase(ff4, pos_min4, rng):
     return res
 
 
+def backbone_campaign_check(rng):
+    """The campaign kernel on the tables build_ff_params makes: the 40-atom
+    backbone (a chunk of 32 and a tail of 8, 4 LJ types from the swapped
+    YAML fields, harmonic impropers, no hydrogens and no constraints), FIRE,
+    then one launch of 50 steps at 1024 replicas against the plain version,
+    at T = 0 and at 300 K with the same noise, and 50 = 25 + 25."""
+    top, coords = decaalanine_backbone()
+    ff_bb = build_ff_params(top, YamlForceField(BACKBONE_FF_PRM))
+    n_bb = ff_bb.n_atoms
+    check(n_bb == 40 and hydrogen_bond_constraints(ff_bb).n_constraints == 0,
+          f"backbone: {n_bb} atoms")
+    force = mdx.force_fn(REFERENCE_CONFIG)
+    pos0 = minimize_fire(torch.as_tensor(coords, dtype=torch.float32, device="cuda"),
+                         lambda p: force(p, ff_bb), n_steps=500, dt_start=1e-3, dt_max=1e-2)
+    d0 = float(torch.linalg.norm(pos0[-1] - pos0[0]))
+    bias_bb = HarmonicSMDBias.create(n_atoms=n_bb, group1=[0], group2=[n_bb - 1], fk=1.0,
+                                     cent_0=d0, cent_1=d0 + 22.0, T=500_000.0)
+    jitter = rng.normal(0.0, 0.01, (N_REPLICAS, n_bb, 3))
+    pos = (pos0[None] + torch.as_tensor(jitter, dtype=torch.float32, device="cuda")).contiguous()
+    std = torch.sqrt(mdx.units.BOLTZMANN * 300.0 / ff_bb.masses)[None, :, None]
+    vel = (std * torch.randn((N_REPLICAS, n_bb, 3), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(SEED))
+           ).contiguous()
+
+    def make(n_inner, temperature):
+        return fused_step.make_fused_campaign_op(
+            ff_bb, n_inner=n_inner, dt_fs=1.0, temperature=temperature, gamma_ps=1.0,
+            bias=bias_bb)
+
+    op0, op300 = make(N_INNER, 0.0), make(N_INNER, 300.0)
+    st = op0.settings
+    frc = fused_step.campaign_forces_reference(
+        pos, op0.tables, st["pair_consts"], st["bias_consts"], 0).contiguous()
+    res = {"atoms": n_bb, "lj_types": op0.tables.pair.n_lj_types,
+           "special_pairs": op0.tables.pair.n_special, "d0_A": d0}
+    tols = (TOL_POS_50, TOL_VEL, TOL_FRC)
+    for label, op, t0, seed, noise in (
+        ("T=0", op0, 0, 1, None),
+        ("T=300,same noise", op300, 40, 13,
+         fused_step.campaign_noise(13, 40, N_INNER, N_REPLICAS, n_bb)),
+    ):
+        out_k = op(pos, vel, frc, t0, seed)
+        out_p = fused_step.campaign_advance_reference(
+            pos, vel, frc, t0, seed, op.tables, noise=noise, **op.settings)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in out_k),
+              f"campaign_advance on the backbone, {label}: non-finite output")
+        errs = [max_err(a, b) for a, b in zip(out_k, out_p)]
+        res[label] = dict(zip(("pos", "vel", "frc"), errs))
+        check(all(e <= tol for e, tol in zip(errs, tols)),
+              f"campaign_advance on the backbone, {label}, 50 steps vs plain: {errs} "
+              f"(bounds {tols})")
+    op25 = make(25, 300.0)
+    a = op300(pos, vel, frc, 100, 7)
+    c = op25(*op25(pos, vel, frc, 100, 7), 125, 7)
+    torch.cuda.synchronize()
+    res["split_25_25_equal"] = all(torch.equal(x, y) for x, y in zip(a, c))
+    check(res["split_25_25_equal"], "campaign_advance on the backbone: 50 steps differ from 25 + 25")
+    res["threads"] = op0.kernel_info()["threads_per_cta"]
+    return res
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` with its standard output captured: the wall seconds
+    (ending in a device synchronisation) and the lines it printed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
+    return wall, buf.getvalue().strip().splitlines()
+
+
+#: a replica whose temperature passes this at a save has collapsed
+COLLAPSE_T_K = 1000.0
+#: the share of replicas of the 40-atom backbone run that may collapse: its
+#: YAML force field has next to no LJ repulsion (the swapped fields give
+#: A ~ 1e-10), so an unexcluded pair of opposite charges can fall together.
+#: The share depends on the one velocity draw every replica starts from: 3
+#: of 1024 on the card, 85 of 1024 in the JAX CLI's run on the CPU. A
+#: broken kernel would lose most replicas; ``collapse_check`` holds the
+#: first collapse against the plain version.
+COLLAPSE_SHARE_BACKBONE = 0.25
+
+
+def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
+    """One ``cli simulate`` campaign of N_REPLICAS x N_STEPS through the
+    campaign kernel into a temporary directory: the kernel's launches, the
+    printed rate, the seconds outside ``simulate_ensemble`` (loading, FIRE,
+    the files; the start timed again alone, so that the rest is the files),
+    and the gates on what it wrote. A replica whose logged T
+    passes COLLAPSE_T_K at some save has collapsed: at most
+    ``collapse_share`` of them may, and the ensemble gates hold over the
+    others."""
+    n_saves = N_STEPS // N_INNER
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "out"
+        fused_step.campaign_advance.launches = 0
+        argv = ["simulate", *(["--config", config] if config else [])]
+        for ov in (*campaign_overrides(overrides), f"out_dir={out}"):
+            argv += ["-o", ov]
+        wall, lines = run_cli(argv)
+        launches = fused_step.campaign_advance.launches
+        line = json.loads(lines[-1])
+        tag = f"cli simulate {' '.join(overrides)}"
+        check(line["frames"] == [n_saves, N_REPLICAS, n_atoms, 3], f"{tag}: {line}")
+        check(launches == n_saves,
+              f"{tag}: campaign kernel launched {launches} times, expected {n_saves}")
+        frames = np.stack([np.load(out / f"raw-traj_rep-{r}.npy") for r in range(N_REPLICAS)],
+                          axis=1)
+        check(frames.shape == (n_saves, N_REPLICAS, n_atoms, 3),
+              f"{tag}: replica files {frames.shape}")
+        dcd, cells = read_dcd(str(out / "rep0.dcd"))
+        check(cells is None and np.array_equal(dcd, frames[:, 0]),
+              f"{tag}: rep0.dcd read back differs from frames[:, 0]")
+        xyz = read_xyz(str(out / "rep0.xyz"))
+        check(xyz.shape == frames[:, 0].shape, f"{tag}: rep0.xyz {xyz.shape}")
+        with open(out / "sim_log.csv") as fh:
+            rows = list(csv.DictReader(fh))
+    check(len(rows) == n_saves * N_REPLICAS, f"{tag}: {len(rows)} log rows")
+
+    def column(key):
+        return np.array([float(r[key]) for r in rows]).reshape(n_saves, N_REPLICAS)
+
+    temps = column("T")
+    collapsed = ~(temps < COLLAPSE_T_K).all(axis=0) | ~np.isfinite(frames).all(axis=(0, 2, 3))
+    kept = ~collapsed
+    check(collapsed.sum() <= collapse_share * N_REPLICAS,
+          f"{tag}: {int(collapsed.sum())} replicas collapsed (T above {COLLAPSE_T_K} K), "
+          f"at most {collapse_share:.0%} may: {np.flatnonzero(collapsed)[:20].tolist()}")
+    check(np.abs(xyz - frames[:, 0]).max() < 1e-5 or collapsed[0], f"{tag}: rep0.xyz differs")
+    t_mean = float(temps[-1, kept].mean())
+    lag = float(np.abs(column("colvar_value") - column("colvar_center"))[-1, kept].mean())
+    flat = frames[-1, kept].reshape(int(kept.sum()), -1)
+    spread = float(np.abs(flat[1:] - flat[:-1]).max(axis=1).min())
+    check(np.isfinite(frames[:, kept]).all(), f"{tag}: non-finite frames")
+    check(150.0 < t_mean < 350.0, f"{tag}: ensemble-mean T of the last save {t_mean} K")
+    check(lag < 2.0, f"{tag}: mean |colvar - centre| {lag} A")
+    check(spread > 1e-3, f"{tag}: neighbouring replicas coincide ({spread})")
+    simulate_s = line["replicas"] * line["steps"] / line["steps_per_sec"]
+    # what the seconds outside simulate_ensemble hold: the start again (load,
+    # FIRE, bias, velocities, forces, replicas), the rest is the files
+    cfg = apply_overrides(load_config(config) if config else CampaignConfig(),
+                          campaign_overrides(overrides))
+    t0 = time.perf_counter()
+    cli.prepare_campaign(cfg, torch.device("cuda"))
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    return {
+        "atoms": n_atoms, "frames": line["frames"], "campaign_kernel_launches": launches,
+        "steps_per_sec": line["steps_per_sec"], "wall_seconds": wall,
+        "simulate_ensemble_seconds": simulate_s, "seconds_outside_simulate": wall - simulate_s,
+        "prepare_campaign_seconds": prepare_s,
+        "files_seconds": wall - simulate_s - prepare_s,
+        "T_last_mean_K": t_mean, "colvar_lag_A": lag,
+        "colvar_center_last_A": float(column("colvar_center")[-1, 0]),
+        "min_neighbour_spread_A": spread, "dcd_equals_frames": True,
+        "collapsed_replicas": np.flatnonzero(collapsed).tolist(),
+    }
+
+
+def campaign_overrides(overrides):
+    """The overrides of a 1024 x 2000 campaign through the campaign kernel."""
+    return [*overrides, f"n_replicas={N_REPLICAS}", f"n_steps={N_STEPS}",
+            f"save_every={N_INNER}", "sim.fused_campaign=true"]
+
+
+def collapse_check(overrides, cli_collapsed):
+    """A cli run's collapse, taken apart: the run again in this process from
+    the CLI's own start (``cli.prepare_campaign``, the same config), segment
+    by segment through the op ``simulate_ensemble`` launches, then the
+    segment in which the first replica collapses once more through the
+    plain version with the kernel's noise. The kernel must carry that
+    replica where the plain version does, so the collapse is the force
+    field's, not the kernel's."""
+    cfg = apply_overrides(CampaignConfig(), campaign_overrides(overrides))
+    ff_c, _, bias_c, ens = cli.prepare_campaign(cfg, torch.device("cuda"))
+    advance = _campaign_advance_fn(ff_c, cfg.save_every, cfg.sim, bias_c)
+    key0 = int(ens.key[0])
+
+    def temps(vel):
+        return mdx.temperature(mdx.kinetic_energy(vel, ff_c.masses), ff_c.n_atoms)
+
+    state = (ens.pos.contiguous(), ens.vel.contiguous(), ens.forces.contiguous())
+    hot = torch.zeros(N_REPLICAS, dtype=torch.bool, device="cuda")
+    first = None
+    for s in range(cfg.n_steps // cfg.save_every):
+        t0 = s * cfg.save_every
+        nxt = advance(*state, t0, mix_seed(key0, t0))
+        now_hot = ~(temps(nxt[1]) < COLLAPSE_T_K)
+        if first is None and bool(now_hot.any()):
+            first = (t0, state, int(torch.nonzero(now_hot)[0]))
+        hot |= now_hot
+        state = nxt
+    res = {"collapsed_replicas": torch.nonzero(hot).flatten().tolist()}
+    res["same_as_cli_run"] = res["collapsed_replicas"] == cli_collapsed
+    if first is None:
+        check(not cli_collapsed, f"collapse check: the cli run collapsed {cli_collapsed}, "
+                                 "its repetition nowhere")
+        return res
+    t0, start, r = first
+    seed = mix_seed(key0, t0)
+    out_k = advance(*start, t0, seed)
+    out_p = fused_step.campaign_advance_reference(
+        *start, t0, seed, advance.tables, noise=fused_step.campaign_noise(
+            seed, t0, cfg.save_every, N_REPLICAS, ff_c.n_atoms), **advance.settings)
+    torch.cuda.synchronize()
+    mask = (ff_c.nb_mask | ff_c.nb_mask.T)
+
+    def closest_pair(pos):
+        d = torch.cdist(pos[None].double(), pos[None].double())[0]
+        d = torch.where(mask, d, torch.full_like(d, float("inf")))
+        k = int(torch.argmin(d))
+        i, j = divmod(k, ff_c.n_atoms)
+        return {"atoms": [i, j], "distance_A": float(d[i, j]),
+                "charges": [float(ff_c.charges[i]), float(ff_c.charges[j])]}
+
+    res.update({
+        "first_replica": r, "segment_start_step": t0,
+        "pos_err_kernel_vs_plain_A": max_err(out_k[0][r], out_p[0][r]),
+        "T_end_kernel_K": float(temps(out_k[1][r])), "T_end_plain_K": float(temps(out_p[1][r])),
+        "closest_unexcluded_pair_at_start": closest_pair(start[0][r]),
+        "closest_unexcluded_pair_at_end_plain": closest_pair(out_p[0][r]),
+    })
+    check(res["pos_err_kernel_vs_plain_A"] <= TOL_POS_50
+          and res["T_end_kernel_K"] > COLLAPSE_T_K and res["T_end_plain_K"] > COLLAPSE_T_K,
+          f"collapse check: kernel and plain version part in the collapsing segment: {res}")
+    return res
+
+
+def energy_printed_vs(argv, ff_e, pos):
+    """``cli energy`` against ``energy_terms`` of the same system: the
+    printed (float32, 4 decimals) values on the card against float64 on the
+    host, within 1e-3 kcal/mol or 1e-3 relative, whichever is larger."""
+    _, lines = run_cli(["energy", *argv])
+    printed = ast.literal_eval(lines[-1])
+    ff64 = ff_e.to(device="cpu", dtype=torch.float64)
+    ref = energy_terms(torch.as_tensor(pos, dtype=torch.float64), ff64, config=REFERENCE_CONFIG)
+    ref = {k: float(v) for k, v in ref.items()}
+    check(set(printed) == set(ref), f"cli energy {argv}: terms {sorted(printed)}")
+    err = {k: abs(printed[k] - v) for k, v in ref.items()}
+    check(all(e <= max(1e-3, 1e-3 * abs(ref[k])) for k, e in err.items()),
+          f"cli energy {argv}: printed {printed} vs float64 {ref}")
+    return {"printed": printed, "max_abs_err_vs_f64": max(err.values())}
+
+
+def cli_phase(ff, coords):
+    """The command line on the card: three 1024 x 2000 campaigns, the energy
+    printout, and two short runs of the composed pair-op path."""
+    res = {}
+    gbis_cfg = {**dataclasses.asdict(GBIS_CONFIG), "terms": list(GBIS_CONFIG.terms)}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = pathlib.Path(tmp) / "gbis.json"
+        cfg_path.write_text(json.dumps({"sim": {"energy": gbis_cfg, "sasa_every": 1}}))
+        # the 104-atom runs pull atom 0 against atom 103 (the default groups
+        # are the 40-atom backbone's ends) at the campaign's pace, the
+        # centre from the measured distance to 34 A over 500,000 steps
+        full = ["topology=example:full", "colvar.group2=[103]", "colvar.T=500000",
+                "sim.dt_fs=2.0", "sim.constrain_h_bonds=true"]
+        res["vacuum"] = cli_campaign_run(104, full)
+        res["gbis"] = cli_campaign_run(104, full, config=str(cfg_path))
+    # the generated backbone as the JAX CLI test runs it, at 1 fs
+    res["backbone"] = cli_campaign_run(40, ["sim.dt_fs=1.0"],
+                                       collapse_share=COLLAPSE_SHARE_BACKBONE)
+    res["backbone_collapse"] = collapse_check(["sim.dt_fs=1.0"],
+                                              res["backbone"]["collapsed_replicas"])
+
+    res["energy_example_full"] = energy_printed_vs(["--topology", "example:full"], ff, coords)
+    psf, yaml_path, pdb = (str(GOLDENS / f) for f in (
+        "backbone-no-improp.psf", "param_bb-3.0.yaml", "backbone.pdb"))
+    ff_g = build_ff_params(read_psf(psf), YamlForceField(yaml_path))
+    res["energy_psf_yaml_pdb"] = energy_printed_vs(
+        ["--topology", psf, "--parameters", yaml_path, "--coordinates", pdb], ff_g,
+        read_pdb(pdb)[0])
+
+    pair_launches = {}
+    for variant, counted in (("ring", ring.pair_tiles), ("dense", nonbonded.nonbonded_rows)):
+        with tempfile.TemporaryDirectory() as tmp:
+            counted.launches = 0
+            _, lines = run_cli([
+                "simulate", "-o", "topology=example:full", "-o", "colvar.group2=[103]",
+                "-o", f"n_replicas={CLI_CHECK_REPLICAS}", "-o", f"n_steps={CLI_CHECK_STEPS}",
+                "-o", f"save_every={CLI_CHECK_STEPS}", "-o", "sim.constrain_h_bonds=true",
+                "-o", "sim.fused_nonbonded=true", "-o", f"sim.kernel_variant={variant}",
+                "-o", f"out_dir={tmp}/out"])
+            pair_launches[counted.__name__] = counted.launches
+            frames = np.load(pathlib.Path(tmp) / "out" / "raw-traj_rep-0.npy")
+            check(np.isfinite(frames).all(), f"cli fused_nonbonded {variant}: non-finite")
+            check(counted.launches == CLI_CHECK_STEPS,
+                  f"cli fused_nonbonded {variant}: {counted.__name__} launched "
+                  f"{counted.launches} times, expected {CLI_CHECK_STEPS}")
+            res[f"fused_nonbonded_{variant}"] = {
+                "line": json.loads(lines[-1]), f"{counted.__name__}_launches": counted.launches}
+    return res, pair_launches
+
+
+def bench_phase():
+    """``bench_torch.py``'s three protocols in this process: its record,
+    and the campaign kernel's launches over them (a warm-up and three timed
+    calls of 40 launches each, three protocols)."""
+    import bench_torch
+
+    fused_step.campaign_advance.launches = 0
+    t0 = time.perf_counter()
+    record = bench_torch.run("cuda")
+    seconds = time.perf_counter() - t0
+    launches = fused_step.campaign_advance.launches
+    expected = 3 * (1 + bench_torch.TIMED_CALLS) * (N_STEPS // bench_torch.SAVE_EVERY)
+    check(launches == expected, f"bench: campaign kernel launched {launches} times, "
+                                f"expected {expected}")
+    check({"metric", "value", "unit", "secondary"} <= set(record)
+          and {"gbis_steps_per_sec", "gbis_sasa_steps_per_sec"} <= set(record["secondary"]),
+          f"bench record {record}")
+    return record, launches, seconds
+
+
 def main():
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -1783,6 +2141,9 @@ def main():
           f"pair_forces on di-alanine: {checks['dialanine_22_atoms']}")
     check(errs[0] <= TOL_POS and errs[1] <= TOL_VEL and errs[2] <= TOL_FRC,
           f"campaign_advance on di-alanine: {errs}")
+    # tables made by build_ff_params: the generated 40-atom backbone, 1024 replicas
+    checks["campaign_advance[backbone,40 atoms]"] = backbone_checks = backbone_campaign_check(rng)
+    kernels["campaign_advance"]["max_abs_err_backbone_40_atoms"] = backbone_checks["T=0"]["pos"]
 
     # -- K3: gb_forces and K4: sasa_forces, standalone ----------------------
     eps_s, salt, gamma = (GBIS_CONFIG.solvent_dielectric, GBIS_CONFIG.ion_concentration,
@@ -2437,6 +2798,39 @@ def main():
     emit("grad", replicas=8, atoms=ff4.n_atoms, steps=GRAD_STEPS, tolerance=TOL_GRAD,
          **grad_res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
+
+    # -- the command line, and bench_torch.py ---------------------------------
+    t_cli = time.perf_counter()
+    cli_res, cli_pair_launches = cli_phase(ff, coords)
+    emit("cli", **cli_res, seconds=round(time.perf_counter() - t_cli, 1),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+    bench_record, bench_launches, bench_s = bench_phase()
+    emit("bench", record=bench_record, campaign_kernel_launches=bench_launches,
+         seconds=round(bench_s, 1), device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+    kernels["campaign_advance"]["launches_by_path"] = {
+        f"simulate_ensemble(fused_campaign) {N_REPLICAS} x {N_STEPS}": launches_k1,
+        f"cli simulate example:full vacuum {N_REPLICAS} x {N_STEPS}":
+            cli_res["vacuum"]["campaign_kernel_launches"],
+        f"cli simulate example:backbone (40 atoms) {N_REPLICAS} x {N_STEPS}":
+            cli_res["backbone"]["campaign_kernel_launches"],
+        "bench_torch.py, its three protocols (both instantiations)": bench_launches,
+    }
+    kernels["campaign_advance[gbis]"]["launches_by_path"] = {
+        f"simulate_ensemble(fused_campaign, GBIS_CONFIG, sasa_every=1) {N_REPLICAS} x {N_STEPS}":
+            kernels["campaign_advance[gbis]"]["launches"],
+        f"cli simulate example:full GBIS_CONFIG {N_REPLICAS} x {N_STEPS}":
+            cli_res["gbis"]["campaign_kernel_launches"],
+    }
+    for name in ("nonbonded_rows", "pair_tiles"):
+        kernels[name]["launches_by_path"] = {
+            f"tiers, {TIER_STEPS} steps at each size": kernels[name]["launches"],
+            f"cli simulate fused_nonbonded {CLI_CHECK_REPLICAS} x {CLI_CHECK_STEPS}":
+                cli_pair_launches[name],
+        }
+    kernels["pair_tiles"]["launches_by_path"][
+        f"simulate_ensemble(fused_nonbonded) {N_REPLICAS} x {PAIR_PATH_STEPS}"] = launches_k6_main
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

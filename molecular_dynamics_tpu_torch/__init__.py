@@ -6,23 +6,33 @@ dataclasses of tensors, plain functions on ``(..., N, 3)`` tensors, an
 explicit ``device``/``dtype``, and hand-written CUDA kernels (``csrc/``,
 bound in ``ops/``) where the reference used Pallas.
 
-Ported so far — the replica SMD campaign path and the composed,
-differentiable force path:
+Ported so far: the replica SMD campaign path, the composed, differentiable
+force path, and the command line with the host I/O it needs:
 
-- ``units``, ``ff.params`` (``FFParams``, ``tile_ff_params``), ``solvent``,
-  ``examples`` (the packaged 104-atom deca-alanine, 22-atom di-alanine and
-  ``tiled_decaalanine``)
+- ``units``, ``topology`` (``Topology``), ``build`` (angles and dihedrals
+  from bonds), ``io`` (PSF, PDB, XYZ, DCD), ``ff`` (``FFParams``,
+  ``YamlForceField``, ``build_ff_params``, ``finalize_ff_params``,
+  ``tile_ff_params``), ``solvent``, ``examples`` (the generated 40-atom
+  deca-alanine backbone, the packaged 104-atom deca-alanine and 22-atom
+  di-alanine, ``tiled_decaalanine``)
 - ``energy`` (bonded terms, 1-4, switched LJ, reaction-field Coulomb,
   Urey-Bradley, GB, SASA; forces through ``torch.autograd``)
-- ``system``, ``bias``, ``integrate``, ``constraints``, ``sim``
+- ``system``, ``bias``, ``integrate`` (with the FIRE, L-BFGS and
+  steepest-descent minimisers), ``constraints``, ``sim``
 - ``ops``: ``make_nonbonded_op`` and ``make_pair_ring_op`` (differentiable
   pair ops), ``bonded.make_angle_torsion_op``, ``pair_forces``,
   ``gb.gb_forces``, ``sasa.sasa_forces`` and ``make_fused_campaign_op``
   (CUDA kernels with plain PyTorch versions beside them)
+- ``config``, ``log`` and ``cli`` (``python -m
+  molecular_dynamics_tpu_torch.cli simulate | energy | convert | bench``)
 - ``convert`` — numpy arrays into the port's objects
 
+Not ported yet (ROADMAP.md §A): prmtop/chamber, CHARMM ``.prm`` with CMAP,
+xtc, mol2, sdf, xsc, the native codec, the CMAP and repulsion terms, the
+model zoo and its training, and sharding over several devices.
+
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (``--device cpu`` on the command line).
 """
 
 import torch
@@ -33,7 +43,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from molecular_dynamics_tpu_torch import units
-from molecular_dynamics_tpu_torch.ff import FFParams
+from molecular_dynamics_tpu_torch.topology import Topology
+from molecular_dynamics_tpu_torch.ff import FFParams, build_ff_params
 from molecular_dynamics_tpu_torch.energy import (
     EnergyConfig,
     GBIS_CONFIG,
@@ -52,6 +63,7 @@ from molecular_dynamics_tpu_torch.integrate import (
     kinetic_energy,
     temperature,
     minimize_fire,
+    minimize_lbfgs,
 )
 from molecular_dynamics_tpu_torch.bias import HarmonicSMDBias
 
@@ -59,7 +71,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "units",
+    "Topology",
     "FFParams",
+    "build_ff_params",
     "EnergyConfig",
     "GBIS_CONFIG",
     "REFERENCE_CONFIG",
@@ -76,5 +90,6 @@ __all__ = [
     "kinetic_energy",
     "temperature",
     "minimize_fire",
+    "minimize_lbfgs",
     "HarmonicSMDBias",
 ]

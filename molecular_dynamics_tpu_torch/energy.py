@@ -18,8 +18,9 @@ The implicit-solvent terms ``gb`` (GB-OBC II) and ``sasa`` (LCPO) come from
 ``solvent`` and need the GB tables on the ``FFParams``
 (``solvent.attach_gb_params``).
 
-Not ported yet: ``cmap`` and the ``repulsion``/``repulsioncg`` variants (I/O
-and training slices). Asking for one raises ``NotImplementedError``.
+Not ported yet: ``cmap`` (with the CHARMM parameter reader, ROADMAP A8) and
+the ``repulsion``/``repulsioncg`` variants (ROADMAP A8). Asking for one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ DEFAULT_TERMS = (
 #: terms the configs may name but this port does not evaluate yet, with the
 #: slice that brings each
 _DEFERRED_TERMS = {
-    "cmap": "the host I/O slice (CMAP tables)",
-    "repulsion": "the training slice (CG repulsion variants)",
-    "repulsioncg": "the training slice (CG repulsion variants)",
+    "cmap": "the CHARMM parameter reader with CMAP (ROADMAP A8)",
+    "repulsion": "the CG repulsion variants (ROADMAP A8)",
+    "repulsioncg": "the CG repulsion variants (ROADMAP A8)",
 }
 
 

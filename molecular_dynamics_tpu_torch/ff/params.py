@@ -3,9 +3,12 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
+
+from molecular_dynamics_tpu_torch import units
 
 #: fields holding atom indices (int64 tensors: torch indexes with long)
 INT_FIELDS = ("bonds", "angles", "dihedrals", "impropers", "idx14", "ub_bonds",
@@ -103,6 +106,136 @@ class FFParams:
         return FFParams(**out)
 
 
+def _pad_terms(term_lists: Sequence[Sequence[Sequence[float]]], dtype):
+    """Pad ragged per-torsion term lists to (n, max_terms, 3) + mask.
+
+    Padding rows get per=1, k0=0 so they are inert under either torsion
+    branch (an AMBER cos term with k0=0 contributes nothing even unmasked).
+    """
+    n = len(term_lists)
+    if n == 0:
+        return np.zeros((0, 1, 3), dtype), np.zeros((0, 1), bool)
+    max_t = max(1, max(len(t) for t in term_lists))
+    params = np.zeros((n, max_t, 3), dtype)
+    params[:, :, 2] = 1.0  # per=1 on padding
+    mask = np.zeros((n, max_t), bool)
+    for i, terms in enumerate(term_lists):
+        for j, (k0, phi0, per) in enumerate(terms):
+            params[i, j] = (k0, phi0, per)
+            mask[i, j] = True
+    return params, mask
+
+
+def _exclusion_mask(
+    n_atoms: int,
+    bonds: np.ndarray,
+    angles: np.ndarray,
+    idx14: np.ndarray,
+    exclusions: Sequence[str] = ("bonds", "angles", "1-4"),
+) -> np.ndarray:
+    """Upper-triangular all-vs-all pair mask minus the excluded pairs: the
+    bonded pairs, the angles' 1-3 pairs and the dihedrals' 1-4 pairs, each
+    where ``exclusions`` names it (torchmd's exclusion set)."""
+    mask = np.triu(np.ones((n_atoms, n_atoms), bool), k=1)
+    pairs = []
+    if "bonds" in exclusions and len(bonds):
+        pairs.append(np.asarray(bonds)[:, :2])
+    if "angles" in exclusions and len(angles):
+        pairs.append(np.asarray(angles)[:, [0, 2]])
+    if "1-4" in exclusions and len(idx14):
+        pairs.append(np.asarray(idx14))
+    for p in pairs:
+        mask[p[:, 0], p[:, 1]] = False
+        mask[p[:, 1], p[:, 0]] = False
+    return np.triu(mask, k=1)
+
+
+def finalize_ff_params(
+    *,
+    masses: np.ndarray,
+    charges: np.ndarray,
+    bonds: np.ndarray,
+    bond_params: np.ndarray,
+    angles: np.ndarray,
+    angle_params: np.ndarray,
+    dihedrals: np.ndarray,
+    dihedral_terms: Sequence[Sequence[Sequence[float]]],
+    impropers: np.ndarray,
+    improper_terms: Sequence[Sequence[Sequence[float]]],
+    idx14: np.ndarray,
+    nb14_params: np.ndarray,
+    lj_a_pair: np.ndarray,
+    lj_b_pair: np.ndarray,
+    exclusions: Sequence[str] = ("bonds", "angles", "1-4"),
+    ub_bonds: Optional[np.ndarray] = None,
+    ub_params: Optional[np.ndarray] = None,
+    dtype=torch.float32,
+    device=None,
+) -> FFParams:
+    """Assemble ``FFParams`` from host-side numpy tables.
+
+    The tables are computed in numpy in the float type of ``dtype`` (as the
+    JAX package computes them), then become tensors on ``device`` (``None``:
+    the CUDA device): floats of ``dtype``, indices int64, masks bool.
+    """
+    # convert imports this module: its device rule is fetched at call time
+    from molecular_dynamics_tpu_torch.convert import resolve_device
+
+    device = resolve_device(device)
+    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    n = len(masses)
+    charges = np.asarray(charges, np_dtype)
+    qq = units.ELEC_FACTOR * charges[:, None] * charges[None, :]
+
+    dih_params, dih_mask = _pad_terms(dihedral_terms, np_dtype)
+    imp_params, imp_mask = _pad_terms(improper_terms, np_dtype)
+
+    bonds = np.asarray(bonds, np.int64).reshape(-1, 2)
+    angles = np.asarray(angles, np.int64).reshape(-1, 3)
+    dihedrals = np.asarray(dihedrals, np.int64).reshape(-1, 4)
+    impropers = np.asarray(impropers, np.int64).reshape(-1, 4)
+    idx14 = np.asarray(idx14, np.int64).reshape(-1, 2)
+
+    nb_mask = _exclusion_mask(n, bonds, angles, idx14, exclusions)
+
+    if ub_bonds is None:
+        ub_bonds = np.zeros((0, 2), np.int64)
+        ub_params = np.zeros((0, 2), np_dtype)
+
+    def floats(a, *shape):
+        a = np.asarray(a, np_dtype)
+        return torch.as_tensor(a.reshape(*shape) if shape else a, device=device)
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def mask(a):
+        return torch.as_tensor(np.asarray(a, bool), device=device)
+
+    return FFParams(
+        masses=floats(masses),
+        charges=floats(charges),
+        bonds=ints(bonds),
+        bond_params=floats(bond_params, -1, 2),
+        angles=ints(angles),
+        angle_params=floats(angle_params, -1, 2),
+        dihedrals=ints(dihedrals),
+        dihedral_params=floats(dih_params),
+        dihedral_term_mask=mask(dih_mask),
+        impropers=ints(impropers),
+        improper_params=floats(imp_params),
+        improper_term_mask=mask(imp_mask),
+        idx14=ints(idx14),
+        nb14_params=floats(nb14_params, -1, 4),
+        lj_a_pair=floats(lj_a_pair),
+        lj_b_pair=floats(lj_b_pair),
+        qq_pair=floats(qq),
+        nb_mask=mask(nb_mask),
+        ub_bonds=ints(ub_bonds),
+        ub_params=floats(ub_params, -1, 2),
+    )
+
+
 def tile_ff_params(ff: FFParams, m: int) -> FFParams:
     """Tile a system ``m`` times into one composite ``FFParams``.
 
@@ -117,7 +250,8 @@ def tile_ff_params(ff: FFParams, m: int) -> FFParams:
     """
     if ff.has_cmap:
         raise NotImplementedError(
-            "tile_ff_params: CMAP tables are not ported yet"
+            "tile_ff_params: CMAP tables are not ported yet; they come with "
+            "the CHARMM parameter reader (ROADMAP A8, CMAP)"
         )
     if m < 1:
         raise ValueError(f"m must be >= 1, got {m}")

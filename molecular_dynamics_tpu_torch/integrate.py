@@ -207,3 +207,105 @@ def minimize_fire(
             disp = torch.clamp(disp, -max_disp, max_disp)
         pos = pos + disp
     return pos
+
+
+def minimize_lbfgs(
+    pos: Tensor,
+    energy_fn: Callable[[Tensor], Tensor],
+    n_steps: int = 100,
+    history: int = 10,
+    c1: float = 1e-4,
+    max_ls: int = 20,
+    curvature_eps: float = 1e-10,
+) -> Tensor:
+    """L-BFGS structure minimization of one system.
+
+    The JAX package's algorithm: the limited-memory two-loop recursion over
+    a fixed ``history``-slot circular buffer, an Armijo backtracking line
+    search (step halved up to ``max_ls`` times; a NaN energy keeps
+    halving), steepest descent where the direction is not downhill, a step
+    rejected when no trial lowered the energy, and a pair (s, y) kept only
+    where ``s.y > curvature_eps``. ``energy_fn`` maps positions (same shape
+    as ``pos``) to a scalar; its gradient comes from autograd.
+
+    The branches read the energies back to the host, one read a line-search
+    trial: this is a set-up step, not a per-step path of a campaign.
+    """
+    shape = pos.shape
+    m = history
+
+    def val_grad(x):
+        x = x.detach().requires_grad_(True)
+        e = energy_fn(x.reshape(shape))
+        (g,) = torch.autograd.grad(e, x)
+        return float(e.detach()), g.detach()
+
+    x = pos.detach().reshape(-1)
+    s_buf = torch.zeros((m,) + x.shape, dtype=x.dtype, device=x.device)
+    y_buf = torch.zeros_like(s_buf)
+    rho = [0.0] * m
+    k = 0  # pairs kept so far; the newest sits in slot (k - 1) % m
+    e, g = val_grad(x)
+
+    for _ in range(n_steps):
+        # two-loop recursion: d = -H_k g over the kept pairs, newest first
+        kept = [(k - 1 - i) % m for i in range(min(k, m))]
+        q = g
+        alphas = []
+        for j in kept:
+            a = rho[j] * float(torch.dot(s_buf[j], q))
+            q = q - a * y_buf[j]
+            alphas.append(a)
+        gamma = 1.0
+        if k > 0:
+            jm = (k - 1) % m
+            yy = float(torch.dot(y_buf[jm], y_buf[jm]))
+            if yy > 1e-12:
+                gamma = float(torch.dot(s_buf[jm], y_buf[jm])) / yy
+        r = gamma * q
+        for j, a in reversed(list(zip(kept, alphas))):
+            b = rho[j] * float(torch.dot(y_buf[j], r))
+            r = r + (a - b) * s_buf[j]
+        d = -r
+        gd = float(torch.dot(g, d))
+        if gd >= 0.0:  # not downhill: steepest descent
+            d = -g
+            gd = -float(torch.dot(g, g))
+
+        alpha, n_ls = 1.0, 1
+        e_new, g_new = val_grad(x + d)
+        while not (e_new <= e + c1 * alpha * gd) and n_ls < max_ls:
+            alpha *= 0.5
+            e_new, g_new = val_grad(x + alpha * d)
+            n_ls += 1
+        if not e_new <= e:  # no trial lowered the energy: stay
+            continue
+        x_new = x + alpha * d
+        s = x_new - x
+        y = g_new - g
+        sy = float(torch.dot(s, y))
+        x, e, g = x_new, e_new, g_new
+        if sy > curvature_eps:
+            slot = k % m
+            s_buf[slot] = s
+            y_buf[slot] = y
+            rho[slot] = 1.0 / max(sy, curvature_eps)
+            k += 1
+    return x.reshape(shape)
+
+
+def minimize_gd(
+    pos: Tensor,
+    force_fn: Callable[[Tensor], Tensor],
+    n_steps: int = 200,
+    lr: float = 1e-4,
+    max_disp: float = 0.1,
+) -> Tensor:
+    """Clipped steepest-descent relaxation (robust for very bad contacts):
+    each atom moves ``lr`` times its force, at most ``max_disp`` A a step."""
+    pos = pos.detach()
+    for _ in range(n_steps):
+        step = lr * force_fn(pos).detach()
+        norm = torch.sqrt(torch.sum(step * step, dim=-1, keepdim=True))
+        pos = pos + step * torch.clamp(max_disp / (norm + 1e-12), max=1.0)
+    return pos

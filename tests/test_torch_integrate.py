@@ -224,3 +224,75 @@ def test_minimize_fire_max_disp_clamps():
 
 def test_units_time_conversion():
     assert abs(2.0 / units.TIMEFACTOR - 0.0409) < 1e-4
+
+
+# -- minimize_lbfgs and minimize_gd ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def backbone_pair():
+    """The 40-atom backbone in float64: JAX FFParams, port FFParams, start
+    coordinates (each package builds its own from the same source)."""
+    from molecular_dynamics_tpu import examples as jexamples
+    from molecular_dynamics_tpu.ff import YamlForceField, build_ff_params
+    from molecular_dynamics_tpu_torch import examples as texamples
+    from molecular_dynamics_tpu_torch import ff as tff
+
+    top, coords = jexamples.decaalanine_backbone()
+    jff = build_ff_params(top, YamlForceField(jexamples.BACKBONE_FF_PRM), dtype=jnp.float64)
+    ttop, _ = texamples.decaalanine_backbone()
+    tparams = tff.build_ff_params(ttop, tff.YamlForceField(texamples.BACKBONE_FF_PRM),
+                                  dtype=torch.float64, device="cpu")
+    return jff, tparams, np.asarray(coords)
+
+
+def test_minimize_lbfgs_quadratic_exact():
+    """On a quadratic bowl L-BFGS converges to the minimum (the JAX test's
+    bowl)."""
+    target = t(np.random.default_rng(0).normal(size=(7, 3)), torch.float64)
+    scale = t(np.random.default_rng(1).uniform(0.5, 4.0, size=(7, 3)), torch.float64)
+    x = tintegrate.minimize_lbfgs(
+        torch.zeros((7, 3), dtype=torch.float64),
+        lambda p: torch.sum(scale * (p - target) ** 2), n_steps=60)
+    np.testing.assert_allclose(x.numpy(), target.numpy(), atol=1e-6)
+
+
+def test_minimize_lbfgs_iterates_match_jax(backbone_pair):
+    """The first 20 iterates on the backbone equal the JAX ones in float64
+    (same directions, same line-search decisions, same buffer)."""
+    jff, tparams, coords = backbone_pair
+    cfg_j, cfg_t = jenergy.REFERENCE_CONFIG, tenergy.REFERENCE_CONFIG
+    run_j = jax.jit(lambda p, n: jintegrate.minimize_lbfgs(
+        p, lambda q: jenergy.total_energy(q, jff, config=cfg_j), n_steps=n))
+    energy_t = lambda q: tenergy.total_energy(q, tparams, config=cfg_t)
+    pos0 = t(coords, torch.float64)
+    for n in range(1, 21):
+        x_j = np.asarray(run_j(jnp.asarray(coords), n))
+        x_t = tintegrate.minimize_lbfgs(pos0, energy_t, n_steps=n).numpy()
+        np.testing.assert_allclose(x_t, x_j, rtol=0, atol=1e-8, err_msg=f"iterate {n}")
+
+
+def test_minimize_lbfgs_beats_fire_on_the_backbone(backbone_pair):
+    """Same step budget: L-BFGS ends below FIRE, which ends below the start."""
+    _, tparams, coords = backbone_pair
+    cfg = tenergy.REFERENCE_CONFIG
+    energy = lambda q: tenergy.total_energy(q, tparams, config=cfg)
+    force = tenergy.force_fn(cfg)
+    pos0 = t(coords, torch.float64)
+    p_fire = tintegrate.minimize_fire(pos0, lambda p: force(p, tparams), n_steps=150,
+                                      dt_start=0.001, dt_max=0.01)
+    p_lbfgs = tintegrate.minimize_lbfgs(pos0, energy, n_steps=150)
+    e_start, e_fire, e_lbfgs = (float(energy(p)) for p in (pos0, p_fire, p_lbfgs))
+    assert np.isfinite(e_lbfgs)
+    assert e_lbfgs < e_fire < e_start
+
+
+def test_minimize_gd_matches_jax(backbone_pair):
+    jff, tparams, coords = backbone_pair
+    cfg_j = jenergy.REFERENCE_CONFIG
+    force_j = lambda p: -jax.grad(lambda q: jenergy.total_energy(q, jff, config=cfg_j))(p)
+    x_j = jax.jit(lambda p: jintegrate.minimize_gd(p, force_j, n_steps=30))(jnp.asarray(coords))
+    force_t = tenergy.force_fn(tenergy.REFERENCE_CONFIG)
+    x_t = tintegrate.minimize_gd(t(coords, torch.float64), lambda p: force_t(p, tparams),
+                                 n_steps=30)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=0, atol=1e-9)

@@ -363,7 +363,7 @@ def _task_pairs(n, i_chunk, j_chunk):
     return np.concatenate(rows_out), np.concatenate(cols_out)
 
 
-@pytest.mark.parametrize("n", [22, 104, 416])
+@pytest.mark.parametrize("n", [22, 40, 104, 416])
 def test_pair_loop_schedule_meets_every_pair_once(n):
     """The pair loop's tasks as csrc/pair_loop.cuh runs them (the diagonal
     with its halfway shift, then the rounds of (I, I + k)) meet every
