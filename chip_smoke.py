@@ -92,6 +92,23 @@ Phases, one JSON line each on standard output:
    ``bench``: ``bench_torch.py``'s three protocols (vacuum, ``gbis``,
    ``gbis_sasa``; a warm-up and three timed calls each): its record with
    the median and the spread, and the campaign kernel's launches.
+   ``regenerate``: the SMD data-generation twin
+   (``python -m molecular_dynamics_tpu_torch.regenerate_smd --gbis``), 64
+   replicas x 20,000 steps through the campaign kernel (400 launches),
+   every replica's frames written: frames finite, T over the second half in
+   150-350 K, mean colvar lag under 2 A, every file there; then ``cli train
+   cgan`` on those frames (104 atoms, stride 10, 1 epoch): finite losses,
+   ``eval.json``, the log and the generated ``.xyz`` / ``.pdb``.
+   ``train``: ``cli train pretrain --epochs 4`` and ``cli train cgan
+   --epochs 3`` on the in-repo 40-atom data (batch 32, seed 0) under the
+   JAX package's live-quality ceilings (mean_abs_error 2.20 / 2.60 A); one
+   informed and one pretrain step on the card against the same step in
+   float64 on the CPU (loss, gradient norm and direction); a launch census
+   of one informed step at 40 and 104 atoms (generator, energy, backward,
+   optimizer) with the device's busy share; the update rates of the four
+   phases; the flagship forward (generated structures and their energies,
+   batch 8), timed. The training path launches no kernel; the run fails if
+   it does.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
@@ -180,6 +197,10 @@ from molecular_dynamics_tpu_torch.sim import (
 )
 from molecular_dynamics_tpu_torch.io import read_dcd, read_pdb, read_psf, read_xyz
 from molecular_dynamics_tpu_torch.system import MDState, replicate, system_init
+from molecular_dynamics_tpu_torch import regenerate_smd
+from molecular_dynamics_tpu_torch.models import Discriminator, Generator
+from molecular_dynamics_tpu_torch.train import cgan as tcgan
+from molecular_dynamics_tpu_torch.train.common import ClippedAdam
 
 N_REPLICAS = 1024
 N_INNER = 50
@@ -204,6 +225,24 @@ CLI_CHECK_REPLICAS = 8   # the cli phase's fused_nonbonded runs: 8 replicas x 50
 CLI_CHECK_STEPS = 50
 #: the in-repo PSF / PDB / YAML system (TorchMD's recorded backbone)
 GOLDENS = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
+#: the regenerate phase: the SMD data-generation campaign under GBIS at 64
+#: replicas, cut to 20,000 steps; the pull keeps the campaign's pace
+#: (0.88 A = 22 A x 20,000 / 500,000 steps)
+REGEN_REPLICAS = 64
+REGEN_STEPS = 20_000
+REGEN_PULL = 0.88
+#: the train phase: the in-repo 40-atom SMD data (16 trajectories x 320
+#: frames) and the live-training budgets and ceilings of the JAX package's
+#: quality guard (tests/test_train_quality.py, LIVE_BUDGET): an untrained
+#: generator scores above 4 A there
+TRAIN_DATA = pathlib.Path(__file__).resolve().parent / "datasets" / "backbone_smd"
+TRAIN_BUDGET = {"pretrain": (4, 2.20), "cgan": (3, 2.60)}
+TRAIN_BATCH = 32
+#: one informed and one pretrain step on the card (float32) against the same
+#: steps on the CPU in float64: loss, gradient norm and direction, the
+#: generator's parameters after both, and the clipped Adam's change on the
+#: same gradients, relative
+TOL_TRAIN_STEP = 1e-3
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth. The kernels do float32 arithmetic only.
@@ -303,6 +342,23 @@ def check(cond, msg):
         fail(msg)
 
 
+def kernel_counters():
+    """Every kernel wrapper of the port by its row in the kernels line (the
+    campaign kernel's two instantiations share one count)."""
+    return {"pair_forces": ring.pair_forces, "campaign_advance": fused_step.campaign_advance,
+            "gb_forces": gb.gb_forces, "sasa_forces": sasa.sasa_forces,
+            "nonbonded_rows": nonbonded.nonbonded_rows, "pair_tiles": ring.pair_tiles}
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
 def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
@@ -386,10 +442,73 @@ def profile_call(fn):
     }
 
 
-#: what the launch census attributes a composed step's work to (sim's
-#: fused_nonbonded force): the pair op, the angle-torsion op (its forward
-#: inside it; the rest is its autograd pass), the bias gradient
-CENSUS_SOURCES = ("pair_op", "angle_torsion", "angle_torsion_forward", "bias_gradient")
+def labelled(label, fn):
+    """``fn`` inside a ``torch.profiler.record_function`` range
+    ``census:<label>``."""
+    from torch.profiler import record_function
+
+    def run(*args, **kwargs):
+        with record_function(f"census:{label}"):
+            return fn(*args, **kwargs)
+    return run
+
+
+@contextlib.contextmanager
+def patched(patches):
+    """Set each ``(module, name, value)`` for the block, restore after."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, new in patches:
+            setattr(mod, name, new)
+        yield
+    finally:
+        for mod, name, old in saved:
+            setattr(mod, name, old)
+
+
+def census_by_source(step, sources, steps):
+    """Run ``step`` (one warm-up, then ``steps`` times inside a
+    ``census:step`` range) under torch.profiler and attribute each kernel
+    launch to the innermost ``census:<source>`` range its runtime call lies
+    in (``sources`` innermost first; outside every source: ``step``).
+    Returns launches and host ms per step by source (a source's host ms
+    include the sources inside it), the launches, device kernels, host,
+    wall and device ms per step, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            with record_function("census:step"):
+                step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = {label: [(e.time_range.start, e.time_range.end) for e in events
+                     if e.name == f"census:{label}"] for label in (*sources, "step")}
+    launches = [e.time_range.start for e in events if "LaunchKernel" in e.name]
+    # the device's own events: kernels, copies and sets (the ranges above
+    # appear on the device's timeline too, as annotations)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("census:")]
+    count = dict.fromkeys((*sources, "step"), 0)
+    for t in launches:
+        for label in (*sources, "step"):
+            if any(a <= t < b for a, b in spans[label]):
+                count[label] += 1
+                break
+    device_s = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6
+    return {
+        "launches": {k: c / steps for k, c in count.items()},
+        "host_ms": {label: sum(b - a for a, b in spans[label]) / 1e3 / steps for label in spans},
+        "launches_per_step": len(launches) / steps,
+        "device_kernels_per_step": len(kernels) / steps,
+        "wall_ms_per_step": 1e3 * wall / steps,
+        "device_ms_per_step": 1e3 * device_s / steps,
+        "device_busy_share": device_s / wall,
+    }
 
 
 def launch_census(ff_m, ens, variant, bias, steps=5):
@@ -398,19 +517,12 @@ def launch_census(ff_m, ens, variant, bias, steps=5):
     wrapped in a ``torch.profiler.record_function`` range for this run only
     (the factories ``sim`` calls and the functions the angle-torsion op and
     the bias gradient go through, restored after); a launch is attributed to
-    the innermost range its runtime call lies in, and whatever lies outside
-    every range is the BAOAB update (its kicks, drifts, noise and the step
-    counter). Averaged over ``steps`` steps after one warm-up step."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+    the innermost range its runtime call lies in (``census_by_source``), and
+    whatever lies outside every range is the BAOAB update (its kicks,
+    drifts, noise and the step counter). Averaged over ``steps`` steps after
+    one warm-up step."""
     from molecular_dynamics_tpu_torch import sim as sim_module
     from molecular_dynamics_tpu_torch.ops import bonded
-
-    def labelled(label, fn):
-        def run(*args, **kwargs):
-            with record_function(f"census:{label}"):
-                return fn(*args, **kwargs)
-        return run
 
     def labelled_op(label, make):
         return lambda *args, **kwargs: labelled(label, make(*args, **kwargs))
@@ -424,40 +536,18 @@ def launch_census(ff_m, ens, variant, bias, steps=5):
         (bonded, "_torsion_energy", labelled("angle_torsion_forward", bonded._torsion_energy)),
         (sim_module, "_neg_grad", labelled("bias_gradient", sim_module._neg_grad)),
     )
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    try:
-        for mod, name, new in patches:
-            setattr(mod, name, new)
+    state = [ens]
+
+    def step():
+        state[0] = step_fn(state[0])
+
+    with patched(patches):
         step_fn = make_ensemble_step_fn(ff_m, SimulationConfig(
             dt_fs=1.0, temperature=300.0, fused_nonbonded=True, kernel_variant=variant), bias)
-        state = step_fn(ens)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                with record_function("census:step"):
-                    state = step_fn(state)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for mod, name, old in saved:
-            setattr(mod, name, old)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    spans = {label: [(e.time_range.start, e.time_range.end) for e in events
-                     if e.name == f"census:{label}"] for label in (*CENSUS_SOURCES, "step")}
-    launches = [e.time_range.start for e in events if "LaunchKernel" in e.name]
-    # the device's own events: kernels, copies and sets (the ranges above
-    # appear on the device's timeline too, as annotations)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("census:")]
-    count = dict.fromkeys((*CENSUS_SOURCES, "step"), 0)
-    for t in launches:
         # innermost first: the forward lies inside the angle-torsion op
-        for label in ("angle_torsion_forward", "pair_op", "bias_gradient", "angle_torsion", "step"):
-            if any(a <= t < b for a, b in spans[label]):
-                count[label] += 1
-                break
-    host = {label: sum(b - a for a, b in spans[label]) / 1e3 / steps for label in spans}
+        res = census_by_source(
+            step, ("angle_torsion_forward", "pair_op", "bias_gradient", "angle_torsion"), steps)
+    count, host = res["launches"], res["host_ms"]
     per_step = {
         "pair_op": (count["pair_op"], host["pair_op"]),
         "angle_torsion_forward": (count["angle_torsion_forward"], host["angle_torsion_forward"]),
@@ -467,17 +557,16 @@ def launch_census(ff_m, ens, variant, bias, steps=5):
         "baoab_update": (count["step"], host["step"] - host["pair_op"] - host["angle_torsion"]
                          - host["bias_gradient"]),
     }
-    device_s = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6
     return {
         "variant": variant, "atoms": ff_m.n_atoms, "replicas": int(ens.pos.shape[0]),
         "steps": steps,
-        "by_source": {k: {"launches_per_step": c / steps, "host_ms_per_step": ms}
+        "by_source": {k: {"launches_per_step": c, "host_ms_per_step": ms}
                       for k, (c, ms) in per_step.items()},
-        "launches_per_step": len(launches) / steps,
-        "device_kernels_per_step": len(kernels) / steps,
-        "host_ms_per_step": host["step"], "wall_ms_per_step": 1e3 * wall / steps,
-        "device_ms_per_step": 1e3 * device_s / steps,
-        "device_busy_share": device_s / wall,
+        "launches_per_step": res["launches_per_step"],
+        "device_kernels_per_step": res["device_kernels_per_step"],
+        "host_ms_per_step": host["step"], "wall_ms_per_step": res["wall_ms_per_step"],
+        "device_ms_per_step": res["device_ms_per_step"],
+        "device_busy_share": res["device_busy_share"],
     }
 
 
@@ -1213,7 +1302,7 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
         state = state.replace(forces=_neg_grad(energy, state.pos).detach())
         step_fn = make_ensemble_step_fn(
             ff_m, SimulationConfig(energy=GBIS_CONFIG, dt_fs=1.0, temperature=0.0))
-        gb.gb_forces.launches = sasa.sasa_forces.launches = 0
+        reset_launches()
         for _ in range(n_steps):
             state = step_fn(state)
         torch.cuda.synchronize()
@@ -1408,8 +1497,7 @@ def tiers_phase(lever_libs):
             # one save first, so that the timed call sees built tables
             simulate_ensemble(ens, ff_m, n_steps=TIER_SAVE, save_every=TIER_SAVE, config=cfg)
             torch.cuda.synchronize()
-            for counter in counters.values():
-                counter.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             final, frames, log = simulate_ensemble(
                 ens, ff_m, n_steps=TIER_STEPS, save_every=TIER_SAVE, config=cfg,
@@ -1473,7 +1561,7 @@ def tiers_phase(lever_libs):
     k1_checks[f"{ff_m.n_atoms}x8"], _ = campaign_check_at(ff_m, pos0, m)
     k1_op = fused_step.make_fused_campaign_op(
         ff_m, n_inner=TIER_SAVE, dt_fs=1.0, temperature=300.0, gamma_ps=1.0)
-    fused_step.campaign_advance.launches = 0
+    reset_launches()
     final, _, _ = simulate_ensemble(ens, ff_m, n_steps=TIER_SAVE, save_every=TIER_SAVE,
                                     config=SimulationConfig(fused_campaign=True, dt_fs=1.0,
                                                             temperature=300.0, energy=REFERENCE_CONFIG))
@@ -1628,7 +1716,7 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
     n_saves = N_STEPS // N_INNER
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "out"
-        fused_step.campaign_advance.launches = 0
+        reset_launches()
         argv = ["simulate", *(["--config", config] if config else [])]
         for ov in (*campaign_overrides(overrides), f"out_dir={out}"):
             argv += ["-o", ov]
@@ -1809,7 +1897,7 @@ def cli_phase(ff, coords):
     pair_launches = {}
     for variant, counted in (("ring", ring.pair_tiles), ("dense", nonbonded.nonbonded_rows)):
         with tempfile.TemporaryDirectory() as tmp:
-            counted.launches = 0
+            reset_launches()
             _, lines = run_cli([
                 "simulate", "-o", "topology=example:full", "-o", "colvar.group2=[103]",
                 "-o", f"n_replicas={CLI_CHECK_REPLICAS}", "-o", f"n_steps={CLI_CHECK_STEPS}",
@@ -1833,7 +1921,7 @@ def bench_phase():
     calls of 40 launches each, three protocols)."""
     import bench_torch
 
-    fused_step.campaign_advance.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     record = bench_torch.run("cuda")
     seconds = time.perf_counter() - t0
@@ -1845,6 +1933,311 @@ def bench_phase():
           and {"gbis_steps_per_sec", "gbis_sasa_steps_per_sec"} <= set(record["secondary"]),
           f"bench record {record}")
     return record, launches, seconds
+
+
+# -- the training path and its data ---------------------------------------------
+
+
+def train_run(argv):
+    """One ``cli train <family> ...`` run: its wall seconds, ``eval.json``,
+    the logged losses (all finite) and the files it wrote, and the run's
+    directory."""
+    family = argv[0]
+    tag = f"cli train {' '.join(argv)}"
+    wall, _ = run_cli(["train", *argv])
+    out = pathlib.Path(argv[argv.index("--out-dir") + 1]) / family
+    generated = f"{'cGAN' if family == 'cgan' else family}_generated"
+    for name in ("eval.json", "train_log.csv", "best.ckpt", f"{generated}.xyz", f"{generated}.pdb"):
+        check((out / name).exists(), f"{tag}: {name} not written")
+    with open(out / "eval.json") as fh:
+        metrics = json.load(fh)
+    check(all(np.isfinite(v) for v in metrics.values()), f"{tag}: eval.json {metrics}")
+    with open(out / "train_log.csv") as fh:
+        losses = np.array([float(r["loss"]) for r in csv.DictReader(fh)])
+    check(len(losses) > 0 and np.isfinite(losses).all(), f"{tag}: non-finite logged losses")
+    coords = read_xyz(str(out / f"{generated}.xyz"))
+    check(np.isfinite(coords).all(), f"{tag}: non-finite generated structures")
+    return {"wall_seconds": wall, "eval": metrics, "logged_losses": len(losses),
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "generated": list(coords.shape)}, out
+
+
+def regenerate_phase(tmp):
+    """The SMD data-generation twin under GBIS (64 replicas x 20,000 steps,
+    every replica's frames written), through the campaign kernel, then the
+    104-atom cGAN pipeline on its frames at a reduced depth (into
+    ``tmp / "smd"`` and ``tmp / "runs104"``)."""
+    out = tmp / "smd"
+    n_saves = REGEN_STEPS // N_INNER
+    argv = ["--gbis", "--replicas", str(REGEN_REPLICAS), "--steps", str(REGEN_STEPS),
+            "--max-dump", str(REGEN_REPLICAS), "--pull", str(REGEN_PULL), "--out", str(out)]
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = regenerate_smd.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    tag = f"regenerate_smd {' '.join(argv[:-2])}"
+    check(rc == 0, f"{tag}: exit code {rc}")
+    check(launches["campaign_advance"] == n_saves,
+          f"{tag}: campaign kernel launched {launches['campaign_advance']} times, expected {n_saves}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(out / "summary.json") as fh:
+        check(json.load(fh) == summary, f"{tag}: summary.json differs from the printed line")
+    check(summary["frames_shape"] == [n_saves, REGEN_REPLICAS, 104, 3], f"{tag}: {summary}")
+    check(summary["all_finite"], f"{tag}: non-finite frames")
+    check(150.0 < summary["temperature_mean_K"] < 350.0,
+          f"{tag}: mean T over the second half {summary['temperature_mean_K']} K")
+    check(abs(summary["colvar_mean_lag_A"]) < 2.0,
+          f"{tag}: mean colvar lag over the second half {summary['colvar_mean_lag_A']} A")
+    files = sorted(out.glob("raw-traj_rep-*.npy"))
+    check(len(files) == REGEN_REPLICAS, f"{tag}: {len(files)} replica files")
+    dcd, _ = read_dcd(str(out / "rep0.dcd"))
+    check(np.array_equal(dcd, np.load(out / "raw-traj_rep-0.npy")),
+          f"{tag}: rep0.dcd differs from replica 0's frames")
+    with np.load(out / "full_log.npz") as full:
+        check(full["T"].shape == (n_saves, REGEN_REPLICAS), f"{tag}: full_log T {full['T'].shape}")
+    check((out / "sim_log.csv").exists(), f"{tag}: sim_log.csv not written")
+
+    # the 104-atom pipeline of docs/TRAINING.md on these frames, cut in depth
+    reset_launches()
+    cgan_res, _ = train_run([
+        "cgan", "--topology", "example:full", "--data", str(out / "raw-traj_rep-*.npy"),
+        "--stride", "10", "--epochs", "1", "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+        "--out-dir", str(tmp / "runs104")])
+    cgan_launches = read_launches()
+    return {"argv": argv, "wall_seconds": wall, "summary": summary, "launches": launches,
+            "cgan_104": {**cgan_res, "launches": cgan_launches}}, launches, cgan_launches
+
+
+def train_systems(traj, n_atoms, weights, device, dtype):
+    """(force field, generator with ``weights``, discriminator, the
+    training driver's data-anchored bias) of the 40-atom backbone or the 104-atom
+    system, on ``device`` in ``dtype``."""
+    from molecular_dynamics_tpu_torch.train.drivers import _data_bias
+
+    topology = "example:backbone" if n_atoms == 40 else "example:full"
+    ff = cli._load_system(topology, "", dtype=dtype, device=device)[0]
+    gen = Generator(n_atoms, dtype=dtype, device=device)
+    gen.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in weights.items()})
+    disc = Discriminator(n_atoms * 3, dtype=dtype, device=device,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    return ff, gen, disc, _data_bias(traj, n_atoms, device, dtype)
+
+
+def flat_params(module):
+    return torch.cat([p.detach().reshape(-1).double().cpu() for p in module.parameters()])
+
+
+def step_vs_float64(traj, weights, batch, dev):
+    """One informed and one pretrain step (alpha 0.01) of the 40-atom
+    backbone: the card's float32 steps against the port's float64 steps on
+    the CPU, from the same weights, latents and batch. Loss, gradient norm
+    and direction before the updates, and the generator's parameters after
+    both, relative; then the clipped Adam alone (``adam_vs_float64``) on the
+    card's own two gradients."""
+    z, frames, times = batch
+    res = {}
+    sides = {}
+    for side, device, dtype in (("card", dev, torch.float32),
+                                ("cpu_f64", torch.device("cpu"), torch.float64)):
+        ff, gen, disc, bias = train_systems(traj, 40, weights, device, dtype)
+        trainer = tcgan.CGANTrainer(gen, disc, ff, bias=bias)
+        pretrain = tcgan.PretrainStep(gen, ff, lr=1e-3)
+        zt, ft, tt = (torch.as_tensor(a, device=device, dtype=dtype) for a in (z, frames, times))
+        out = {"start": flat_params(gen)}
+        for name, loss_fn in (("informed", lambda: trainer.informed_loss(zt, tt)),
+                              ("pretrain", lambda: pretrain.loss(zt, ft, tt, 0.01)[0])):
+            loss = loss_fn()
+            out[name] = (float(loss.detach()), torch.autograd.grad(loss, list(gen.parameters())))
+        # the updates themselves: the informed step's loss is the one above
+        out["informed_step_loss"] = float(trainer.informed_step(zt, tt))
+        pretrain(zt, ft, tt, 0.01)
+        out["after"] = flat_params(gen)
+        sides[side] = out
+    for name in ("informed", "pretrain"):
+        (l32, g32), (l64, g64) = sides["card"][name], sides["cpu_f64"][name]
+        g32, g64 = (torch.cat([g.reshape(-1).double().cpu() for g in grads]) for grads in (g32, g64))
+        n32, n64 = float(g32.norm()), float(g64.norm())
+        row = {"loss_card": l32, "loss_cpu_f64": l64, "loss_rel_err": abs(l32 - l64) / abs(l64),
+               "grad_norm_card": n32, "grad_norm_cpu_f64": n64,
+               "grad_norm_rel_err": abs(n32 - n64) / n64,
+               "grad_direction_err": float((g32 / n32 - g64 / n64).norm())}
+        for key in ("loss_rel_err", "grad_norm_rel_err", "grad_direction_err"):
+            check(row[key] <= TOL_TRAIN_STEP, f"{name} step, card vs float64: {row}")
+        res[name] = row
+    res["informed"]["step_loss_card"] = sides["card"]["informed_step_loss"]
+    check(abs(sides["card"]["informed_step_loss"] - sides["card"]["informed"][0])
+          <= TOL_TRAIN_STEP * abs(sides["card"]["informed"][0]), f"informed step loss {res}")
+    # the generator after the informed and the pretrain update: the
+    # parameters against float64's, and the change the two updates made
+    # against float64's change
+    start = sides["cpu_f64"]["start"]
+    p32, p64 = sides["card"]["after"], sides["cpu_f64"]["after"]
+    moved = p64 - start
+    res["params_after"] = {
+        "param_rel_err": float((p32 - p64).norm() / p64.norm()),
+        "update_rel_err": float((p32 - start - moved).norm() / moved.norm()),
+        "update_norm_cpu_f64": float(moved.norm()), "param_norm_cpu_f64": float(p64.norm())}
+    for key in ("param_rel_err", "update_rel_err"):
+        check(res["params_after"][key] <= TOL_TRAIN_STEP,
+              f"generator after an informed and a pretrain step, card vs float64: {res['params_after']}")
+    res["adam_vs_float64"] = adam_vs_float64(
+        weights, [sides["card"][name][1] for name in ("informed", "pretrain")], dev)
+    res["tolerance"] = TOL_TRAIN_STEP
+    return res
+
+
+def adam_vs_float64(weights, grad_steps, dev):
+    """The clipped Adam the card applies (torch's multi-tensor Adam on CUDA)
+    against float64's on the CPU (its per-parameter loop), both fed the same
+    gradients, one update per list in ``grad_steps`` (the clip fires on
+    each whose norm in ``grad_norms`` exceeds 1): the change in the
+    generator's parameters, relative."""
+    moved = {}
+    for side, device, dtype in (("card", dev, torch.float32),
+                                ("cpu_f64", torch.device("cpu"), torch.float64)):
+        gen = Generator(40, dtype=dtype, device=device)
+        gen.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in weights.items()})
+        start = flat_params(gen)
+        opt = ClippedAdam(gen.parameters(), lr=1e-3, clip_norm=1.0)
+        for grads in grad_steps:
+            opt.step([g.to(device=device, dtype=dtype) for g in grads])
+        moved[side] = flat_params(gen) - start
+    err = float((moved["card"] - moved["cpu_f64"]).norm() / moved["cpu_f64"].norm())
+    norms = [float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads))) for grads in grad_steps]
+    res = {"update_rel_err": err, "grad_norms": norms, "lr": 1e-3, "clip_norm": 1.0,
+           "update_norm_cpu_f64": float(moved["cpu_f64"].norm())}
+    check(err <= TOL_TRAIN_STEP, f"clipped Adam, card vs float64: {res}")
+    return res
+
+
+def informed_census(trainer, z, t, steps=5):
+    """Kernel launches and host ms of one informed step, by source: the
+    generator's forward, the batched energy and bias (forward), the
+    backward pass, the optimizer (clip + Adam); outside them the rest of the
+    step (the loss arithmetic)."""
+
+    from torch.profiler import record_function
+
+    def descend(opt, loss):
+        with record_function("census:backward"):
+            grads = torch.autograd.grad(loss, opt.params)
+        with record_function("census:optimizer"):
+            opt.step(grads)
+
+    trainer.generate = labelled("generator", trainer.generate)
+    try:
+        with patched(((tcgan, "potential_loss", labelled("energy", tcgan.potential_loss)),
+                      (tcgan, "bias_energy_loss", labelled("energy", tcgan.bias_energy_loss)),
+                      (tcgan, "_descend", descend))):
+            res = census_by_source(lambda: trainer.informed_step(z, t),
+                                   ("generator", "energy", "backward", "optimizer"), steps)
+    finally:
+        del trainer.generate
+    sources = ("generator", "energy", "backward", "optimizer")
+    count, host = res["launches"], res["host_ms"]
+    return {
+        "atoms": trainer.generator.n_atoms, "batch": int(z.shape[0]), "steps": steps,
+        "by_source": {k: {"launches_per_step": count[k], "host_ms_per_step": host[k]}
+                      for k in sources},
+        "rest_of_step": {"launches_per_step": count["step"],
+                         "host_ms_per_step": host["step"] - sum(host[k] for k in sources)},
+        **{k: res[k] for k in ("launches_per_step", "device_kernels_per_step",
+                                "wall_ms_per_step", "device_ms_per_step", "device_busy_share")},
+    }
+
+
+def update_rates(trainer, pretrain, z, frames, t, repeats=30):
+    """Updates and samples a second of each phase (after a warm-up), the
+    host clock around ``repeats`` updates ending in a synchronisation."""
+    rates = {}
+    for name, fn in (("pretrain", lambda: pretrain(z, frames, t, 0.01)),
+                     ("g", lambda: trainer.g_step(z, t)),
+                     ("d", lambda: trainer.d_step(z, frames, t)),
+                     ("informed", lambda: trainer.informed_step(z, t))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+        per_s = repeats / (time.perf_counter() - t0)
+        rates[name] = {"updates_per_s": per_s, "samples_per_s": per_s * int(z.shape[0]),
+                       "ms_per_update": 1e3 / per_s}
+    return rates
+
+
+def flagship_forward(dev):
+    """The flagship forward (the generator's structures and their
+    per-sample potential energy, batch 8, the 40-atom backbone), timed."""
+    top, _ = decaalanine_backbone()
+    ff = build_ff_params(top, YamlForceField(BACKBONE_FF_PRM), device=dev)
+    gen = Generator(top.n_atoms, latent_dim=31, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    z = torch.zeros((8, 31), device=dev)
+    t = torch.linspace(0.0, 1.0, 8, device=dev)
+
+    def forward():
+        with torch.no_grad():
+            coords = gen.coords(z, t)
+            return coords, total_energy(coords, ff)
+
+    coords, energies = forward()
+    check(tuple(coords.shape) == (8, top.n_atoms, 3) and tuple(energies.shape) == (8,),
+          f"flagship forward shapes {tuple(coords.shape)}, {tuple(energies.shape)}")
+    # at z = 0 and t = 0 every layer's input is zero and so is its output
+    # (zero biases): all atoms at the origin, whose energy is NaN, as in the
+    # JAX package's forward on the same arguments
+    check(bool(torch.isfinite(coords).all() & torch.isfinite(energies[1:]).all()),
+          f"flagship forward: non-finite output {energies.tolist()}")
+    return {"batch": 8, "atoms": top.n_atoms, "ms": time_ms(forward, repeats=50),
+            "device_ms": device_ms(forward), "energies_t_above_0": energies[1:].tolist(),
+            "energy_t0_finite": bool(torch.isfinite(energies[0]))}
+
+
+def train_phase(tmp, dev):
+    """The training path on the card: the quality gates on the in-repo
+    40-atom data, the card's steps against float64, the informed step's
+    census at 40 atoms and at 104 (the regenerate phase's frames and
+    generator, in ``tmp``), the update rates and the flagship forward."""
+    from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData, frame_time_batches
+
+    res, launches = {}, {}
+    pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
+    for family, (epochs, ceiling) in TRAIN_BUDGET.items():
+        reset_launches()
+        run, run_dir = train_run([family, "--data", pattern, "--epochs", str(epochs),
+                                  "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+                                  "--out-dir", str(tmp / "runs40")])
+        launches[family] = read_launches()
+        e2e = run["eval"]["mean_abs_error"]
+        check(e2e <= ceiling,
+              f"train {family} --epochs {epochs}: mean_abs_error {e2e} A above the ceiling {ceiling}")
+        res[family] = {**run, "epochs": epochs, "ceiling_A": ceiling, "launches": launches[family]}
+
+    traj = TrajectoryData.from_npy_glob(pattern)
+    frames, times = next(frame_time_batches(traj, TRAIN_BATCH, np.random.default_rng(0)))
+    z = np.random.default_rng(1).standard_normal((TRAIN_BATCH, 31))
+    # the pretrained generator of the run above: the weights an informed step meets
+    pretrained = torch.load(tmp / "runs40" / "pretrain" / "best.ckpt", weights_only=True)
+    res["step_vs_float64"] = step_vs_float64(traj, pretrained, (z, frames, times), dev)
+
+    zt, ft, tt = (torch.as_tensor(a, device=dev, dtype=torch.float32) for a in (z, frames, times))
+    ff, gen, disc, bias = train_systems(traj, 40, pretrained, dev, torch.float32)
+    trainer = tcgan.CGANTrainer(gen, disc, ff, bias=bias)
+    res["census_informed_40"] = informed_census(trainer, zt, tt)
+    res["update_rates_40"] = update_rates(trainer, tcgan.PretrainStep(gen, ff, lr=1e-3),
+                                          zt, ft, tt)
+    traj104 = TrajectoryData.from_npy_glob(str(tmp / "smd" / "raw-traj_rep-*.npy"), stride=10)
+    weights104 = torch.load(tmp / "runs104" / "cgan" / "best.ckpt", weights_only=True)
+    ff104, gen104, disc104, bias104 = train_systems(traj104, 104, weights104, dev, torch.float32)
+    trainer104 = tcgan.CGANTrainer(gen104, disc104, ff104, bias=bias104)
+    res["census_informed_104"] = informed_census(trainer104, zt, tt)
+    res["flagship_forward"] = flagship_forward(dev)
+    return res, launches
 
 
 def main():
@@ -2543,8 +2936,7 @@ def main():
         dt_fs=2.0, temperature=300.0, fused_campaign=True, constrain_h_bonds=True
     )
 
-    fused_step.campaign_advance.launches = 0
-    ring.pair_forces.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     final, frames, log = simulate_ensemble(
         ens, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias
@@ -2668,7 +3060,7 @@ def main():
             dt_fs=2.0, temperature=300.0, energy=GBIS_CONFIG, fused_campaign=True,
             constrain_h_bonds=True, sasa_every=every,
         )
-        fused_step.campaign_advance.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         final_g, frames_g, log_g = simulate_ensemble(
             ens_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g)
@@ -2723,8 +3115,7 @@ def main():
     # sasa_forces launch a step, the rest from autograd), at the main shape
     cfg_solv = SimulationConfig(
         dt_fs=2.0, temperature=300.0, energy=GBIS_CONFIG, constrain_h_bonds=True)
-    gb.gb_forces.launches = 0
-    sasa.sasa_forces.launches = 0
+    reset_launches()
     final_solv, fr_solv, _ = simulate_ensemble(
         ens_g, ff, n_steps=SOLVENT_PATH_STEPS, save_every=2, config=cfg_solv, bias=bias_g)
     torch.cuda.synchronize()
@@ -2809,6 +3200,26 @@ def main():
     emit("bench", record=bench_record, campaign_kernel_launches=bench_launches,
          seconds=round(bench_s, 1), device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
+
+    # -- the SMD data-generation twin, and the training path --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t_phase = time.perf_counter()
+        regen_res, regen_launches, regen_train_launches = regenerate_phase(tmp)
+        emit("regenerate", **regen_res, seconds=round(time.perf_counter() - t_phase, 1),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             script_seconds=round(time.perf_counter() - t_script, 1))
+        t_phase = time.perf_counter()
+        train_res, train_launches = train_phase(tmp, dev)
+        emit("train", **train_res, seconds=round(time.perf_counter() - t_phase, 1),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             script_seconds=round(time.perf_counter() - t_script, 1))
+    # the training path reaches no kernel: the energy of a generated batch is
+    # the plain PyTorch energy, differentiated by autograd
+    train_total = {name: regen_train_launches[name] + sum(run[name] for run in train_launches.values())
+                   for name in regen_train_launches}
+    check(not any(train_total.values()), f"cli train launched kernels: {train_total}")
+
     kernels["campaign_advance"]["launches_by_path"] = {
         f"simulate_ensemble(fused_campaign) {N_REPLICAS} x {N_STEPS}": launches_k1,
         f"cli simulate example:full vacuum {N_REPLICAS} x {N_STEPS}":
@@ -2831,6 +3242,16 @@ def main():
         }
     kernels["pair_tiles"]["launches_by_path"][
         f"simulate_ensemble(fused_nonbonded) {N_REPLICAS} x {PAIR_PATH_STEPS}"] = launches_k6_main
+    regen_path = f"regenerate: regenerate_smd --gbis {REGEN_REPLICAS} x {REGEN_STEPS}"
+    train_path = "train: cli train pretrain and cgan (40 atoms), cgan (104 atoms)"
+    for row, counter in (("pair_forces", "pair_forces"), ("campaign_advance", None),
+                         ("gb_forces", "gb_forces"), ("sasa_forces", "sasa_forces"),
+                         ("campaign_advance[gbis]", "campaign_advance"),
+                         ("nonbonded_rows", "nonbonded_rows"), ("pair_tiles", "pair_tiles")):
+        by_path = kernels[row].setdefault("launches_by_path", {})
+        # the twin runs under GBIS: every campaign launch is the solvent instantiation
+        by_path[regen_path] = 0 if counter is None else regen_launches[counter]
+        by_path[train_path] = train_total["campaign_advance" if counter is None else counter]
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

@@ -24,12 +24,17 @@ force path, and the command line with the host I/O it needs:
   ``gb.gb_forces``, ``sasa.sasa_forces`` and ``make_fused_campaign_op``
   (CUDA kernels with plain PyTorch versions beside them)
 - ``config``, ``log`` and ``cli`` (``python -m
-  molecular_dynamics_tpu_torch.cli simulate | energy | convert | bench``)
+  molecular_dynamics_tpu_torch.cli simulate | energy | train | convert |
+  bench``)
+- ``features``, ``evaluate``, ``models`` (the flagship cGAN) and ``train``
+  (its losses, datasets, checkpoints, updates and drivers: ``train
+  pretrain | cgan``); ``regenerate_smd``, the SMD training-data campaign
 - ``convert`` — numpy arrays into the port's objects
 
 Not ported yet (ROADMAP.md §A): prmtop/chamber, CHARMM ``.prm`` with CMAP,
-xtc, mol2, sdf, xsc, the native codec, the CMAP and repulsion terms, the
-model zoo and its training, and sharding over several devices.
+xtc, mol2, sdf, xsc, the native codec, the CMAP and repulsion terms,
+``utils/vmd.py``, the other model families and their training, and
+sharding over several devices.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``--device cpu`` on the command line).

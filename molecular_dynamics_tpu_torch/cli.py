@@ -4,13 +4,15 @@
 sub-commands and options of the JAX package's ``mdx``: ``simulate`` runs a
 replica SMD campaign and leaves per-replica ``.npy`` trajectories, a DCD and
 an XYZ of replica 0 and a CSV log; ``energy`` prints per-term energies;
-``convert`` turns trajectories into ``.npy`` or PDB; ``bench`` runs
-``bench_torch.py``. One option more, ``--device`` (default ``cuda``): the
-commands run on the card unless the caller asks for the CPU.
+``train pretrain | cgan`` trains the flagship generator and leaves its
+log, best checkpoint, generated structures and ``eval.json``; ``convert``
+turns trajectories into ``.npy`` or PDB; ``bench`` runs ``bench_torch.py``.
+One option more, ``--device`` (default ``cuda``): the commands run on the
+card unless the caller asks for the CPU.
 
-Not ported yet, and raising with the ROADMAP item that brings them:
-``train`` (A10-A13), ``--devices`` above 1 (A14), ``.prmtop`` topologies and
-``.xtc`` / ``.mdxtc`` trajectories (A8).
+Not ported yet, and raising with the ROADMAP item that brings them: the
+other training families (A11-A13), ``--devices`` above 1 (A14),
+``.prmtop`` topologies and ``.xtc`` / ``.mdxtc`` trajectories (A8).
 """
 
 from __future__ import annotations
@@ -263,9 +265,20 @@ def cmd_energy(args) -> int:
 
 
 def cmd_train(args) -> int:
-    raise NotImplementedError(
-        f"train {args.family}: the model zoo and its training loops are not "
-        "ported yet (ROADMAP A10-A13)"
+    from molecular_dynamics_tpu_torch.train.drivers import run_training
+
+    return run_training(
+        family=args.family,
+        data=args.data,
+        data_stride=args.stride,
+        topology=args.topology,
+        parameters=args.parameters,
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        out_dir=args.out_dir,
+        seed=args.seed,
+        devices=args.devices,
+        device=args.device,
     )
 
 
@@ -388,7 +401,8 @@ def main(argv=None) -> int:
     device_option(p_en)
     p_en.set_defaults(fn=cmd_energy)
 
-    p_tr = sub.add_parser("train", help="train a model family (not ported yet)")
+    p_tr = sub.add_parser(
+        "train", help="train a model family (pretrain and cgan; the others are not ported yet)")
     p_tr.add_argument("family", choices=[
         "pretrain", "cgan", "hnn", "hnn-schnet", "hnn-latent", "lstm", "lstm-nll", "seq2seq",
         "seq2seq-graph", "seq2seq-gan", "lstm-gat", "aae", "flow", "vae", "transformer",
@@ -404,7 +418,7 @@ def main(argv=None) -> int:
     p_tr.add_argument("--out-dir", default="runs")
     p_tr.add_argument("--seed", type=int, default=0)
     p_tr.add_argument("--devices", type=int, default=0,
-                      help="data-parallel training over N devices")
+                      help="data-parallel training over N devices (not ported yet above 1)")
     device_option(p_tr)
     p_tr.set_defaults(fn=cmd_train)
 

@@ -1,9 +1,9 @@
 """Numpy arrays into the port's objects.
 
 The port never imports the JAX package, so whatever crosses between the two
-(force-field tables, an MD state, a bias, a constraint set) crosses as numpy
-arrays: the caller pulls the leaves out of the JAX objects with
-``np.asarray`` and hands them over here.
+(force-field tables, an MD state, a bias, a constraint set, a model's
+weights) crosses as numpy arrays: the caller pulls the leaves out of the
+JAX objects with ``np.asarray`` and hands them over here.
 """
 
 from __future__ import annotations
@@ -131,3 +131,40 @@ def constraints_from_numpy(
         lengths=torch.as_tensor(np.asarray(lengths, np.float64), device=device).to(dtype),
         inv_mass=torch.as_tensor(np.asarray(inv_mass, np.float64), device=device).to(dtype),
     )
+
+
+def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
+    """A flax dense stack's params, as numpy arrays
+    (``{"params": {"Dense_i": {"kernel": (in, out), "bias": (out,)}}}``),
+    as the ``state_dict`` of a port module whose layers are its ``layers``
+    list (``models.MLP``, ``models.Generator``, ``models.Discriminator``):
+    ``layers.i.weight`` is the kernel transposed, ``(out, in)``. CPU
+    tensors; ``load_state_dict`` copies them onto the module's device."""
+    tree = params.get("params", params)
+    out = {}
+    for name, leaf in tree.items():
+        prefix, _, index = name.rpartition("_")
+        if prefix != "Dense" or not index.isdigit():
+            raise KeyError(f"not a flax Dense layer: {name!r}")
+        kernel = torch.as_tensor(np.array(leaf["kernel"]).T.copy())
+        bias = torch.as_tensor(np.array(leaf["bias"]))
+        if dtype is not None:
+            kernel, bias = kernel.to(dtype), bias.to(dtype)
+        out[f"layers.{index}.weight"] = kernel
+        out[f"layers.{index}.bias"] = bias
+    return out
+
+
+def state_dict_to_flax_params(state_dict: Mapping) -> dict:
+    """The inverse of ``flax_params_to_state_dict``: numpy arrays in flax's
+    layout, ``{"params": {"Dense_i": {"kernel", "bias"}}}``."""
+    tree = {}
+    for key, value in state_dict.items():
+        _, index, kind = key.split(".")
+        arr = value.detach().cpu().numpy()
+        leaf = tree.setdefault(f"Dense_{index}", {})
+        if kind == "weight":
+            leaf["kernel"] = arr.T.copy()
+        else:
+            leaf["bias"] = arr.copy()
+    return {"params": tree}

@@ -1,9 +1,10 @@
-"""Metrics logging: CSV simulation logs.
+"""Metrics logging: CSV logs and loss plots.
 
 ``CSVLogger`` is an append-mode CSV with a fixed column set and resume
 support; ``write_simulation_log`` writes a campaign's log in one file (the
-torchmd ``LogWriter`` columns and the colvar centre/value traces). Numpy
-only. ``plot_losses`` comes with the training slice.
+torchmd ``LogWriter`` columns and the colvar centre/value traces);
+``plot_losses`` draws a training run's loss curves where matplotlib is
+installed. Numpy only.
 """
 
 from __future__ import annotations
@@ -75,3 +76,28 @@ def write_simulation_log(path: str, log: Dict[str, np.ndarray]) -> None:
             for i in range(n):
                 w.writerow([i] + [arrs[k][i] for k in keys])
 
+
+
+def plot_losses(
+    path: str, curves: Dict[str, Sequence[float]], title: str = "training"
+) -> bool:
+    """Loss-curve PNG, one line a curve. Returns False (and writes nothing)
+    where matplotlib is not installed."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return False
+    fig, ax = plt.subplots(figsize=(7, 4))
+    for name, values in curves.items():
+        ax.plot(values, label=name)
+    ax.set_xlabel("step")
+    ax.set_ylabel("loss")
+    ax.set_title(title)
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(path, dpi=110)
+    plt.close(fig)
+    return True

@@ -1,0 +1,35 @@
+"""Training harness: losses, datasets, checkpoints and the flagship loops.
+
+Ported so far: the physics-informed cGAN and its decoder pretraining
+(``train.cgan``), driven end to end by ``train.drivers.run_training``
+(``cli train pretrain | cgan``). Every energy evaluation is one batched
+call of ``energy.energy_terms`` on a ``(B, N, 3)`` tensor inside the
+update, differentiated by ``torch.autograd``. The HNN, sequence and
+generative families are queued in ROADMAP.md §A (A11-A13).
+"""
+
+from molecular_dynamics_tpu_torch.train.losses import (
+    potential_loss,
+    bias_energy_loss,
+    distance_matrix_loss,
+    torsion_loss,
+    window_composite_loss,
+)
+from molecular_dynamics_tpu_torch.train.datasets import (
+    TrajectoryData,
+    frame_time_batches,
+    window_batches,
+    phase_space_pairs,
+)
+
+__all__ = [
+    "potential_loss",
+    "bias_energy_loss",
+    "distance_matrix_loss",
+    "torsion_loss",
+    "window_composite_loss",
+    "TrajectoryData",
+    "frame_time_batches",
+    "window_batches",
+    "phase_space_pairs",
+]
