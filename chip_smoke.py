@@ -109,6 +109,18 @@ Phases, one JSON line each on standard output:
    phases; the flagship forward (generated structures and their energies,
    batch 8), timed. The training path launches no kernel; the run fails if
    it does.
+   ``dynamics``: the Hamiltonian dynamics line on the same data: ``cli
+   train node --epochs 8`` under the JAX package's live-quality ceiling
+   (mean_abs_error 1.10 A), ``hnn``, ``hnn-schnet`` and ``hnn-latent`` at 2
+   epochs under the 100 A sanity bound (eval.json finite, the generated
+   rollouts finite); from the four runs' trained weights, every step kind
+   (HNN and SchNet HNN L2, informed and 10-step unroll; node's RK4 step and
+   10-frame chained-solver update; the latent HNN's update) on the card
+   against float64 on the CPU (loss, gradient norm and direction, the
+   parameters after one clipped-Adam update); the update rates of each at
+   40 atoms x batch 32; a launch census of an HNN informed step and a node
+   unroll update (field, energy, backward, optimizer) with the device's
+   busy share. No kernel launches there either; the run fails if one does.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
@@ -201,6 +213,7 @@ from molecular_dynamics_tpu_torch import regenerate_smd
 from molecular_dynamics_tpu_torch.models import Discriminator, Generator
 from molecular_dynamics_tpu_torch.train import cgan as tcgan
 from molecular_dynamics_tpu_torch.train.common import ClippedAdam
+from molecular_dynamics_tpu_torch.train.drivers import GENERATED
 
 N_REPLICAS = 1024
 N_INNER = 50
@@ -236,8 +249,17 @@ REGEN_PULL = 0.88
 #: quality guard (tests/test_train_quality.py, LIVE_BUDGET): an untrained
 #: generator scores above 4 A there
 TRAIN_DATA = pathlib.Path(__file__).resolve().parent / "datasets" / "backbone_smd"
-TRAIN_BUDGET = {"pretrain": (4, 2.20), "cgan": (3, 2.60)}
+TRAIN_BUDGET = {"pretrain": (4, 2.20), "cgan": (3, 2.60), "node": (8, 1.10)}
 TRAIN_BATCH = 32
+#: the dynamics phase: ``node`` at its live budget above; the three HNN
+#: families at this depth, held to the sanity bound of the JAX package's
+#: driver test (tests/test_train.py: generated e2e within 100 A of the data)
+DYNAMICS_EPOCHS = 2
+DYNAMICS_SANITY_A = 100.0
+#: the float64 step checks of the SchNet HNN run at this batch (its filters
+#: are (B, 40, 40, 64) tensors, and the CPU side differentiates ten chained
+#: frames of them twice); the others at TRAIN_BATCH
+SCHNET_CHECK_BATCH = 8
 #: one informed and one pretrain step on the card (float32) against the same
 #: steps on the CPU in float64: loss, gradient norm and direction, the
 #: generator's parameters after both, and the clipped Adam's change on the
@@ -1946,7 +1968,7 @@ def train_run(argv):
     tag = f"cli train {' '.join(argv)}"
     wall, _ = run_cli(["train", *argv])
     out = pathlib.Path(argv[argv.index("--out-dir") + 1]) / family
-    generated = f"{'cGAN' if family == 'cgan' else family}_generated"
+    generated = GENERATED[family]
     for name in ("eval.json", "train_log.csv", "best.ckpt", f"{generated}.xyz", f"{generated}.pdb"):
         check((out / name).exists(), f"{tag}: {name} not written")
     with open(out / "eval.json") as fh:
@@ -2114,33 +2136,25 @@ def adam_vs_float64(weights, grad_steps, dev):
     return res
 
 
-def informed_census(trainer, z, t, steps=5):
-    """Kernel launches and host ms of one informed step, by source: the
-    generator's forward, the batched energy and bias (forward), the
-    backward pass, the optimizer (clip + Adam); outside them the rest of the
-    step (the loss arithmetic)."""
-
+def census_descend(opt, loss):
+    """``train.common.descend`` in two census ranges: the backward pass and
+    the optimizer."""
     from torch.profiler import record_function
 
-    def descend(opt, loss):
-        with record_function("census:backward"):
-            grads = torch.autograd.grad(loss, opt.params)
-        with record_function("census:optimizer"):
-            opt.step(grads)
+    with record_function("census:backward"):
+        grads = torch.autograd.grad(loss, opt.params, materialize_grads=True)
+    with record_function("census:optimizer"):
+        opt.step(grads)
 
-    trainer.generate = labelled("generator", trainer.generate)
-    try:
-        with patched(((tcgan, "potential_loss", labelled("energy", tcgan.potential_loss)),
-                      (tcgan, "bias_energy_loss", labelled("energy", tcgan.bias_energy_loss)),
-                      (tcgan, "_descend", descend))):
-            res = census_by_source(lambda: trainer.informed_step(z, t),
-                                   ("generator", "energy", "backward", "optimizer"), steps)
-    finally:
-        del trainer.generate
-    sources = ("generator", "energy", "backward", "optimizer")
+
+def census_summary(res, sources, **fields):
+    """A ``census_by_source`` result as a record: ``fields``, launches and
+    host ms a step by source, the rest of the step outside every source,
+    and the step's launches, device kernels, wall and device ms and busy
+    share."""
     count, host = res["launches"], res["host_ms"]
     return {
-        "atoms": trainer.generator.n_atoms, "batch": int(z.shape[0]), "steps": steps,
+        **fields,
         "by_source": {k: {"launches_per_step": count[k], "host_ms_per_step": host[k]}
                       for k in sources},
         "rest_of_step": {"launches_per_step": count["step"],
@@ -2148,6 +2162,24 @@ def informed_census(trainer, z, t, steps=5):
         **{k: res[k] for k in ("launches_per_step", "device_kernels_per_step",
                                 "wall_ms_per_step", "device_ms_per_step", "device_busy_share")},
     }
+
+
+def informed_census(trainer, z, t, steps=5):
+    """Kernel launches and host ms of one informed step, by source: the
+    generator's forward, the batched energy and bias (forward), the
+    backward pass, the optimizer (clip + Adam); outside them the rest of the
+    step (the loss arithmetic)."""
+    trainer.generate = labelled("generator", trainer.generate)
+    try:
+        with patched(((tcgan, "potential_loss", labelled("energy", tcgan.potential_loss)),
+                      (tcgan, "bias_energy_loss", labelled("energy", tcgan.bias_energy_loss)),
+                      (tcgan, "descend", census_descend))):
+            res = census_by_source(lambda: trainer.informed_step(z, t),
+                                   ("generator", "energy", "backward", "optimizer"), steps)
+    finally:
+        del trainer.generate
+    return census_summary(res, ("generator", "energy", "backward", "optimizer"),
+                          atoms=trainer.generator.n_atoms, batch=int(z.shape[0]), steps=steps)
 
 
 def update_rates(trainer, pretrain, z, frames, t, repeats=30):
@@ -2207,7 +2239,8 @@ def train_phase(tmp, dev):
 
     res, launches = {}, {}
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
-    for family, (epochs, ceiling) in TRAIN_BUDGET.items():
+    for family in ("pretrain", "cgan"):
+        epochs, ceiling = TRAIN_BUDGET[family]
         reset_launches()
         run, run_dir = train_run([family, "--data", pattern, "--epochs", str(epochs),
                                   "--batch-size", str(TRAIN_BATCH), "--seed", "0",
@@ -2237,6 +2270,218 @@ def train_phase(tmp, dev):
     trainer104 = tcgan.CGANTrainer(gen104, disc104, ff104, bias=bias104)
     res["census_informed_104"] = informed_census(trainer104, zt, tt)
     res["flagship_forward"] = flagship_forward(dev)
+    return res, launches
+
+
+# -- the Hamiltonian dynamics line ------------------------------------------------
+
+
+def dynamics_data(pattern, dev):
+    """The in-repo 40-atom data as the dynamics drivers see it: phase-space
+    rows (x, dx) and whitened frame pairs, a batch of row indices (the first
+    of a seeded permutation, TRAIN_BATCH rows whose 10-frame windows stay
+    inside their trajectory) and the node driver's clamps."""
+    from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData, phase_space_pairs
+    from molecular_dynamics_tpu_torch.train.drivers import _segments, _whitened
+
+    traj = TrajectoryData.from_npy_glob(pattern)
+    x, dx = phase_space_pairs(traj)
+    _, windows = _segments(traj, 10)
+    sel = np.random.default_rng(0).permutation(windows)[:TRAIN_BATCH]
+    white, _, _ = _whitened(traj)
+    flats = [w.reshape(len(w), -1) for w in white.trajectories]
+    x0 = np.concatenate([f[:-1] for f in flats])
+    x1 = np.concatenate([f[1:] for f in flats])
+    return {
+        "x": x[sel], "dx": dx[sel], "dx_seq": np.stack([dx[j: j + 10] for j in sel]),
+        "x_seq": np.stack([x[j + 1: j + 11] for j in sel]),
+        "lo": x.min(axis=0) - 1.0, "hi": x.max(axis=0) + 1.0,
+        "max_step": float(np.quantile(np.abs(dx), 0.999)) * 2.0,
+        "z0": x0[sel], "z1": x1[sel],
+    }
+
+
+def dynamics_models(runs, device, dtype):
+    """The four trained models of the phase's runs (their best.ckpt: the
+    weights each eval.json scored), on ``device`` in ``dtype``."""
+    from molecular_dynamics_tpu_torch.models import HNN, LatentHNN
+    from molecular_dynamics_tpu_torch.models.schnet import SchNetHNN
+
+    built = {"hnn": HNN(240, (200, 200), device=device, dtype=dtype),
+             "hnn-schnet": SchNetHNN(40, rbf=32, device=device, dtype=dtype),
+             "node": HNN(240, (200, 200), device=device, dtype=dtype),
+             "hnn-latent": LatentHNN(120, 16, device=device, dtype=dtype)}
+    for family, module in built.items():
+        state = torch.load(runs / family / "best.ckpt", weights_only=True)
+        module.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in state.items()})
+    return built
+
+
+def dynamics_steps(ff, models, data, device, dtype, schnet_rows=TRAIN_BATCH):
+    """Each step kind of the line as (name, module, loss thunk, rows): the
+    HNN and SchNet HNN L2, informed and 10-step unroll losses (the SchNet
+    HNN on its first ``schnet_rows`` rows), node's RK4 step and its
+    10-frame chained-solver loss, the latent HNN's loss. Every update is
+    ``ClippedAdam(lr 1e-3, clip 1.0)`` down that loss."""
+    from molecular_dynamics_tpu_torch.train import drivers
+    from molecular_dynamics_tpu_torch.train import hnn as thnn_train
+
+    a = {k: torch.as_tensor(v, device=device, dtype=dtype) if isinstance(v, np.ndarray) else v
+         for k, v in data.items()}
+    steps = []
+    for family, rows in (("hnn", TRAIN_BATCH), ("hnn-schnet", schnet_rows)):
+        m = models[family]
+        x, dx, seq = a["x"][:rows], a["dx"][:rows], a["dx_seq"][:rows]
+        steps += [
+            (f"{family}.l2", m, lambda m=m, x=x, dx=dx: thnn_train.l2_loss(m, x, dx), rows),
+            (f"{family}.informed", m,
+             lambda m=m, x=x, dx=dx: thnn_train.informed_loss(m, ff, x, dx)[0], rows),
+            (f"{family}.unroll", m, lambda m=m, x=x, seq=seq: thnn_train.unroll_loss(m, x, seq),
+             rows),
+        ]
+    m = models["node"]
+    steps += [
+        ("node.step", m, lambda: drivers._node_step_loss(m, a["x"], a["dx"]), TRAIN_BATCH),
+        ("node.unroll", m, lambda: drivers._node_unroll_loss(
+            m, a["x"], a["x_seq"], 1.0, 1, a["max_step"], a["lo"], a["hi"]), TRAIN_BATCH),
+        ("hnn-latent.step", models["hnn-latent"], lambda: drivers._latent_hnn_loss(
+            models["hnn-latent"], a["z0"], a["z1"], 1.0, 1e-3), TRAIN_BATCH),
+    ]
+    return steps
+
+
+def dynamics_vs_float64(runs, data, dev):
+    """Each step kind on the card (float32) against the same step in float64
+    on the CPU, from the same trained weights and rows (the SchNet HNN's at
+    SCHNET_CHECK_BATCH rows): the loss, the gradient's norm and direction,
+    and the parameters after one update of a fresh clipped Adam (their
+    change against float64's change), relative."""
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam
+
+    sides = {}
+    for side, device, dtype in (("card", dev, torch.float32),
+                                ("cpu_f64", torch.device("cpu"), torch.float64)):
+        ff = cli._load_system("example:backbone", "", dtype=dtype, device=device)[0]
+        out = {}
+        for name, module, loss_fn, rows in dynamics_steps(
+                ff, dynamics_models(runs, device, dtype), data, device, dtype,
+                schnet_rows=SCHNET_CHECK_BATCH):
+            trained = {k: v.clone() for k, v in module.state_dict().items()}
+            start = flat_params(module)
+            loss = loss_fn()
+            grads = torch.autograd.grad(loss, list(module.parameters()), materialize_grads=True)
+            ClippedAdam(module.parameters(), lr=1e-3, clip_norm=1.0).step(grads)
+            out[name] = (float(loss.detach()),
+                         torch.cat([g.reshape(-1).double().cpu() for g in grads]),
+                         start, flat_params(module), rows)
+            module.load_state_dict(trained)  # the next step kind starts from the same weights
+        sides[side] = out
+    res = {}
+    for name, (l32, g32, start, p32, rows) in sides["card"].items():
+        l64, g64, _, p64, _ = sides["cpu_f64"][name]
+        n32, n64 = float(g32.norm()), float(g64.norm())
+        moved = p64 - start
+        row = {"rows": rows, "loss_card": l32, "loss_cpu_f64": l64,
+               "loss_rel_err": abs(l32 - l64) / abs(l64), "grad_norm_card": n32,
+               "grad_norm_cpu_f64": n64, "grad_norm_rel_err": abs(n32 - n64) / n64,
+               "grad_direction_err": float((g32 / n32 - g64 / n64).norm()),
+               "update_rel_err": float((p32 - start - moved).norm() / moved.norm()),
+               "param_rel_err": float((p32 - p64).norm() / p64.norm())}
+        for key in ("loss_rel_err", "grad_norm_rel_err", "grad_direction_err",
+                    "update_rel_err", "param_rel_err"):
+            check(row[key] <= TOL_TRAIN_STEP, f"dynamics {name}, card vs float64: {row}")
+        res[name] = row
+    return res
+
+
+def dynamics_rates(runs, data, dev, repeats=10):
+    """Updates a second of each step kind on the card at 40 atoms x batch
+    32 (loss, gradient, clipped Adam), after a warm-up, the host clock
+    around ``repeats`` updates ending in a synchronisation."""
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam, descend
+
+    ff = cli._load_system("example:backbone", "", device=dev)[0]
+    rates = {}
+    for name, module, loss_fn, rows in dynamics_steps(
+            ff, dynamics_models(runs, dev, torch.float32), data, dev, torch.float32):
+        opt = ClippedAdam(module.parameters(), lr=1e-3, clip_norm=1.0)
+        descend(opt, loss_fn())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            descend(opt, loss_fn())
+        torch.cuda.synchronize()
+        per_s = repeats / (time.perf_counter() - t0)
+        rates[name] = {"updates_per_s": per_s, "samples_per_s": per_s * rows,
+                       "ms_per_update": 1e3 / per_s, "rows": rows}
+    return rates
+
+
+def dynamics_census(runs, data, dev, steps=5):
+    """Kernel launches and host ms by source of one HNN informed step (the
+    driver's ``informed_step``) and one node unroll update (10 chained
+    frames), at 40 atoms x batch 32: the HNN field (its forward and its
+    input gradient, ``time_derivative``), the batched energy, the backward
+    pass, the optimizer; the rest of the step outside them."""
+    from molecular_dynamics_tpu_torch.models import hnn as mhnn
+    from molecular_dynamics_tpu_torch.train import common as tcommon
+    from molecular_dynamics_tpu_torch.train import drivers
+    from molecular_dynamics_tpu_torch.train import hnn as thnn_train
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam
+
+    ff = cli._load_system("example:backbone", "", device=dev)[0]
+    models = dynamics_models(runs, dev, torch.float32)
+    a = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray) else v
+         for k, v in data.items()}
+    _, _, informed_step, _ = thnn_train.make_hnn_trainer(models["hnn"], ff)
+    opt = ClippedAdam(models["node"].parameters(), lr=1e-3, clip_norm=1.0)
+    runs_by_name = {
+        "census_hnn_informed_40": lambda: informed_step(a["x"], a["dx"]),
+        "census_node_unroll_40": lambda: tcommon.descend(opt, drivers._node_unroll_loss(
+            models["node"], a["x"], a["x_seq"], 1.0, 1, a["max_step"], a["lo"], a["hi"])),
+    }
+    field = labelled("field", mhnn.time_derivative)
+    sources = ("field", "energy", "backward", "optimizer")
+    out = {}
+    with patched(((mhnn, "time_derivative", field), (thnn_train, "time_derivative", field),
+                  (thnn_train, "potential_loss", labelled("energy", thnn_train.potential_loss)),
+                  (thnn_train, "descend", census_descend), (tcommon, "descend", census_descend))):
+        for name, step in runs_by_name.items():
+            out[name] = census_summary(census_by_source(step, sources, steps), sources,
+                                       atoms=40, batch=TRAIN_BATCH, steps=steps)
+    return out
+
+
+def dynamics_phase(tmp, dev):
+    """The Hamiltonian dynamics line on the card: ``cli train node`` at its
+    live-quality budget, ``hnn``, ``hnn-schnet`` and ``hnn-latent`` at
+    DYNAMICS_EPOCHS under the sanity bound, on the in-repo 40-atom data;
+    every step kind against float64 from the trained weights; update rates;
+    the census of an HNN informed step and a node unroll update."""
+    res, launches = {}, {}
+    pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
+    runs = tmp / "dynamics"
+    budgets = {"node": TRAIN_BUDGET["node"],
+               **{f: (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-schnet",
+                                                                    "hnn-latent")}}
+    for family, (epochs, ceiling) in budgets.items():
+        reset_launches()
+        run, _ = train_run([family, "--data", pattern, "--epochs", str(epochs),
+                            "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+                            "--out-dir", str(runs)])
+        launches[family] = read_launches()
+        e2e = run["eval"]["mean_abs_error"]
+        if family == "node":
+            check(e2e <= ceiling, f"train node --epochs {epochs}: mean_abs_error {e2e} A above "
+                                  f"the ceiling {ceiling}")
+        else:
+            check(e2e < ceiling, f"train {family} --epochs {epochs}: mean_abs_error {e2e} A")
+        res[family] = {**run, "epochs": epochs, "ceiling_A": ceiling, "launches": launches[family]}
+    data = dynamics_data(pattern, dev)
+    res["step_vs_float64"] = {**dynamics_vs_float64(runs, data, dev),
+                              "tolerance": TOL_TRAIN_STEP}
+    res["update_rates_40"] = dynamics_rates(runs, data, dev)
+    res.update(dynamics_census(runs, data, dev))
     return res, launches
 
 
@@ -3214,11 +3459,19 @@ def main():
         emit("train", **train_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
+        t_phase = time.perf_counter()
+        dyn_res, dyn_launches = dynamics_phase(tmp, dev)
+        emit("dynamics", **dyn_res, seconds=round(time.perf_counter() - t_phase, 1),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             script_seconds=round(time.perf_counter() - t_script, 1))
     # the training path reaches no kernel: the energy of a generated batch is
     # the plain PyTorch energy, differentiated by autograd
     train_total = {name: regen_train_launches[name] + sum(run[name] for run in train_launches.values())
                    for name in regen_train_launches}
     check(not any(train_total.values()), f"cli train launched kernels: {train_total}")
+    # nor does the dynamics line: its energy is the informed step's plain one
+    dyn_total = {name: sum(run[name] for run in dyn_launches.values()) for name in train_total}
+    check(not any(dyn_total.values()), f"cli train (dynamics) launched kernels: {dyn_total}")
 
     kernels["campaign_advance"]["launches_by_path"] = {
         f"simulate_ensemble(fused_campaign) {N_REPLICAS} x {N_STEPS}": launches_k1,
@@ -3244,6 +3497,7 @@ def main():
         f"simulate_ensemble(fused_nonbonded) {N_REPLICAS} x {PAIR_PATH_STEPS}"] = launches_k6_main
     regen_path = f"regenerate: regenerate_smd --gbis {REGEN_REPLICAS} x {REGEN_STEPS}"
     train_path = "train: cli train pretrain and cgan (40 atoms), cgan (104 atoms)"
+    dyn_path = "dynamics: cli train node, hnn, hnn-schnet, hnn-latent (40 atoms)"
     for row, counter in (("pair_forces", "pair_forces"), ("campaign_advance", None),
                          ("gb_forces", "gb_forces"), ("sasa_forces", "sasa_forces"),
                          ("campaign_advance[gbis]", "campaign_advance"),
@@ -3252,6 +3506,7 @@ def main():
         # the twin runs under GBIS: every campaign launch is the solvent instantiation
         by_path[regen_path] = 0 if counter is None else regen_launches[counter]
         by_path[train_path] = train_total["campaign_advance" if counter is None else counter]
+        by_path[dyn_path] = dyn_total["campaign_advance" if counter is None else counter]
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

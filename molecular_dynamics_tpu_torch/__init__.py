@@ -26,14 +26,17 @@ force path, and the command line with the host I/O it needs:
 - ``config``, ``log`` and ``cli`` (``python -m
   molecular_dynamics_tpu_torch.cli simulate | energy | train | convert |
   bench``)
-- ``features``, ``evaluate``, ``models`` (the flagship cGAN) and ``train``
-  (its losses, datasets, checkpoints, updates and drivers: ``train
-  pretrain | cgan``); ``regenerate_smd``, the SMD training-data campaign
+- ``features``, ``evaluate``, ``models`` (the flagship cGAN and the
+  Hamiltonian dynamics line: HNN, SchNet, the latent HNN, the ODE solvers)
+  and ``train`` (losses, datasets, checkpoints, updates, rollout correctors
+  and drivers: ``train pretrain | cgan | hnn | hnn-schnet | hnn-latent |
+  node``); ``regenerate_smd``, the SMD training-data campaign;
+  ``utils.write_vmd_loader``
 - ``convert`` — numpy arrays into the port's objects
 
 Not ported yet (ROADMAP.md §A): prmtop/chamber, CHARMM ``.prm`` with CMAP,
-xtc, mol2, sdf, xsc, the native codec, the CMAP and repulsion terms,
-``utils/vmd.py``, the other model families and their training, and
+xtc, mol2, sdf, xsc, the native codec, the CMAP and repulsion terms, the
+sequence, graph and generative model families and their training, and
 sharding over several devices.
 
 Entry points run on the CUDA device unless the caller passes

@@ -133,38 +133,71 @@ def constraints_from_numpy(
     )
 
 
+#: flax scope names -> the port's attribute names: numbered flax modules
+#: sit in a ``ModuleList`` under the attribute (``Dense_i`` -> ``layers.i``,
+#: ``CfConv_i`` -> ``cfconv.i``), the one ``MLP_0`` of an HNN and the one
+#: ``Embed_0`` of a SchNet are attributes of their own; any other scope
+#: (``ae``, ``encoder``, ``decoder``, ``hnn``) keeps its name
+_LISTS = {"Dense": "layers", "CfConv": "cfconv"}
+_SINGLES = {"MLP_0": "mlp", "Embed_0": "embed"}
+
+
 def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
-    """A flax dense stack's params, as numpy arrays
-    (``{"params": {"Dense_i": {"kernel": (in, out), "bias": (out,)}}}``),
-    as the ``state_dict`` of a port module whose layers are its ``layers``
-    list (``models.MLP``, ``models.Generator``, ``models.Discriminator``):
-    ``layers.i.weight`` is the kernel transposed, ``(out, in)``. CPU
-    tensors; ``load_state_dict`` copies them onto the module's device."""
-    tree = params.get("params", params)
+    """A flax params tree, as numpy arrays (``{"params": {...}}``, the
+    ``Dense`` layers' ``{"kernel": (in, out), "bias": (out,)}`` at any depth
+    of nested scopes), as the ``state_dict`` of the port module with the
+    same structure (``models.MLP``, ``Generator``, ``Discriminator``,
+    ``HNN``, ``SchNet``, ``SchNetHNN``, ``MLPAutoencoder``, ``LatentHNN``,
+    ``LatentDiscriminator``): ``layers.i.weight`` is ``Dense_i``'s kernel
+    transposed, ``(out, in)``; an ``Embed`` table is ``embed.weight`` as it
+    is. CPU tensors; ``load_state_dict`` copies them onto the module's
+    device."""
     out = {}
-    for name, leaf in tree.items():
-        prefix, _, index = name.rpartition("_")
-        if prefix != "Dense" or not index.isdigit():
-            raise KeyError(f"not a flax Dense layer: {name!r}")
-        kernel = torch.as_tensor(np.array(leaf["kernel"]).T.copy())
-        bias = torch.as_tensor(np.array(leaf["bias"]))
-        if dtype is not None:
-            kernel, bias = kernel.to(dtype), bias.to(dtype)
-        out[f"layers.{index}.weight"] = kernel
-        out[f"layers.{index}.bias"] = bias
+
+    def tensor(arr):
+        x = torch.as_tensor(np.array(arr))
+        return x if dtype is None else x.to(dtype)
+
+    def walk(tree, prefix):
+        for name, leaf in tree.items():
+            kind, _, index = name.rpartition("_")
+            if kind == "Dense" and index.isdigit():
+                out[f"{prefix}layers.{index}.weight"] = tensor(np.array(leaf["kernel"]).T.copy())
+                out[f"{prefix}layers.{index}.bias"] = tensor(leaf["bias"])
+            elif name == "Embed_0":
+                out[f"{prefix}embed.weight"] = tensor(leaf["embedding"])
+            elif kind in _LISTS and index.isdigit():
+                walk(leaf, f"{prefix}{_LISTS[kind]}.{index}.")
+            elif isinstance(leaf, Mapping):
+                walk(leaf, f"{prefix}{_SINGLES.get(name, name)}.")
+            else:
+                raise KeyError(f"not a flax Dense, Embed or module scope: {prefix}{name!r}")
+
+    walk(params.get("params", params), "")
     return out
 
 
 def state_dict_to_flax_params(state_dict: Mapping) -> dict:
     """The inverse of ``flax_params_to_state_dict``: numpy arrays in flax's
-    layout, ``{"params": {"Dense_i": {"kernel", "bias"}}}``."""
+    layout, ``{"params": {...}}`` with the same nested scopes."""
+    names = {v: k for k, v in _SINGLES.items()}
+    lists = {v: k for k, v in _LISTS.items()}
     tree = {}
     for key, value in state_dict.items():
-        _, index, kind = key.split(".")
+        parts = key.split(".")
         arr = value.detach().cpu().numpy()
-        leaf = tree.setdefault(f"Dense_{index}", {})
-        if kind == "weight":
-            leaf["kernel"] = arr.T.copy()
+        node, i = tree, 0
+        while i < len(parts) - 1:
+            part = parts[i]
+            if part in lists and parts[i + 1].isdigit():
+                node, i = node.setdefault(f"{lists[part]}_{parts[i + 1]}", {}), i + 2
+            else:
+                node, i = node.setdefault(names.get(part, part), {}), i + 1
+        kind = parts[-1]
+        if kind == "weight" and parts[-2] == "embed":
+            node["embedding"] = arr.copy()
+        elif kind == "weight":
+            node["kernel"] = arr.T.copy()
         else:
-            leaf["bias"] = arr.copy()
+            node["bias"] = arr.copy()
     return {"params": tree}

@@ -1,11 +1,13 @@
 """Training harness: losses, datasets, checkpoints and the flagship loops.
 
 Ported so far: the physics-informed cGAN and its decoder pretraining
-(``train.cgan``), driven end to end by ``train.drivers.run_training``
-(``cli train pretrain | cgan``). Every energy evaluation is one batched
+(``train.cgan``), the HNN trainer (``train.hnn``) and the rollout
+correctors (``train.seq``), driven end to end by
+``train.drivers.run_training`` (``cli train pretrain | cgan | hnn |
+hnn-schnet | hnn-latent | node``). Every energy evaluation is one batched
 call of ``energy.energy_terms`` on a ``(B, N, 3)`` tensor inside the
-update, differentiated by ``torch.autograd``. The HNN, sequence and
-generative families are queued in ROADMAP.md §A (A11-A13).
+update, differentiated by ``torch.autograd``. The sequence and the other
+generative families are queued in ROADMAP.md §A (A12, A13).
 """
 
 from molecular_dynamics_tpu_torch.train.losses import (

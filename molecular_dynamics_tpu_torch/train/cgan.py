@@ -28,7 +28,7 @@ from torch.nn import functional as F
 
 from molecular_dynamics_tpu_torch.ff.params import FFParams
 from molecular_dynamics_tpu_torch.models.cgan import Discriminator, Generator
-from molecular_dynamics_tpu_torch.train.common import ClippedAdam
+from molecular_dynamics_tpu_torch.train.common import ClippedAdam, descend
 from molecular_dynamics_tpu_torch.train.losses import (
     bias_energy_loss,
     distance_matrix_loss,
@@ -58,11 +58,6 @@ class CGANConfig:
 
 def bce_logits(logits: Tensor, labels: Tensor) -> Tensor:
     return F.binary_cross_entropy_with_logits(logits, labels)
-
-
-def _descend(opt: ClippedAdam, loss: Tensor) -> None:
-    """One update of ``opt``'s parameters down the gradient of ``loss``."""
-    opt.step(torch.autograd.grad(loss, opt.params))
 
 
 #: the bias schedule's steps at t = 1: normalized times t in [0, 1] become
@@ -131,20 +126,20 @@ class CGANTrainer:
     def g_step(self, z: Tensor, t: Tensor) -> Tensor:
         """Adversarial generator update."""
         loss = self.g_loss(z, t)
-        _descend(self.opt_g, loss)
+        descend(self.opt_g, loss)
         return loss.detach()
 
     def d_step(self, z: Tensor, real_coords: Tensor, t: Tensor) -> Tensor:
         """Discriminator update on real against generated."""
         loss = self.d_loss(z, real_coords, t)
-        _descend(self.opt_d, loss)
+        descend(self.opt_d, loss)
         return loss.detach()
 
     def informed_step(self, z: Tensor, t: Tensor) -> Tensor:
         """Physics-informed update: batched potential + weighted bias
         through the differentiable energy."""
         loss = self.informed_loss(z, t)
-        _descend(self.opt_i, loss)
+        descend(self.opt_i, loss)
         return loss.detach()
 
 
@@ -169,5 +164,5 @@ class PretrainStep:
 
     def __call__(self, z: Tensor, real_coords: Tensor, t: Tensor, alpha: float):
         val, parts = self.loss(z, real_coords, t, alpha)
-        _descend(self.opt, val)
+        descend(self.opt, val)
         return val.detach(), tuple(p.detach() for p in parts)

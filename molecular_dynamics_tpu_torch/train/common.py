@@ -1,5 +1,5 @@
 """Shared optimizer: Adam with global-norm clipping, as optax chains them
-(the reference's ``make_state`` and the cGAN trainer's optimizers).
+(the reference's ``make_state`` and the trainers' optimizers).
 
 ``torch.optim.Adam`` computes optax's ``adam`` (the same moments, bias
 corrections and epsilon outside the square root) in exact arithmetic. The
@@ -24,9 +24,10 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[
 
 class ClippedAdam:
     """Adam over ``params`` with global-norm clipping of each update's
-    gradients (every caller clips, as the reference's cGAN trainer does). ``step(grads)`` takes the gradients explicitly (as
-    ``torch.autograd.grad`` returns them), so two optimizers over the same
-    parameters keep separate moments and never read each other's ``.grad``."""
+    gradients (every caller clips, as the reference's trainers do).
+    ``step(grads)`` takes the gradients explicitly (as ``torch.autograd.grad``
+    returns them), so two optimizers over the same parameters keep separate
+    moments and never read each other's ``.grad``."""
 
     def __init__(self, params, lr: float = 1e-4, clip_norm: float = 1.0):
         self.params = list(params)
@@ -47,3 +48,10 @@ class ClippedAdam:
     def load_state_dict(self, state: dict) -> None:
         self.adam.load_state_dict(state)
 
+
+def descend(opt: ClippedAdam, loss: torch.Tensor) -> None:
+    """One update of ``opt``'s parameters down the gradient of ``loss``. A
+    parameter the loss does not reach gets a zero gradient, as in JAX (an
+    HNN's loss reads the input gradient of its fields, which the last
+    layer's bias does not move)."""
+    opt.step(torch.autograd.grad(loss, opt.params, materialize_grads=True))

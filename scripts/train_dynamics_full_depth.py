@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""Train the port's Hamiltonian dynamics families at docs/TRAINING.md's depth.
+
+Runs ``python -m molecular_dynamics_tpu_torch.cli train <family>`` in process
+for ``hnn`` (16 epochs), ``hnn-schnet`` (16), ``hnn-latent`` (32) and
+``node`` (32) on ``datasets/backbone_smd`` (batch 32, seed 0 or each of
+``--seeds``), and prints one JSON line per run (wall seconds, eval.json's
+``mean_abs_error``, ``rg_abs_error`` and ``std_abs_error``) and, last, the
+device's name and ``nvidia-smi``'s name and power limit. Runs on the CUDA device unless
+``--device cpu`` is given.
+
+    python3 scripts/train_dynamics_full_depth.py [--families hnn node] [--seeds 0 1]
+"""
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+#: docs/TRAINING.md's epochs for each family
+DEPTH = {"hnn": 16, "hnn-schnet": 16, "hnn-latent": 32, "node": 32}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out-dir", default=str(ROOT / "runs" / "dynamics_full_depth"))
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--families", nargs="*", default=list(DEPTH))
+    parser.add_argument("--seeds", nargs="*", type=int, default=[0])
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from molecular_dynamics_tpu_torch import cli
+
+    data = str(ROOT / "datasets" / "backbone_smd" / "raw-traj_rep-*.npy")
+    for seed in args.seeds:
+        out_dir = pathlib.Path(args.out_dir) / f"seed{seed}"
+        for family in args.families:
+            t0 = time.perf_counter()
+            rc = cli.main(["train", family, "--data", data, "--epochs", str(DEPTH[family]),
+                           "--batch-size", "32", "--seed", str(seed), "--out-dir", str(out_dir),
+                           "--device", args.device])
+            if args.device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(out_dir / family / "eval.json") as fh:
+                metrics = json.load(fh)
+            print(json.dumps({"family": family, "epochs": DEPTH[family], "seed": seed, "rc": rc,
+                              "wall_seconds": wall, **{k: metrics[k] for k in (
+                                  "mean_abs_error", "rg_abs_error", "std_abs_error")}}),
+                  flush=True)
+    if args.device == "cpu":
+        print(json.dumps({"device": "cpu"}))
+    else:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -205,8 +205,8 @@ def test_convert_writes_the_jax_files(tmp_path, capsys, case):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli.main(["train", "hnn", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A13"):
+        tcli.main(["train", "vae", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A14"):
         tcli.main(["simulate", "--device", "cpu", "--devices", "2"])
     with pytest.raises(NotImplementedError, match="A8"):
