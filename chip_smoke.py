@@ -121,6 +121,24 @@ Phases, one JSON line each on standard output:
    40 atoms x batch 32; a launch census of an HNN informed step and a node
    unroll update (field, energy, backward, optimizer) with the device's
    busy share. No kernel launches there either; the run fails if one does.
+   ``sequence``: the sequence and graph line on the same data: ``cli train
+   lstm --epochs 8`` and ``lstm-gat --epochs 6`` under the JAX package's
+   live-quality ceilings (mean_abs_error 3.20 / 3.00 A), ``lstm-nll``,
+   ``seq2seq``, ``seq2seq-gan``, ``transformer``, ``gat`` and
+   ``seq2seq-graph`` at 2 epochs under the 100 A sanity bound; from the
+   runs' trained weights, every step kind (the lstm window step and its
+   8-window fine-tune, the lstm-nll step, the seq2seq step, seq2seq-gan's
+   generator and critic steps, the transformer's step and fine-tune, the
+   gat and lstm-gat steps and 8-frame fine-tunes, the seq2seq-graph step
+   and its fine-tune of 4 chained segments) on the card against float64 on
+   the CPU, with the same draws and kNN graphs (loss, gradient norm and
+   direction within 1e-5, the update within 1e-3, or within 10x the same
+   step's error in float32 on the CPU where that is larger); the update
+   rates of each at 40 atoms x batch 32 (fine-tunes 16 rows); a launch
+   census of an lstm and a
+   seq2seq-graph fine-tune update (LSTM layers, graphs, refeaturizer,
+   backward, optimizer) with the device's busy share. No kernel launches
+   there; the run fails if one does.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
@@ -249,13 +267,25 @@ REGEN_PULL = 0.88
 #: quality guard (tests/test_train_quality.py, LIVE_BUDGET): an untrained
 #: generator scores above 4 A there
 TRAIN_DATA = pathlib.Path(__file__).resolve().parent / "datasets" / "backbone_smd"
-TRAIN_BUDGET = {"pretrain": (4, 2.20), "cgan": (3, 2.60), "node": (8, 1.10)}
+TRAIN_BUDGET = {"pretrain": (4, 2.20), "cgan": (3, 2.60), "node": (8, 1.10), "lstm": (8, 3.20),
+                "lstm-gat": (6, 3.00)}
 TRAIN_BATCH = 32
 #: the dynamics phase: ``node`` at its live budget above; the three HNN
 #: families at this depth, held to the sanity bound of the JAX package's
 #: driver test (tests/test_train.py: generated e2e within 100 A of the data)
 DYNAMICS_EPOCHS = 2
 DYNAMICS_SANITY_A = 100.0
+#: the sequence phase: ``lstm`` and ``lstm-gat`` at their live budgets
+#: above, the other six at DYNAMICS_EPOCHS under the sanity bound
+SEQUENCE_FAMILIES = ("lstm", "lstm-gat", "lstm-nll", "seq2seq", "seq2seq-gan", "transformer",
+                     "gat", "seq2seq-graph")
+#: each sequence step kind on the card against float64: the loss, the
+#: gradient's norm and direction, relative (the update within TOL_TRAIN_STEP)
+TOL_SEQUENCE_STEP = 1e-5
+#: where float32 itself misses those tolerances on a step (the same step in
+#: float32 on the CPU against float64), the card is held within this factor
+#: of float32's own error instead
+FLOAT32_FLOOR = 10.0
 #: the float64 step checks of the SchNet HNN run at this batch (its filters
 #: are (B, 40, 40, 64) tensors, and the CPU side differentiates ten chained
 #: frames of them twice); the others at TRAIN_BATCH
@@ -2273,6 +2303,109 @@ def train_phase(tmp, dev):
     return res, launches
 
 
+# -- the training steps on the card against float64 -----------------------------
+
+
+@contextlib.contextmanager
+def graphs_of(record):
+    """The kNN adjacencies of the graph models: with ``record`` empty,
+    computed as usual and appended to it; else taken from it in order (on
+    the caller's device). A flipped kNN edge, where two distances tie within
+    float32's rounding, is a discrete branch, not arithmetic error: the
+    float64 side records its graphs and the float32 sides replay them."""
+    from molecular_dynamics_tpu_torch.models import gat as mgat
+
+    replay, calls = list(record), iter(range(len(record)))
+
+    def graph(pos, k):
+        if replay:
+            return replay[next(calls)].to(pos.device)
+        adj = compute(pos, k)
+        record.append(adj.cpu())
+        return adj
+
+    compute = mgat.graph
+    with patched(((mgat, "graph", graph),)):
+        yield
+
+
+def step_errors(ref, other):
+    """``other``'s step against ``ref``'s (each ``(loss, grads, start,
+    params after one update)``): loss, gradient norm and direction, the
+    update and the parameters after it, relative."""
+    (l64, g64, start, p64), (l, g, _, p) = ref, other
+    n, n64 = float(g.norm()), float(g64.norm())
+    moved = p64 - start
+    return {"loss_rel_err": abs(l - l64) / abs(l64), "grad_norm_rel_err": abs(n - n64) / n64,
+            "grad_direction_err": float((g / n - g64 / n64).norm()),
+            "update_rel_err": float((p - start - moved).norm() / moved.norm()),
+            "param_rel_err": float((p - p64).norm() / p64.norm())}
+
+
+def steps_vs_float64(sides_steps, tol_grad, tol_update, floor=FLOAT32_FLOOR):
+    """Each step kind on the card (float32) against the same step in float64
+    on the CPU, from the same weights, batch, draws and kNN graphs: the
+    loss, the gradient's norm and direction (within ``tol_grad``), and the
+    parameters after one update of a fresh clipped Adam (their change
+    against float64's change, within ``tol_update``), relative. The same
+    step in float32 on the CPU gives float32's own error on it: where that
+    exceeds the tolerance (a loss whose gradient float32 cannot resolve, an
+    Adam update of a parameter whose gradient is zero in exact arithmetic),
+    the card is held within ``floor`` times it instead. ``sides_steps`` maps
+    ``cpu_f64``, ``card`` and, where the floor applies, ``cpu_f32`` to their
+    step lists."""
+    sides, graphs = {}, {}
+    for side in (s for s in ("cpu_f64", "cpu_f32", "card") if s in sides_steps):
+        out = {}
+        for name, module, loss_fn, rows in sides_steps[side]:
+            trained = {k: v.clone() for k, v in module.state_dict().items()}
+            start = flat_params(module)
+            with graphs_of(graphs.setdefault(name, [])):
+                loss = loss_fn()
+            grads = torch.autograd.grad(loss, list(module.parameters()), materialize_grads=True)
+            ClippedAdam(module.parameters(), lr=1e-3, clip_norm=1.0).step(grads)
+            out[name] = (float(loss.detach()),
+                         torch.cat([g.reshape(-1).double().cpu() for g in grads]),
+                         start, flat_params(module), rows)
+            module.load_state_dict(trained)  # the next step kind starts from the same weights
+        sides[side] = out
+    res = {}
+    for name, ref in sides["cpu_f64"].items():
+        card = step_errors(ref[:4], sides["card"][name][:4])
+        cpu32 = step_errors(ref[:4], sides["cpu_f32"][name][:4]) if "cpu_f32" in sides else {}
+        row = {"rows": ref[4], "loss_card": sides["card"][name][0], "loss_cpu_f64": ref[0],
+               "grad_norm_cpu_f64": float(ref[1].norm()), **card,
+               **{f"{k}_cpu_f32": v for k, v in cpu32.items()}, "graphs_replayed": len(graphs[name])}
+        for key, tol in (("loss_rel_err", tol_grad), ("grad_norm_rel_err", tol_grad),
+                         ("grad_direction_err", tol_grad), ("update_rel_err", tol_update),
+                         ("param_rel_err", tol_update)):
+            bound = max(tol, floor * cpu32[key]) if cpu32 else tol
+            check(card[key] <= bound, f"{name}, card vs float64: {row}")
+        res[name] = row
+    return res
+
+
+def update_rates_of(steps, repeats=10):
+    """Updates a second of each step kind on the card (loss, gradient,
+    clipped Adam), after a warm-up, the host clock around ``repeats``
+    updates ending in a synchronisation."""
+    from molecular_dynamics_tpu_torch.train.common import descend
+
+    rates = {}
+    for name, module, loss_fn, rows in steps:
+        opt = ClippedAdam(module.parameters(), lr=1e-3, clip_norm=1.0)
+        descend(opt, loss_fn())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            descend(opt, loss_fn())
+        torch.cuda.synchronize()
+        per_s = repeats / (time.perf_counter() - t0)
+        rates[name] = {"updates_per_s": per_s, "samples_per_s": per_s * rows,
+                       "ms_per_update": 1e3 / per_s, "rows": rows}
+    return rates
+
+
 # -- the Hamiltonian dynamics line ------------------------------------------------
 
 
@@ -2353,68 +2486,23 @@ def dynamics_steps(ff, models, data, device, dtype, schnet_rows=TRAIN_BATCH):
 def dynamics_vs_float64(runs, data, dev):
     """Each step kind on the card (float32) against the same step in float64
     on the CPU, from the same trained weights and rows (the SchNet HNN's at
-    SCHNET_CHECK_BATCH rows): the loss, the gradient's norm and direction,
-    and the parameters after one update of a fresh clipped Adam (their
-    change against float64's change), relative."""
-    from molecular_dynamics_tpu_torch.train.common import ClippedAdam
-
+    SCHNET_CHECK_BATCH rows), all within TOL_TRAIN_STEP
+    (``steps_vs_float64``)."""
     sides = {}
     for side, device, dtype in (("card", dev, torch.float32),
                                 ("cpu_f64", torch.device("cpu"), torch.float64)):
         ff = cli._load_system("example:backbone", "", dtype=dtype, device=device)[0]
-        out = {}
-        for name, module, loss_fn, rows in dynamics_steps(
-                ff, dynamics_models(runs, device, dtype), data, device, dtype,
-                schnet_rows=SCHNET_CHECK_BATCH):
-            trained = {k: v.clone() for k, v in module.state_dict().items()}
-            start = flat_params(module)
-            loss = loss_fn()
-            grads = torch.autograd.grad(loss, list(module.parameters()), materialize_grads=True)
-            ClippedAdam(module.parameters(), lr=1e-3, clip_norm=1.0).step(grads)
-            out[name] = (float(loss.detach()),
-                         torch.cat([g.reshape(-1).double().cpu() for g in grads]),
-                         start, flat_params(module), rows)
-            module.load_state_dict(trained)  # the next step kind starts from the same weights
-        sides[side] = out
-    res = {}
-    for name, (l32, g32, start, p32, rows) in sides["card"].items():
-        l64, g64, _, p64, _ = sides["cpu_f64"][name]
-        n32, n64 = float(g32.norm()), float(g64.norm())
-        moved = p64 - start
-        row = {"rows": rows, "loss_card": l32, "loss_cpu_f64": l64,
-               "loss_rel_err": abs(l32 - l64) / abs(l64), "grad_norm_card": n32,
-               "grad_norm_cpu_f64": n64, "grad_norm_rel_err": abs(n32 - n64) / n64,
-               "grad_direction_err": float((g32 / n32 - g64 / n64).norm()),
-               "update_rel_err": float((p32 - start - moved).norm() / moved.norm()),
-               "param_rel_err": float((p32 - p64).norm() / p64.norm())}
-        for key in ("loss_rel_err", "grad_norm_rel_err", "grad_direction_err",
-                    "update_rel_err", "param_rel_err"):
-            check(row[key] <= TOL_TRAIN_STEP, f"dynamics {name}, card vs float64: {row}")
-        res[name] = row
-    return res
+        sides[side] = dynamics_steps(ff, dynamics_models(runs, device, dtype), data, device,
+                                     dtype, schnet_rows=SCHNET_CHECK_BATCH)
+    return steps_vs_float64(sides, TOL_TRAIN_STEP, TOL_TRAIN_STEP)
 
 
-def dynamics_rates(runs, data, dev, repeats=10):
+def dynamics_rates(runs, data, dev):
     """Updates a second of each step kind on the card at 40 atoms x batch
-    32 (loss, gradient, clipped Adam), after a warm-up, the host clock
-    around ``repeats`` updates ending in a synchronisation."""
-    from molecular_dynamics_tpu_torch.train.common import ClippedAdam, descend
-
+    32 (``update_rates_of``)."""
     ff = cli._load_system("example:backbone", "", device=dev)[0]
-    rates = {}
-    for name, module, loss_fn, rows in dynamics_steps(
-            ff, dynamics_models(runs, dev, torch.float32), data, dev, torch.float32):
-        opt = ClippedAdam(module.parameters(), lr=1e-3, clip_norm=1.0)
-        descend(opt, loss_fn())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(repeats):
-            descend(opt, loss_fn())
-        torch.cuda.synchronize()
-        per_s = repeats / (time.perf_counter() - t0)
-        rates[name] = {"updates_per_s": per_s, "samples_per_s": per_s * rows,
-                       "ms_per_update": 1e3 / per_s, "rows": rows}
-    return rates
+    return update_rates_of(dynamics_steps(ff, dynamics_models(runs, dev, torch.float32), data,
+                                          dev, torch.float32))
 
 
 def dynamics_census(runs, data, dev, steps=5):
@@ -2482,6 +2570,235 @@ def dynamics_phase(tmp, dev):
                               "tolerance": TOL_TRAIN_STEP}
     res["update_rates_40"] = dynamics_rates(runs, data, dev)
     res.update(dynamics_census(runs, data, dev))
+    return res, launches
+
+
+# -- the sequence and graph line ---------------------------------------------------
+
+
+def sequence_data(pattern):
+    """The in-repo 40-atom data as the sequence drivers see it, one batch of
+    each step kind (numpy, float32, the first of a seeded permutation where
+    the driver shuffles): windows and targets of ``lstm`` (history 15, lead
+    2), ``lstm-nll`` (lead 1) and the transformer (history 11, lead 1); the
+    window fine-tunes' 8-frame rollout targets (16 rows, the drivers' fine-tune batch);
+    a Seq2Seq batch (history 10, decode 5) with its decoder noise; the GNS
+    rows and scales of ``gat`` (strided to 160 frames) with input noise and
+    its fine-tune's 8-frame rows; ``lstm-gat``'s windows and fine-tune rows;
+    ``seq2seq-graph``'s per-atom batch and its fine-tune rows (4 segments of
+    5) with their noise; and what each side needs to rebuild the rest
+    (whitening, the torsion rows)."""
+    from molecular_dynamics_tpu_torch.train import drivers as d
+    from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData, window_batches
+
+    traj = TrajectoryData.from_npy_glob(pattern)
+    white, w_mean, w_std = d._whitened(traj)
+    rng = np.random.default_rng(0)
+    b, ft_b = TRAIN_BATCH, TRAIN_BATCH // 2
+    out = {"w_mean": w_mean, "w_std": w_std}
+    for name, history, lead in (("lstm", 15, 2), ("nll", 15, 1), ("transformer", 11, 1)):
+        out[f"{name}_w"], out[f"{name}_t"] = next(window_batches(white, history, lead, b, rng))
+    flats = [t.reshape(len(t), -1) for t in white.trajectories]
+
+    def some(arrays, n):
+        sel = rng.permutation(len(arrays[0]))[:n]
+        return [np.stack(a)[sel].astype(np.float32) for a in arrays]
+
+    for name, history in (("lstm", 15), ("transformer", 11)):
+        out[f"{name}_ft_w"], out[f"{name}_ft_t"] = some(d._windows_ahead(flats, history, 8), ft_b)
+    wins, tgts = next(d._decode_batches(flats, 10, 5, b, "cpu"))
+    out["s2s_w"], out["s2s_t"] = wins.numpy(), tgts.numpy()
+    out["s2s_noise_g"], out["s2s_noise_d"] = (rng.standard_normal((b, 5, 16)).astype(np.float32)
+                                              for _ in range(2))
+    strided = TrajectoryData([t[::2] for t in traj.trajectories])  # the driver's 160 frames
+    pos, vv, aa, nxt, starts, lens = d._gns_dataset(strided)
+    acc_scale, vel_scale = float(np.abs(aa).mean()) + 1e-8, float(np.abs(vv).mean()) + 1e-8
+    vv, aa = vv / vel_scale, aa / acc_scale
+    sel = rng.permutation(len(pos))[:b]
+    out.update(gat_pos=pos[sel], gat_v1=vv[sel, 0], gat_v2=vv[sel, 1], gat_acc=aa[sel],
+               gat_next=nxt[sel], gat_noise=rng.standard_normal((b, 40, 3)).astype(np.float32),
+               gat_scales=(vel_scale, acc_scale))
+    rows = rng.permutation([starts[i] + s for i, n in enumerate(lens)
+                            for s in range(0, n - 8, 4)])[:ft_b]
+    out.update(gat_ft_p0=pos[rows], gat_ft_v1=vv[rows, 0], gat_ft_v2=vv[rows, 1],
+               gat_ft_t=np.stack([pos[j + 1: j + 9] for j in rows]))
+    lg_w, lg_t = d._lstm_gat_windows(white, 5)
+    sel = rng.permutation(len(lg_w))[:b]
+    out["lg_w"], out["lg_t"] = lg_w[sel], lg_t[sel]
+    out["lg_ft_w"], out["lg_ft_t"] = some(d._windows_ahead(white.trajectories, 5, 8), ft_b)
+    top, _ = decaalanine_backbone()
+    feats = d._atom_features(traj, white, top, "cpu")
+    wins, tgts = next(d._decode_batches(feats, 10, 5, b, "cpu", transpose=True))
+    out["g_w"], out["g_t"] = wins.numpy(), tgts.numpy()
+    out["g_noise"] = rng.standard_normal((b, 5, 40, 5)).astype(np.float32)
+    out["g_ft_w"], out["g_ft_t"] = some(d._windows_ahead(feats, 10, 20, transpose=True), ft_b)
+    out["g_ft_noise"] = rng.standard_normal((ft_b, 4, 5, 40, 5)).astype(np.float32)
+    out["white_trajectories"] = white
+    return out
+
+
+def sequence_models(runs, device, dtype):
+    """The eight trained models of the phase's runs (their best.ckpt), on
+    ``device`` in ``dtype``, at the drivers' widths; beside the adversarial
+    Seq2Seq's generator a critic from its seeded initialisation (the run
+    keeps the generator only)."""
+    from molecular_dynamics_tpu_torch.models import gat as mgat
+    from molecular_dynamics_tpu_torch.models import seq as mseq
+    from molecular_dynamics_tpu_torch.models.transformer import TrajectoryTransformer
+
+    kw = dict(device=device, dtype=dtype)
+    built = {"lstm": mseq.LSTMPredictor(120, 120, **kw),
+             "lstm-nll": mseq.LSTMNLLPredictor(120, 120, **kw),
+             "seq2seq": mseq.Seq2Seq(120, 120, **kw), "seq2seq-gan": mseq.Seq2Seq(120, 120, **kw),
+             "transformer": TrajectoryTransformer(120, 120, d_model=64, history=11, **kw),
+             "gat": mgat.GATSimulator(9, latent=64, n_processors=3, k=39, **kw),
+             "lstm-gat": mgat.LSTMGAT(3, 3, k=10, **kw), "seq2seq-graph": mgat.GraphSeq2Seq(**kw)}
+    for family, module in built.items():
+        state = torch.load(runs / family / "best.ckpt", weights_only=True)
+        module.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in state.items()})
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    critic = mseq.SequenceDiscriminator(120, generator=cpu_gen, device="cpu")
+    built["critic"] = critic.to(device=device, dtype=dtype)
+    return built
+
+
+def sequence_steps(models, data, device, dtype):
+    """Each step kind of the line as (name, module, loss thunk, rows): the
+    lstm window step and its fine-tune (8 chained windows), the lstm-nll
+    step, the seq2seq step, seq2seq-gan's generator and critic steps, the
+    transformer's step and fine-tune, the gat step (input noise) and
+    fine-tune (8 clamped frames), the lstm-gat step and fine-tune (8
+    clamped frames), the seq2seq-graph step and fine-tune (4 chained
+    segments of 5 decodes, torsions rebuilt). Every update is
+    ``ClippedAdam(lr 1e-3, clip 1.0)`` down that loss."""
+    from molecular_dynamics_tpu_torch.features import knn_mask, per_atom_angle_rows
+    from molecular_dynamics_tpu_torch.train import drivers as d
+    from molecular_dynamics_tpu_torch.train import seq as tseq
+
+    a = {k: torch.as_tensor(v, device=device, dtype=dtype) if isinstance(v, np.ndarray) else v
+         for k, v in data.items()}
+    m = models
+    top, _ = decaalanine_backbone()
+    phi_idx, psi_idx, _, _ = per_atom_angle_rows(top)
+    phi = torch.as_tensor(phi_idx, device=device)
+    psi = torch.as_tensor(psi_idx, device=device)
+    knn = knn_mask(40, 5, device=device)
+    vel_scale, acc_scale = data["gat_scales"]
+    clamps = d._lstm_gat_clamps(data["white_trajectories"], device)
+    clamps = (clamps[0], clamps[1].to(dtype), clamps[2].to(dtype))
+    refeature = d._refeaturizer(*per_atom_angle_rows(top), data["w_mean"], data["w_std"], device)
+    b, ft_b = TRAIN_BATCH, TRAIN_BATCH // 2
+    return [
+        ("lstm.step", m["lstm"], lambda: tseq.window_loss(
+            m["lstm"], a["lstm_w"], a["lstm_t"], phi, psi, knn), b),
+        ("lstm.finetune", m["lstm"], lambda: d._window_unroll_loss(
+            m["lstm"], a["lstm_ft_w"], a["lstm_ft_t"]), ft_b),
+        ("lstm-nll.step", m["lstm-nll"], lambda: tseq.nll_loss(
+            m["lstm-nll"], a["nll_w"], a["nll_t"]), b),
+        ("seq2seq.step", m["seq2seq"], lambda: tseq.seq2seq_loss(
+            m["seq2seq"], a["s2s_noise_g"], a["s2s_w"], a["s2s_t"]), b),
+        ("seq2seq-gan.g", m["seq2seq-gan"], lambda: tseq.gan_generator_loss(
+            m["seq2seq-gan"], m["critic"], a["s2s_noise_g"], a["s2s_w"], a["s2s_t"]), b),
+        ("seq2seq-gan.d", m["critic"], lambda: tseq.gan_critic_loss(
+            m["critic"], m["seq2seq-gan"], a["s2s_noise_d"], a["s2s_w"], a["s2s_t"]), b),
+        ("transformer.step", m["transformer"], lambda: tseq.mse_loss(
+            m["transformer"], a["transformer_w"], a["transformer_t"]), b),
+        ("transformer.finetune", m["transformer"], lambda: d._window_unroll_loss(
+            m["transformer"], a["transformer_ft_w"], a["transformer_ft_t"]), ft_b),
+        ("gat.step", m["gat"], lambda: d._gat_loss(
+            m["gat"], a["gat_noise"], a["gat_pos"], a["gat_v1"], a["gat_v2"], a["gat_acc"],
+            a["gat_next"], 0.5 * vel_scale, vel_scale, acc_scale), b),
+        ("gat.finetune", m["gat"], lambda: d._gat_unroll_loss(
+            m["gat"], a["gat_ft_p0"], a["gat_ft_v1"], a["gat_ft_v2"], a["gat_ft_t"],
+            vel_scale, acc_scale), ft_b),
+        ("lstm-gat.step", m["lstm-gat"], lambda: torch.mean(
+            (d._lstm_gat_predict(m["lstm-gat"], a["lg_w"]) - a["lg_t"]) ** 2), b),
+        ("lstm-gat.finetune", m["lstm-gat"], lambda: torch.mean(
+            (d._lstm_gat_unroll(m["lstm-gat"], a["lg_ft_w"], 8, clamps) - a["lg_ft_t"]) ** 2),
+         ft_b),
+        ("seq2seq-graph.step", m["seq2seq-graph"], lambda: tseq.graph_seq2seq_loss(
+            m["seq2seq-graph"], a["g_noise"], a["g_w"], a["g_t"]), b),
+        ("seq2seq-graph.finetune", m["seq2seq-graph"], lambda: d._graph_unroll_loss(
+            m["seq2seq-graph"], a["g_ft_w"], a["g_ft_t"], a["g_ft_noise"], refeature), ft_b),
+    ]
+
+
+def sequence_census(runs, data, dev, steps=5):
+    """Kernel launches and host ms by source of an lstm fine-tune update (8
+    chained windows of 15 frames, 16 rows) and a seq2seq-graph fine-tune
+    update (4 chained segments of 5 decodes, 16 rows x 40 atoms): the LSTM
+    layers (cuDNN), the kNN graphs and GAT layers, the torsion
+    refeaturizer, the backward pass, the optimizer; the rest of the step
+    (heads, shifts, the loss) outside them."""
+    from molecular_dynamics_tpu_torch.features import per_atom_angle_rows
+    from molecular_dynamics_tpu_torch.models import gat as mgat
+    from molecular_dynamics_tpu_torch.models import seq as mseq
+    from molecular_dynamics_tpu_torch.train import drivers as d
+
+    models = sequence_models(runs, dev, torch.float32)
+    a = {k: torch.as_tensor(v, device=dev) for k, v in data.items() if isinstance(v, np.ndarray)}
+    top, _ = decaalanine_backbone()
+    refeature = labelled("refeature", d._refeaturizer(*per_atom_angle_rows(top), data["w_mean"],
+                                                      data["w_std"], dev))
+    opts = {f: ClippedAdam(models[f].parameters(), lr=2e-5, clip_norm=1.0)
+            for f in ("lstm", "seq2seq-graph")}
+    runs_by_name = {
+        "census_lstm_finetune_40": (lambda: census_descend(opts["lstm"], d._window_unroll_loss(
+            models["lstm"], a["lstm_ft_w"], a["lstm_ft_t"])), ("lstm", "backward", "optimizer")),
+        "census_seq2seq_graph_finetune_40": (lambda: census_descend(
+            opts["seq2seq-graph"], d._graph_unroll_loss(
+                models["seq2seq-graph"], a["g_ft_w"], a["g_ft_t"], a["g_ft_noise"], refeature)),
+            ("lstm", "graph", "refeature", "backward", "optimizer")),
+    }
+    out = {}
+    with patched(((mseq.LSTMLayer, "forward", labelled("lstm", mseq.LSTMLayer.forward)),
+                  (mgat.DenseGATLayer, "forward", labelled("graph", mgat.DenseGATLayer.forward)),
+                  (mgat, "graph", labelled("graph", mgat.graph)))):
+        for name, (step, sources) in runs_by_name.items():
+            out[name] = census_summary(census_by_source(step, sources, steps), sources,
+                                       atoms=40, rows=TRAIN_BATCH // 2, steps=steps)
+    return out
+
+
+def sequence_phase(tmp, dev):
+    """The sequence and graph line on the card: ``cli train lstm`` and
+    ``lstm-gat`` at their live-quality budgets, the other six at
+    DYNAMICS_EPOCHS under the sanity bound, on the in-repo 40-atom data;
+    every step kind against float64 from the trained weights; update rates;
+    the census of an lstm and a seq2seq-graph fine-tune update."""
+    res, launches = {}, {}
+    pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
+    runs = tmp / "sequence"
+    for family in SEQUENCE_FAMILIES:
+        epochs, ceiling = TRAIN_BUDGET.get(family, (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A))
+        reset_launches()
+        run, _ = train_run([family, "--data", pattern, "--epochs", str(epochs),
+                            "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+                            "--out-dir", str(runs)])
+        launches[family] = read_launches()
+        e2e = run["eval"]["mean_abs_error"]
+        if family in TRAIN_BUDGET:
+            check(e2e <= ceiling, f"train {family} --epochs {epochs}: mean_abs_error {e2e} A "
+                                  f"above the ceiling {ceiling}")
+        else:
+            check(e2e < ceiling, f"train {family} --epochs {epochs}: mean_abs_error {e2e} A")
+        res[family] = {**run, "epochs": epochs, "ceiling_A": ceiling,
+                       "mean_abs_error": e2e, "rg_abs_error": run["eval"]["rg_abs_error"],
+                       "launches": launches[family]}
+    data = sequence_data(pattern)
+    cpu = torch.device("cpu")
+    sides = {side: sequence_steps(sequence_models(runs, device, dtype), data, device, dtype)
+             for side, device, dtype in (("card", dev, torch.float32),
+                                         ("cpu_f32", cpu, torch.float32),
+                                         ("cpu_f64", cpu, torch.float64))}
+    res["step_vs_float64"] = {
+        **steps_vs_float64(sides, TOL_SEQUENCE_STEP, TOL_TRAIN_STEP),
+        "tolerance_loss_grad": TOL_SEQUENCE_STEP, "tolerance_update": TOL_TRAIN_STEP,
+        "float32_floor_factor": FLOAT32_FLOOR, "float64_side": "cpu",
+        "float32_side": torch.cuda.get_device_name(0)}
+    res["update_rates_40"] = update_rates_of(
+        sequence_steps(sequence_models(runs, dev, torch.float32), data, dev, torch.float32))
+    res.update(sequence_census(runs, data, dev))
     return res, launches
 
 
@@ -3464,6 +3781,11 @@ def main():
         emit("dynamics", **dyn_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
+        t_phase = time.perf_counter()
+        seq_res, seq_launches = sequence_phase(tmp, dev)
+        emit("sequence", **seq_res, seconds=round(time.perf_counter() - t_phase, 1),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             script_seconds=round(time.perf_counter() - t_script, 1))
     # the training path reaches no kernel: the energy of a generated batch is
     # the plain PyTorch energy, differentiated by autograd
     train_total = {name: regen_train_launches[name] + sum(run[name] for run in train_launches.values())
@@ -3472,6 +3794,9 @@ def main():
     # nor does the dynamics line: its energy is the informed step's plain one
     dyn_total = {name: sum(run[name] for run in dyn_launches.values()) for name in train_total}
     check(not any(dyn_total.values()), f"cli train (dynamics) launched kernels: {dyn_total}")
+    # nor does the sequence and graph line: LSTMs, attention and dense GAT layers
+    seq_total = {name: sum(run[name] for run in seq_launches.values()) for name in train_total}
+    check(not any(seq_total.values()), f"cli train (sequence) launched kernels: {seq_total}")
 
     kernels["campaign_advance"]["launches_by_path"] = {
         f"simulate_ensemble(fused_campaign) {N_REPLICAS} x {N_STEPS}": launches_k1,
@@ -3498,6 +3823,7 @@ def main():
     regen_path = f"regenerate: regenerate_smd --gbis {REGEN_REPLICAS} x {REGEN_STEPS}"
     train_path = "train: cli train pretrain and cgan (40 atoms), cgan (104 atoms)"
     dyn_path = "dynamics: cli train node, hnn, hnn-schnet, hnn-latent (40 atoms)"
+    seq_path = ("sequence: cli train " + ", ".join(SEQUENCE_FAMILIES) + " (40 atoms)")
     for row, counter in (("pair_forces", "pair_forces"), ("campaign_advance", None),
                          ("gb_forces", "gb_forces"), ("sasa_forces", "sasa_forces"),
                          ("campaign_advance[gbis]", "campaign_advance"),
@@ -3507,6 +3833,7 @@ def main():
         by_path[regen_path] = 0 if counter is None else regen_launches[counter]
         by_path[train_path] = train_total["campaign_advance" if counter is None else counter]
         by_path[dyn_path] = dyn_total["campaign_advance" if counter is None else counter]
+        by_path[seq_path] = seq_total["campaign_advance" if counter is None else counter]
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

@@ -135,23 +135,45 @@ def constraints_from_numpy(
 
 #: flax scope names -> the port's attribute names: numbered flax modules
 #: sit in a ``ModuleList`` under the attribute (``Dense_i`` -> ``layers.i``,
-#: ``CfConv_i`` -> ``cfconv.i``), the one ``MLP_0`` of an HNN and the one
-#: ``Embed_0`` of a SchNet are attributes of their own; any other scope
-#: (``ae``, ``encoder``, ``decoder``, ``hnn``) keeps its name
-_LISTS = {"Dense": "layers", "CfConv": "cfconv"}
+#: ``OptimizedLSTMCell_i`` -> ``lstm.i``, ``EncoderBlock_i`` -> ``blocks.i``,
+#: ...), the one ``MLP_0`` of an HNN and the one ``Embed_0`` of a SchNet are
+#: attributes of their own; any other scope (``ae``, ``encoder``, ``hnn``,
+#: a ``SelfAttention``'s ``query`` ...) keeps its name
+_LISTS = {"Dense": "layers", "CfConv": "cfconv", "OptimizedLSTMCell": "lstm",
+          "SelfAttention": "attention", "LayerNorm": "norms", "EncoderBlock": "blocks",
+          "DenseGATLayer": "gat"}
 _SINGLES = {"MLP_0": "mlp", "Embed_0": "embed"}
+#: an ``OptimizedLSTMCell``'s gate scopes, in ``LSTMLayer``'s row order
+_LSTM_INPUT = ("ii", "if", "ig", "io")
+_LSTM_HIDDEN = ("hi", "hf", "hg", "ho")
+
+
+def _leaves(kind: str, leaf: Mapping) -> dict:
+    """One flax leaf scope of ``kind`` as the port's parameters (numpy)."""
+    if kind == "Dense":  # (in, out) kernel -> (out, in) weight; no bias in a GAT layer
+        out = {"weight": np.array(leaf["kernel"]).T.copy()}
+        if "bias" in leaf:
+            out["bias"] = np.array(leaf["bias"])
+        return out
+    if kind == "OptimizedLSTMCell":
+        return {"weight_ih": np.concatenate([np.array(leaf[g]["kernel"]).T for g in _LSTM_INPUT]),
+                "weight_hh": np.concatenate([np.array(leaf[g]["kernel"]).T for g in _LSTM_HIDDEN]),
+                "bias": np.concatenate([np.array(leaf[g]["bias"]) for g in _LSTM_HIDDEN])}
+    if kind == "LayerNorm":
+        return {"weight": np.array(leaf["scale"]), "bias": np.array(leaf["bias"])}
+    return {"weight": np.array(leaf["embedding"])}  # Embed
 
 
 def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
-    """A flax params tree, as numpy arrays (``{"params": {...}}``, the
-    ``Dense`` layers' ``{"kernel": (in, out), "bias": (out,)}`` at any depth
-    of nested scopes), as the ``state_dict`` of the port module with the
-    same structure (``models.MLP``, ``Generator``, ``Discriminator``,
-    ``HNN``, ``SchNet``, ``SchNetHNN``, ``MLPAutoencoder``, ``LatentHNN``,
-    ``LatentDiscriminator``): ``layers.i.weight`` is ``Dense_i``'s kernel
-    transposed, ``(out, in)``; an ``Embed`` table is ``embed.weight`` as it
-    is. CPU tensors; ``load_state_dict`` copies them onto the module's
-    device."""
+    """A flax params tree, as numpy arrays (``{"params": {...}}``, nested
+    scopes at any depth), as the ``state_dict`` of the port module with the
+    same structure. ``layers.i.weight`` is ``Dense_i``'s kernel transposed,
+    ``(out, in)``; ``lstm.i`` holds an ``OptimizedLSTMCell``'s eight
+    kernels and four biases as ``LSTMLayer``'s ``weight_ih``, ``weight_hh``
+    and ``bias``; ``norms.i.weight`` is a ``LayerNorm``'s scale; an ``Embed``
+    table is ``embed.weight``; any other array (a ``DenseGeneral`` kernel,
+    ``pos_embed``) is taken as it is. CPU tensors; ``load_state_dict``
+    copies them onto the module's device."""
     out = {}
 
     def tensor(arr):
@@ -161,17 +183,17 @@ def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
     def walk(tree, prefix):
         for name, leaf in tree.items():
             kind, _, index = name.rpartition("_")
-            if kind == "Dense" and index.isdigit():
-                out[f"{prefix}layers.{index}.weight"] = tensor(np.array(leaf["kernel"]).T.copy())
-                out[f"{prefix}layers.{index}.bias"] = tensor(leaf["bias"])
-            elif name == "Embed_0":
-                out[f"{prefix}embed.weight"] = tensor(leaf["embedding"])
+            if name == "Embed_0" or (kind in ("Dense", "OptimizedLSTMCell", "LayerNorm")
+                                     and index.isdigit()):
+                where = "embed" if name == "Embed_0" else f"{_LISTS[kind]}.{index}"
+                for key, arr in _leaves(kind or "Embed", leaf).items():
+                    out[f"{prefix}{where}.{key}"] = tensor(arr)
             elif kind in _LISTS and index.isdigit():
                 walk(leaf, f"{prefix}{_LISTS[kind]}.{index}.")
             elif isinstance(leaf, Mapping):
                 walk(leaf, f"{prefix}{_SINGLES.get(name, name)}.")
             else:
-                raise KeyError(f"not a flax Dense, Embed or module scope: {prefix}{name!r}")
+                out[f"{prefix}{name}"] = tensor(leaf)
 
     walk(params.get("params", params), "")
     return out
@@ -186,18 +208,29 @@ def state_dict_to_flax_params(state_dict: Mapping) -> dict:
     for key, value in state_dict.items():
         parts = key.split(".")
         arr = value.detach().cpu().numpy()
-        node, i = tree, 0
+        node, kind, i = tree, "", 0
         while i < len(parts) - 1:
             part = parts[i]
             if part in lists and parts[i + 1].isdigit():
-                node, i = node.setdefault(f"{lists[part]}_{parts[i + 1]}", {}), i + 2
+                kind = lists[part]
+                node, i = node.setdefault(f"{kind}_{parts[i + 1]}", {}), i + 2
             else:
+                kind = "Embed" if part == "embed" else ""
                 node, i = node.setdefault(names.get(part, part), {}), i + 1
-        kind = parts[-1]
-        if kind == "weight" and parts[-2] == "embed":
-            node["embedding"] = arr.copy()
-        elif kind == "weight":
+        leaf = parts[-1]
+        if kind == "Dense" and leaf == "weight":
             node["kernel"] = arr.T.copy()
-        else:
+        elif kind == "Dense":
             node["bias"] = arr.copy()
+        elif kind == "OptimizedLSTMCell":
+            gates = _LSTM_INPUT if leaf == "weight_ih" else _LSTM_HIDDEN
+            for gate, rows in zip(gates, np.split(arr, 4)):
+                node.setdefault(gate, {})["bias" if leaf == "bias" else "kernel"] = (
+                    rows.copy() if leaf == "bias" else rows.T.copy())
+        elif kind == "LayerNorm":
+            node["scale" if leaf == "weight" else "bias"] = arr.copy()
+        elif kind == "Embed":
+            node["embedding"] = arr.copy()
+        else:
+            node[leaf] = arr.copy()
     return {"params": tree}

@@ -1,22 +1,34 @@
 """Model zoo, as ``torch.nn.Module``s with the reference's flax layouts.
 
 Ported so far: the shared ``MLP``, the flagship time-conditioned cGAN
-(``Generator``, ``Discriminator``) and the Hamiltonian dynamics line
-(``HNN``, ``SchNet`` / ``SchNetHNN`` with ``CfConv``, ``MLPAutoencoder``,
-``LatentHNN``, ``LatentDiscriminator``, and the ODE solvers ``odeint_field``,
-``rk4_rollout``, ``hnn_field``). The sequence, graph and generative families
-are queued in ROADMAP.md §A (A12, A13).
+(``Generator``, ``Discriminator``), the Hamiltonian dynamics line (``HNN``,
+``SchNet`` / ``SchNetHNN`` with ``CfConv``, ``MLPAutoencoder``,
+``LatentHNN``, ``LatentDiscriminator``, and the ODE solvers
+``odeint_field``, ``rk4_rollout``, ``hnn_field``) and the sequence and graph
+line (``LSTMPredictor``, ``LSTMNLLPredictor``, ``Seq2Seq``, ``Seq2SeqNLL``,
+``SequenceDiscriminator``, ``TrajectoryTransformer``, ``GATSimulator``,
+``DenseGATLayer``, ``LSTMGAT``; ``GraphSeq2Seq`` in ``models.gat``). The
+generative families are queued in ROADMAP.md §A (A13).
 """
 
 from molecular_dynamics_tpu_torch.models.common import MLP
 from molecular_dynamics_tpu_torch.models.cgan import Discriminator, Generator
 from molecular_dynamics_tpu_torch.models.hnn import HNN
+from molecular_dynamics_tpu_torch.models.seq import (
+    LSTMNLLPredictor,
+    LSTMPredictor,
+    Seq2Seq,
+    Seq2SeqNLL,
+    SequenceDiscriminator,
+)
 from molecular_dynamics_tpu_torch.models.schnet import CfConv, SchNet
 from molecular_dynamics_tpu_torch.models.autoencoder import (
     LatentDiscriminator,
     LatentHNN,
     MLPAutoencoder,
 )
+from molecular_dynamics_tpu_torch.models.gat import LSTMGAT, DenseGATLayer, GATSimulator
+from molecular_dynamics_tpu_torch.models.transformer import TrajectoryTransformer
 from molecular_dynamics_tpu_torch.models.node import hnn_field, odeint_field, rk4_rollout
 
 __all__ = [
@@ -24,12 +36,21 @@ __all__ = [
     "Generator",
     "Discriminator",
     "HNN",
+    "LSTMPredictor",
+    "LSTMNLLPredictor",
+    "Seq2Seq",
+    "GATSimulator",
+    "DenseGATLayer",
+    "TrajectoryTransformer",
     "odeint_field",
     "rk4_rollout",
     "hnn_field",
+    "Seq2SeqNLL",
+    "SequenceDiscriminator",
     "SchNet",
     "CfConv",
     "MLPAutoencoder",
     "LatentHNN",
     "LatentDiscriminator",
+    "LSTMGAT",
 ]

@@ -50,21 +50,30 @@ def orthogonal_(weight: torch.Tensor, generator: Optional[torch.Generator] = Non
         return weight.copy_(kernel.T)
 
 
+def dense(
+    in_features: int, out_features: int, generator=None, device=None,
+    dtype=torch.float32, bias: bool = True, use_orthogonal_init: bool = False,
+) -> nn.Linear:
+    """One ``nn.Linear`` initialised as flax's ``Dense`` (LeCun-normal
+    kernel, or an orthogonal one; zero bias, or none)."""
+    layer = nn.Linear(in_features, out_features, bias=bias, device=resolve_device(device),
+                      dtype=dtype)
+    (orthogonal_ if use_orthogonal_init else lecun_normal_)(layer.weight, generator)
+    if bias:
+        with torch.no_grad():
+            layer.bias.zero_()
+    return layer
+
+
 def dense_layers(
     widths: Sequence[int], in_features: int, generator=None, device=None,
     dtype=torch.float32, use_orthogonal_init: bool = False,
 ) -> nn.ModuleList:
-    """``nn.Linear`` layers of the given widths, initialised as flax's
-    ``Dense`` (LeCun-normal kernel, or an orthogonal one; zero bias)."""
-    device = resolve_device(device)
-    init = orthogonal_ if use_orthogonal_init else lecun_normal_
+    """A chain of ``dense`` layers of the given widths."""
     layers = nn.ModuleList()
     for width in widths:
-        layer = nn.Linear(in_features, width, device=device, dtype=dtype)
-        init(layer.weight, generator)
-        with torch.no_grad():
-            layer.bias.zero_()
-        layers.append(layer)
+        layers.append(dense(in_features, width, generator, device, dtype,
+                            use_orthogonal_init=use_orthogonal_init))
         in_features = width
     return layers
 

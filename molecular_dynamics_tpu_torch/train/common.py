@@ -55,3 +55,13 @@ def descend(opt: ClippedAdam, loss: torch.Tensor) -> None:
     HNN's loss reads the input gradient of its fields, which the last
     layer's bias does not move)."""
     opt.step(torch.autograd.grad(loss, opt.params, materialize_grads=True))
+
+
+def stepper(opt: ClippedAdam, loss_fn):
+    """``step(*batch)``: one ``descend`` of ``opt`` down ``loss_fn(*batch)``,
+    returning the loss (a 0-dim tensor on the device, no host sync)."""
+    def step(*batch):
+        loss = loss_fn(*batch)
+        descend(opt, loss)
+        return loss.detach()
+    return step

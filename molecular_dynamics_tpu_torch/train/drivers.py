@@ -4,13 +4,20 @@ Load or generate trajectories, build the family's model and update steps,
 run epochs with CSV logging, best-checkpoint keeping and loss plots, and
 emit generated ``.xyz`` / ``.pdb`` trajectories and an ``eval.json`` at the
 end. Ported families: ``pretrain`` (the decoder's pretraining), ``cgan``
-(pretrain, then the three-phase physics-informed GAN), and the Hamiltonian
+(pretrain, then the three-phase physics-informed GAN); the Hamiltonian
 dynamics line: ``hnn`` and ``hnn-schnet`` (an HNN field, MLP or SchNet,
 trained on phase-space differences, then through a recurrent unroll),
 ``hnn-latent`` (an HNN in an autoencoder's latent phase space) and ``node``
-(the HNN field trained through an RK4 solver). The dynamics families
-generate by rollout from each data trajectory's start and can pick the
-training snapshot whose probe rollouts best match the data. Every other
+(the HNN field trained through an RK4 solver); and the sequence and graph
+line: ``lstm`` and ``transformer`` (next-frame windows, then an unrolled
+fine-tune through the rollout map), ``lstm-nll`` (a Gaussian head, sampled
+rollouts), ``seq2seq`` and ``seq2seq-gan`` (noise-fed decoders, the second
+against an LSTM critic, chained decodes), ``gat`` (a GNS acceleration
+model with input noise and an unrolled fine-tune), ``lstm-gat`` (per-atom
+LSTM + GAT, a clamped unrolled fine-tune) and ``seq2seq-graph`` (per-atom
+Seq2Seq with GAT refinement, torsion channels rebuilt from each decoded
+segment, a chained fine-tune). Every family generates by rollout from the
+data trajectories' starts, as rows of one batched rollout. Every other
 family raises ``NotImplementedError`` naming the ROADMAP item that brings
 it.
 
@@ -29,17 +36,16 @@ import numpy as np
 import torch
 
 #: families of the reference not ported yet, and the ROADMAP item of each
-_QUEUED = {
-    **dict.fromkeys(("lstm", "lstm-nll", "seq2seq", "seq2seq-gan", "seq2seq-graph",
-                     "lstm-gat", "transformer", "gat"), "A12"),
-    **dict.fromkeys(("vae", "aae", "flow", "sde"), "A13"),
-}
+_QUEUED = dict.fromkeys(("vae", "aae", "flow", "sde"), "A13")
 
 #: the stem of the generated trajectory each family writes (``.xyz``, and a
 #: ``.pdb`` beside it), the reference's file names
 GENERATED = {"pretrain": "pretrain_generated", "cgan": "cGAN_generated", "hnn": "HNN_generated",
              "hnn-schnet": "HNN_generated", "hnn-latent": "LatentHNN_generated",
-             "node": "NODE_generated"}
+             "node": "NODE_generated", "lstm": "LSTM_generated", "lstm-nll": "LSTMNLL_generated",
+             "seq2seq": "Seq2Seq_generated", "transformer": "Transformer_generated",
+             "gat": "GAT_generated", "seq2seq-gan": "Seq2SeqGAN_generated",
+             "lstm-gat": "LSTMGAT_generated", "seq2seq-graph": "Seq2SeqGraph_generated"}
 
 
 def _bootstrap_dataset(ff, coords, out_dir, n_replicas=8, n_steps=8000, device=None):
@@ -854,6 +860,637 @@ def _run_hnn_latent(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curv
     return model
 
 
+# --- the sequence and graph line ---------------------------------------------
+
+
+def _noise(gen, shape):
+    """Standard normal training noise of ``shape`` from the run's generator
+    (decoder inputs, the GNS input noise): every training draw of the
+    sequence line goes through here, the rollouts draw their own."""
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def _epochs(epochs, batches, update, logger, curves, keeper, model, t0, i=0, epoch0=0,
+            epoch_end=None):
+    """The shared update loop: ``update(*batch)`` for each batch of
+    ``batches()``, a log row every 10 updates at epoch ``epoch0 + epoch``,
+    then ``epoch_end(epoch)``. Returns the update count."""
+    for epoch in range(epochs):
+        for batch in batches():
+            loss = update(*batch)
+            i += 1
+            if i % 10 == 0:
+                _log(logger, curves, keeper, model, epoch0 + epoch, i, loss, t0)
+        if epoch_end is not None:
+            epoch_end(epoch)
+    return i
+
+
+def _shuffled(rng, n, batch_size, device):
+    """Index tensors of the full batches of one ``rng`` permutation of ``n``."""
+    order = rng.permutation(n)
+    for s in range(0, len(order) - batch_size + 1, batch_size):
+        yield (torch.as_tensor(order[s: s + batch_size], device=device),)
+
+
+def _finetune(model, keeper, rng, arrays, loss_fn, batch_size, ft_epochs, epochs, i, t0, logger,
+              curves, lr=2e-5):
+    """An unrolled fine-tune: a new loss regime (``keeper.rebase()``), a
+    fresh ``ClippedAdam`` (``lr``, clip 1.0), shuffled batches of ``max(4,
+    batch_size // 2)`` rows of ``arrays`` (tensors on the device) into
+    ``loss_fn``, ``ft_epochs`` epochs logged after the ``epochs`` base ones.
+    Returns the update count."""
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
+
+    keeper.rebase()
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=1.0)
+    update = stepper(opt, lambda sel: loss_fn(*(a[sel] for a in arrays)))
+    ft_bs = max(4, batch_size // 2)
+    return _epochs(ft_epochs, lambda: _shuffled(rng, len(arrays[0]), ft_bs, arrays[0].device),
+                   update, logger, curves, keeper, model, t0, i=i, epoch0=epochs)
+
+
+def _window_unroll_loss(model, w0, tgt):
+    """The window rollout map, differentiable: ``tgt.shape[1]`` predictions
+    each shifted into ``w0 (B, T, F)``, their MSE against ``tgt (B, W, F)``."""
+    w, preds = w0, []
+    for _ in range(tgt.shape[1]):
+        pred = model(w)
+        w = torch.cat([w[:, 1:], pred[:, None]], dim=1)
+        preds.append(pred)
+    return torch.mean((torch.stack(preds, dim=1) - tgt) ** 2)
+
+
+def _windows_ahead(arrays, history, ahead, transpose=False):
+    """Fine-tune rows: for each ``(T, ...)`` array, a ``history`` window and
+    the ``ahead`` frames after it, every ``ahead // 2`` frames, as two lists
+    (``transpose`` puts each window's atoms first; the targets stay time
+    first)."""
+    w0, tgt = [], []
+    for arr in arrays:
+        for s in range(0, len(arr) - history - ahead, max(1, ahead // 2)):
+            win = arr[s: s + history]
+            w0.append(win.transpose(1, 0, 2) if transpose else win)
+            tgt.append(arr[s + history: s + history + ahead])
+    return w0, tgt
+
+
+def _window_rollout_finetune(model, traj, history, feat, rng, i, t0, epochs, batch_size,
+                             logger, curves, keeper, env_prefix, ft_w_default=8,
+                             ft_epochs_default=4):
+    """Unrolled fine-tune through the exact window-shift rollout map (lstm,
+    transformer): ``<PREFIX>_FT_W``-frame rollouts against the true future
+    frames, ``<PREFIX>_FT_EPOCHS`` epochs at lr 2e-5, so that compounding
+    drift is penalised directly. Returns the update count."""
+    ft_w = int(os.environ.get(env_prefix + "_FT_W", ft_w_default))
+    ft_epochs = int(os.environ.get(env_prefix + "_FT_EPOCHS", ft_epochs_default))
+    if ft_epochs <= 0 or ft_w <= 1:
+        return i
+    fw0, ftg = _windows_ahead([t.reshape(len(t), feat) for t in traj.trajectories], history, ft_w)
+    if not fw0:
+        return i
+    device = next(model.parameters()).device
+    arrays = [torch.as_tensor(np.stack(a).astype(np.float32), device=device) for a in (fw0, ftg)]
+    return _finetune(model, keeper, rng, arrays, lambda w, t: _window_unroll_loss(model, w, t),
+                     batch_size, ft_epochs, epochs, i, t0, logger, curves)
+
+
+def _start_windows(traj, history, device, n=8, flat=True):
+    """The first ``history`` frames of the first ``n`` trajectories as rows
+    ``(R, history, F)`` (``flat``) or ``(R, history, N, 3)``."""
+    starts = [t[:history].reshape(history, -1) if flat else t[:history]
+              for t in traj.trajectories[:n]]
+    return torch.as_tensor(np.stack(starts), device=device)
+
+
+def _unwhitened_rows(frames, n_atoms, w_mean, w_std):
+    """Rollout frames ``(T, R, ...)`` -> R coordinate trajectories ``(T, N,
+    3)`` in Angstrom."""
+    from molecular_dynamics_tpu_torch.evaluate import unwhiten
+
+    frames = frames.cpu().numpy()
+    return [unwhiten(frames[:, r].reshape(len(frames), n_atoms, 3), w_mean, w_std)
+            for r in range(frames.shape[1])]
+
+
+def _roll_len(traj):
+    """Rollouts span the data's normalized time: the mean trajectory length."""
+    return int(np.mean([len(t) for t in traj.trajectories]))
+
+
+def _torsion_tables(ff, top):
+    """phi / psi index tables from the topology's backbone names, else the
+    force field's first dihedrals (a quarter of the atoms each)."""
+    from molecular_dynamics_tpu_torch.features import phi_psi_indices
+
+    phi_idx, psi_idx = phi_psi_indices(top)
+    if not len(phi_idx) or not len(psi_idx):
+        m = max(1, ff.n_atoms // 4)
+        dihedrals = ff.dihedrals.cpu().numpy()
+        phi_idx, psi_idx = dihedrals[:m], dihedrals[m:][:m]
+    return phi_idx, psi_idx
+
+
+def _run_lstm(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+              top, device, nll=False):
+    """Windowed LSTM (history 15): the composite next-frame loss at lead 2,
+    then the unrolled fine-tune (``MDX_LSTM_FT_*``); or, for ``lstm-nll``,
+    the Gaussian NLL at lead 1 (each sample is fed back as the immediate
+    successor) and sampled rollouts. ``MDX_LSTM_PROBE=k`` snapshots every k
+    epochs and keeps the one whose probe rollouts score best (``lstm``
+    only)."""
+    import warnings
+
+    from molecular_dynamics_tpu_torch.models.seq import LSTMNLLPredictor, LSTMPredictor
+    from molecular_dynamics_tpu_torch.train.checkpoint import save
+    from molecular_dynamics_tpu_torch.train.datasets import window_batches
+    from molecular_dynamics_tpu_torch.train.seq import (
+        SeqTrainConfig, autoregressive_rollout, corrector_from_env, make_nll_trainer,
+        make_window_trainer, nll_sampling_rollout)
+
+    n = ff.n_atoms
+    feat = n * 3
+    history, lead = 15, (1 if nll else 2)
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    if nll:
+        model = LSTMNLLPredictor(feat, feat, generator=gen, device=device)
+        _, step = make_nll_trainer(model)
+    else:
+        model = LSTMPredictor(feat, feat, generator=gen, device=device)
+        phi_idx, psi_idx = _torsion_tables(ff, top)
+        _, step = make_window_trainer(model, phi_idx, psi_idx, SeqTrainConfig(n_atoms=n))
+    probe_every_ep = int(os.environ.get("MDX_LSTM_PROBE", 0))
+    if probe_every_ep and nll:
+        warnings.warn("MDX_LSTM_PROBE is ignored by lstm-nll: it keeps its final weights "
+                      "(probe selection scores deterministic rollouts)", stacklevel=2)
+        probe_every_ep = 0
+    snapshots = []
+
+    def batches():
+        for window, target in window_batches(traj, history, lead, batch_size, rng):
+            yield torch.as_tensor(window, device=device), torch.as_tensor(target, device=device)
+
+    def epoch_end(epoch):
+        if probe_every_ep and (epoch + 1) % probe_every_ep == 0:
+            _snapshot(snapshots, model)
+
+    t0 = time.time()
+    i = _epochs(epochs, batches, step, logger, curves, keeper, model, t0, epoch_end=epoch_end)
+    if not nll:
+        i = _window_rollout_finetune(model, traj, history, feat, rng, i, t0, epochs, batch_size,
+                                     logger, curves, keeper, env_prefix="MDX_LSTM")
+    roll_len = _roll_len(traj)
+    correct = corrector_from_env(ff, w_mean, w_std)
+    starts = _start_windows(traj, history, device)
+
+    def rolls(k):
+        if nll:
+            frames = nll_sampling_rollout(model, starts[:k], roll_len, generator=gen,
+                                          corrector=correct)
+        else:
+            frames = autoregressive_rollout(model, starts[:k], roll_len, corrector=correct)
+        return _unwhitened_rows(frames, n, w_mean, w_std)
+
+    if probe_every_ep and snapshots:
+        # probes through the exact generation map, corrector included
+        rg_data = _rg_data(raw_traj)
+        _probe_select("lstm", model, snapshots,
+                      lambda: _ensemble_probe_score(rolls(3), raw_traj, rg_data))
+    tag = "lstm-nll" if nll else "lstm"
+    generated = rolls(8)
+    _export_xyz(os.path.join(out_dir, GENERATED[tag] + ".xyz"), generated[0], names, top=top)
+    _eval_rollout_ensemble(out_dir, tag, generated, raw_traj)
+    if probe_every_ep:
+        save(os.path.join(out_dir, "best.ckpt"), model)  # the weights eval.json scored
+    return model
+
+
+def _decode_batches(arrays, history, decode_len, batch_size, device, transpose=False):
+    """Seq2Seq batches, in order: for each ``(T, ...)`` array, windows of
+    ``history`` frames and the ``decode_len`` after them, ``batch_size``
+    consecutive starts a batch (the last one shorter). ``transpose`` puts
+    each window's atoms first (per-atom series)."""
+    for arr in arrays:
+        for s in range(0, len(arr) - history - decode_len, batch_size):
+            m = min(batch_size, len(arr) - s - history - decode_len)
+            wins = np.stack([arr[s + j: s + j + history] for j in range(m)])
+            tgts = np.stack([arr[s + j + history: s + j + history + decode_len]
+                             for j in range(m)])
+            if transpose:
+                wins, tgts = wins.transpose(0, 2, 1, 3), tgts.transpose(0, 2, 1, 3)
+            yield torch.as_tensor(wins, device=device), torch.as_tensor(tgts, device=device)
+
+
+def _run_seq2seq(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+                 top, device, adversarial=False):
+    """Seq2Seq (history 10, decode 5, noise 16): the sequence MSE of
+    noise-fed decodes, or (``seq2seq-gan``) that plus the BCE of an LSTM
+    critic trained beside it; generation by chained decodes of the trained
+    horizon (``MDX_ROLLOUT_CORRECT`` corrects plain ``seq2seq``'s)."""
+    from molecular_dynamics_tpu_torch.models.seq import Seq2Seq, SequenceDiscriminator
+    from molecular_dynamics_tpu_torch.train.seq import (
+        chained_decode_rollout, corrector_from_env, make_seq2seq_gan_trainer,
+        make_seq2seq_trainer)
+
+    n = ff.n_atoms
+    feat = n * 3
+    history, decode_len = 10, 5
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    model = Seq2Seq(feat, feat, generator=gen, device=device)
+    if adversarial:
+        disc = SequenceDiscriminator(feat, generator=gen, device=device)
+        _, _, g_step, d_step = make_seq2seq_gan_trainer(model, disc)
+
+        def update(wins, tgts):
+            shape = model.noise_shape(wins.shape[:1], decode_len)
+            g_loss = g_step(_noise(gen, shape), wins, tgts)
+            d_step(_noise(gen, shape), wins, tgts)
+            return g_loss
+    else:
+        _, step = make_seq2seq_trainer(model)
+
+        def update(wins, tgts):
+            return step(_noise(gen, model.noise_shape(wins.shape[:1], decode_len)), wins, tgts)
+
+    flats = [t.reshape(len(t), -1) for t in traj.trajectories]
+    t0 = time.time()
+    _epochs(epochs, lambda: _decode_batches(flats, history, decode_len, batch_size, device),
+            update, logger, curves, keeper, model, t0)
+    # chained decodes: each decode runs at the horizon the decoder (and the
+    # critic) was trained on
+    correct = None if adversarial else corrector_from_env(ff, w_mean, w_std)
+    frames = chained_decode_rollout(model, _start_windows(traj, history, device), decode_len,
+                                    _roll_len(traj), generator=gen, corrector=correct)
+    tag = "seq2seq-gan" if adversarial else "seq2seq"
+    generated = _unwhitened_rows(frames, n, w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED[tag] + ".xyz"), generated[0], names, top=top)
+    _eval_rollout_ensemble(out_dir, tag, generated, raw_traj)
+    return model
+
+
+def _run_transformer(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir,
+                     names, top, device):
+    """Trajectory transformer (history 11, d_model 64): next-frame MSE at
+    lead 1, then the unrolled fine-tune (``MDX_TRANSFORMER_FT_*``);
+    autoregressive rollouts, uncorrected."""
+    from molecular_dynamics_tpu_torch.models.transformer import TrajectoryTransformer
+    from molecular_dynamics_tpu_torch.train.datasets import window_batches
+    from molecular_dynamics_tpu_torch.train.seq import autoregressive_rollout, make_mse_trainer
+
+    n = ff.n_atoms
+    feat = n * 3
+    history = 11
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    model = TrajectoryTransformer(feat, feat, d_model=64, history=history, generator=gen,
+                                  device=device)
+    _, step = make_mse_trainer(model)
+
+    def batches():
+        for window, target in window_batches(traj, history, 1, batch_size, rng):
+            yield torch.as_tensor(window, device=device), torch.as_tensor(target, device=device)
+
+    t0 = time.time()
+    i = _epochs(epochs, batches, step, logger, curves, keeper, model, t0)
+    _window_rollout_finetune(model, traj, history, feat, rng, i, t0, epochs, batch_size, logger,
+                             curves, keeper, env_prefix="MDX_TRANSFORMER")
+    frames = autoregressive_rollout(model, _start_windows(traj, history, device), _roll_len(traj))
+    generated = _unwhitened_rows(frames, n, w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED["transformer"] + ".xyz"), generated[0], names,
+                top=top)
+    _eval_rollout_ensemble(out_dir, "transformer", generated, raw_traj)
+    return model
+
+
+def _gns_dataset(traj):
+    """The GNS dataset of ``traj``: within each trajectory (never across),
+    frames 2 .. T-2 with their two previous finite-difference velocities,
+    the acceleration target and the next frame; pooled, with each
+    trajectory's first row."""
+    pos_l, vel_l, acc_l, nxt_l = [], [], [], []
+    for t_one in traj.trajectories:
+        v = np.diff(t_one, axis=0)
+        a = np.diff(v, axis=0)
+        sel = np.arange(2, len(t_one) - 1)
+        pos_l.append(t_one[sel])
+        nxt_l.append(t_one[sel + 1])
+        vel_l.append(np.stack([v[sel - 1], v[sel - 2]], axis=1))
+        acc_l.append(a[sel - 1])
+    starts = np.cumsum([0] + [len(x) for x in pos_l])[:-1]
+    return (np.concatenate(pos_l), np.concatenate(vel_l), np.concatenate(acc_l),
+            np.concatenate(nxt_l), starts, [len(x) for x in pos_l])
+
+
+def _gat_loss(model, noise, pos, v1, v2, target_acc, pos_next, noise_sd, vel_scale, acc_scale):
+    """The GNS step: positions perturbed by ``noise_sd x noise``, the
+    acceleration MSE plus the next position's MSE."""
+    pos_n = pos + noise_sd * noise
+    pred = model(torch.cat([pos_n, v1, v2], dim=-1), pos_n)
+    l_acc = torch.mean((pred - target_acc) ** 2)
+    p_new = pos_n + v1 * vel_scale + pred * acc_scale
+    return l_acc + torch.mean((p_new - pos_next) ** 2)
+
+
+def _gat_sim_step(model, pos, vc1, vc2, vel_scale, acc_scale):
+    """The one semi-implicit generation map, shared by the fine-tune and the
+    rollout: the acceleration clamped to +-2 (z-scored targets), the
+    velocity to +-3, in normalised units."""
+    acc_n = torch.clamp(model(torch.cat([pos, vc1, vc2], dim=-1), pos), -2.0, 2.0)
+    v_new = torch.clamp(vc1 + acc_n * (acc_scale / vel_scale), -3.0, 3.0)
+    return pos + v_new * vel_scale, v_new
+
+
+def _gat_unroll(model, p0, v1, v2, n_steps, vel_scale, acc_scale):
+    pos, out = p0, []
+    for _ in range(n_steps):
+        pos, v_new = _gat_sim_step(model, pos, v1, v2, vel_scale, acc_scale)
+        v1, v2 = v_new, v1
+        out.append(pos)
+    return torch.stack(out, dim=1)  # (B, W, N, 3)
+
+
+def _gat_unroll_loss(model, p0, v1, v2, tgt, vel_scale, acc_scale):
+    """The GAT fine-tune's loss: ``tgt.shape[1]`` frames of the generation
+    map against the true future positions ``tgt (B, W, N, 3)``."""
+    return torch.mean(
+        (_gat_unroll(model, p0, v1, v2, tgt.shape[1], vel_scale, acc_scale) - tgt) ** 2)
+
+
+def _run_gat(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+             top, device):
+    """GNS-style GAT simulator on raw coordinates: trajectories strided to
+    about 160 frames, velocities and accelerations by finite differences
+    normalised to their mean magnitudes, Gaussian input noise
+    (``MDX_GAT_NOISE`` x the velocity scale), then an unrolled fine-tune
+    through the clamped generation map (``MDX_GAT_FT_*``); 24 rollouts."""
+    from molecular_dynamics_tpu_torch.models.gat import GATSimulator
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
+    from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData
+
+    n = ff.n_atoms
+    stride = max(1, int(round(np.mean([len(t) for t in traj.trajectories]) / 160.0)))
+    if stride > 1:
+        traj = TrajectoryData([t[::stride] for t in traj.trajectories])
+    gat_noise = float(os.environ.get("MDX_GAT_NOISE", 0.5))
+    model = GATSimulator(node_in=9, latent=int(os.environ.get("MDX_GAT_LATENT", 64)),
+                         n_processors=int(os.environ.get("MDX_GAT_PROC", 3)), k=min(40, n - 1),
+                         generator=gen, device=device)
+    opt = ClippedAdam(model.parameters(), lr=1e-4, clip_norm=1.0)
+    pos_a, vv, aa, nxt_a, traj_starts, lens = _gns_dataset(traj)
+    # normalise the finite-difference scales (strided frames make raw
+    # accelerations large)
+    acc_scale = float(np.abs(aa).mean()) + 1e-8
+    vel_scale = float(np.abs(vv).mean()) + 1e-8
+    vv, aa = vv / vel_scale, aa / acc_scale
+    pos_d, vv_d, aa_d, nxt_d = (torch.as_tensor(a, device=device) for a in (pos_a, vv, aa, nxt_a))
+    update = stepper(opt, lambda sel: _gat_loss(
+        model, _noise(gen, (len(sel), n, 3)), pos_d[sel], vv_d[sel, 0], vv_d[sel, 1], aa_d[sel],
+        nxt_d[sel], gat_noise * vel_scale, vel_scale, acc_scale))
+    t0 = time.time()
+    i = _epochs(epochs, lambda: _shuffled(rng, len(pos_a), batch_size, device), update, logger,
+                curves, keeper, model, t0)
+    ft_w = int(os.environ.get("MDX_GAT_FT_W", 8))
+    ft_epochs = int(os.environ.get("MDX_GAT_FT_EPOCHS", 6))
+    if ft_epochs > 0 and ft_w > 1:
+        rows = [traj_starts[ti] + s for ti, ln in enumerate(lens)
+                for s in range(0, ln - ft_w, max(1, ft_w // 2))]
+        if rows:
+            rows = np.asarray(rows)
+            tgt = np.stack([pos_a[j + 1: j + 1 + ft_w] for j in rows])
+            arrays = [pos_d[rows], vv_d[rows, 0], vv_d[rows, 1],
+                      torch.as_tensor(tgt, device=device)]
+            _finetune(model, keeper, rng, arrays, lambda p0, v1, v2, t: _gat_unroll_loss(
+                model, p0, v1, v2, t, vel_scale, acc_scale),
+                batch_size, ft_epochs, epochs, i, t0, logger, curves)
+    s0 = torch.as_tensor(traj_starts[:24], device=device)
+    with torch.no_grad():
+        frames = _gat_unroll(model, pos_d[s0], vv_d[s0, 0], vv_d[s0, 1], _roll_len(traj),
+                             vel_scale, acc_scale).cpu().numpy()
+    generated = list(frames)
+    _export_xyz(os.path.join(out_dir, GENERATED["gat"] + ".xyz"), generated[0], names, top=top)
+    _eval_rollout_ensemble(out_dir, "gat", generated, traj)
+    return model
+
+
+def _lstm_gat_windows(traj, history):
+    """LSTM-GAT training pairs: every ``history`` window ``(history, N, 3)``
+    of each trajectory that leaves a frame after it, and that frame."""
+    wins, tgts = [], []
+    for t_arr in traj.trajectories:
+        for s in range(0, len(t_arr) - history - 1):
+            wins.append(t_arr[s: s + history])
+            tgts.append(t_arr[s + history])
+    return np.stack(wins).astype(np.float32), np.stack(tgts).astype(np.float32)
+
+
+def _lstm_gat_predict(model, wins):
+    """Windows ``(B, T, N, 3)`` -> the next frame ``(B, N, 3)``: each atom's
+    series through the model, the graph of the latest frame, a delta on it."""
+    pos = wins[:, -1]
+    return pos + model(wins.transpose(1, 2), pos)
+
+
+def _lstm_gat_clamps(traj, device):
+    """The generation map's clamps: a step's displacement within twice the
+    99.9 % quantile of the data's, the frame within the data's box +-0.5."""
+    dx_all = np.concatenate([np.diff(t, axis=0) for t in traj.trajectories])
+    all_w = np.concatenate(traj.trajectories)
+    return (float(np.quantile(np.abs(dx_all), 0.999)) * 2.0,
+            torch.as_tensor(all_w.min(axis=0) - 0.5, device=device),
+            torch.as_tensor(all_w.max(axis=0) + 0.5, device=device))
+
+
+def _lstm_gat_unroll(model, w, n_steps, clamps):
+    """The one clamped generation map, ``n_steps`` frames from windows ``w
+    (B, T, N, 3)``, each shifted in: ``(B, n_steps, N, 3)``. The fine-tune
+    trains through it and the rollout runs it."""
+    max_step, box_lo, box_hi = clamps
+    out = []
+    for _ in range(n_steps):
+        last = w[:, -1]
+        pred = last + torch.clamp(_lstm_gat_predict(model, w) - last, -max_step, max_step)
+        pred = torch.minimum(torch.maximum(pred, box_lo), box_hi)
+        w = torch.cat([w[:, 1:], pred[:, None]], dim=1)
+        out.append(pred)
+    return torch.stack(out, dim=1)
+
+
+def _run_lstm_gat(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir,
+                  names, top, device):
+    """LSTM-GAT on whitened per-atom windows (history 5) predicting the next
+    frame's delta, then an unrolled fine-tune (``MDX_LSTMGAT_FT_*``, 8 x 8
+    by default) through the clamped generation map (``_lstm_gat_unroll``)."""
+    from molecular_dynamics_tpu_torch.models.gat import LSTMGAT
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
+
+    n = ff.n_atoms
+    history = 5
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    model = LSTMGAT(in_features=3, out_dim=3, k=min(10, n - 1), generator=gen, device=device)
+    opt = ClippedAdam(model.parameters(), lr=1e-3, clip_norm=1.0)
+    wins_d, tgt_d = (torch.as_tensor(a, device=device) for a in _lstm_gat_windows(traj, history))
+    update = stepper(opt, lambda sel: torch.mean(
+        (_lstm_gat_predict(model, wins_d[sel]) - tgt_d[sel]) ** 2))
+    t0 = time.time()
+    i = _epochs(epochs, lambda: _shuffled(rng, len(wins_d), batch_size, device), update, logger,
+                curves, keeper, model, t0)
+    clamps = _lstm_gat_clamps(traj, device)
+    ft_w = int(os.environ.get("MDX_LSTMGAT_FT_W", 8))
+    ft_epochs = int(os.environ.get("MDX_LSTMGAT_FT_EPOCHS", 8))
+    if ft_epochs > 0 and ft_w > 1:
+        fw0, ftg = _windows_ahead(traj.trajectories, history, ft_w)
+        if fw0:
+            arrays = [torch.as_tensor(np.stack(a).astype(np.float32), device=device)
+                      for a in (fw0, ftg)]
+            _finetune(model, keeper, rng, arrays,
+                      lambda w, t: torch.mean((_lstm_gat_unroll(model, w, ft_w, clamps) - t) ** 2),
+                      batch_size, ft_epochs, epochs, i, t0, logger, curves)
+    with torch.no_grad():
+        frames = _lstm_gat_unroll(model, _start_windows(traj, history, device, flat=False),
+                                  _roll_len(traj), clamps)
+    generated = _unwhitened_rows(frames.transpose(0, 1), n, w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED["lstm-gat"] + ".xyz"), generated[0], names, top=top)
+    _eval_rollout_ensemble(out_dir, "lstm-gat", generated, raw_traj)
+    return model
+
+
+def _refeaturizer(phi_idx, psi_idx, phi_row, psi_row, w_mean, w_std, device):
+    """``seg (..., N, L, 5) -> (..., N, L, 5)``: the phi / psi channels
+    rebuilt from the segment's own (unwhitened) geometry, each atom carrying
+    its residue's torsions (0 at a terminus without one)."""
+    from molecular_dynamics_tpu_torch.features import phi_psi
+
+    mean = torch.as_tensor(np.asarray(w_mean, np.float32), device=device)
+    std = torch.as_tensor(np.asarray(w_std, np.float32), device=device)
+    phi_row, psi_row = (torch.as_tensor(r, device=device) for r in (phi_row, psi_row))
+
+    def channel(values, rows):  # (..., L, n_torsions) -> (..., N, L, 1)
+        picked = values[..., rows.clamp(min=0)]
+        return torch.where(rows >= 0, picked, torch.zeros_like(picked)).transpose(-1, -2)[..., None]
+
+    def refeature(seg):
+        xyz = seg[..., :3].transpose(-3, -2)  # (..., L, N, 3)
+        flat = xyz.reshape(*xyz.shape[:-2], -1)
+        pos = (flat * std.to(seg.dtype) + mean.to(seg.dtype)).reshape(xyz.shape)
+        ph, ps = phi_psi(pos, phi_idx, psi_idx)
+        return torch.cat([seg[..., :3], channel(ph, phi_row), channel(ps, psi_row)], dim=-1)
+
+    return refeature
+
+
+def _atom_features(raw_traj, white_traj, top, device):
+    """Per-atom series ``(T, N, 5)`` of each trajectory: the whitened xyz and
+    the atom's residue torsions from the raw geometry (whitening distorts
+    dihedrals), 0 at a terminus without one or without backbone names."""
+    from molecular_dynamics_tpu_torch.features import per_atom_angle_rows, phi_psi
+
+    phi_idx, psi_idx, phi_row, psi_row = per_atom_angle_rows(top)
+    feats = []
+    for raw, white in zip(raw_traj.trajectories, white_traj.trajectories):
+        if len(phi_idx) and len(psi_idx):
+            with torch.no_grad():
+                ph, ps = (a.cpu().numpy() for a in phi_psi(
+                    torch.as_tensor(np.asarray(raw), device=device), phi_idx, psi_idx))
+            a_phi = np.where(phi_row >= 0, ph[:, np.clip(phi_row, 0, None)], 0.0)
+            a_psi = np.where(psi_row >= 0, ps[:, np.clip(psi_row, 0, None)], 0.0)
+        else:
+            a_phi = a_psi = np.zeros(np.shape(raw)[:2], np.float32)
+        feats.append(np.concatenate([np.asarray(white, np.float32),
+                                     a_phi[..., None].astype(np.float32),
+                                     a_psi[..., None].astype(np.float32)], axis=-1))
+    return feats
+
+
+def _graph_unroll(model, w0, noise, refeature):
+    """The chained-decode generation map, differentiable: ``noise (B, S, L,
+    N, F)`` drives S decodes of ``w0 (B, N, T, F)``; returns the frames
+    ``(B, S * L, N, F)``."""
+    w, segs = w0, []
+    for s in range(noise.shape[1]):
+        seg = model(w, noise[:, s])
+        if refeature is not None:
+            seg = refeature(seg)
+        w = torch.cat([w[..., seg.shape[-2]:, :], seg], dim=-2)
+        segs.append(seg.transpose(1, 2))
+    return torch.cat(segs, dim=1)
+
+
+def _graph_unroll_loss(model, w0, tgt, noise, refeature):
+    """The graph fine-tune's loss: the chained decodes' whitened positions
+    against ``tgt (B, S * L, N, F)``'s, plus the mirrored-pair distances'
+    MSE."""
+    from molecular_dynamics_tpu_torch.train.seq import mirrored_pair_distances
+
+    pos = _graph_unroll(model, w0, noise, refeature)[..., :3]
+    pos_t = tgt[..., :3]
+    return torch.mean((pos - pos_t) ** 2) + torch.mean(
+        (mirrored_pair_distances(pos) - mirrored_pair_distances(pos_t)) ** 2)
+
+
+def _run_seq2seq_graph(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir,
+                       names, top, device):
+    """Graph-conditioned Seq2Seq over per-atom [whitened xyz, phi, psi]
+    series (history 10, decode 5; ``MDX_GSEQ_HIDDEN``, ``_K``, ``_NOISE``,
+    ``_LR``), the torsions from the raw geometry; then a fine-tune through
+    ``MDX_GSEQ_FT_SEGS`` chained segments with the torsion channels rebuilt
+    from each (``MDX_GSEQ_REFEAT``), against the whitened positions and the
+    mirrored-pair distances."""
+    from molecular_dynamics_tpu_torch.features import per_atom_angle_rows
+    from molecular_dynamics_tpu_torch.models.gat import GraphSeq2Seq
+    from molecular_dynamics_tpu_torch.train.seq import (
+        graph_chained_decode_rollout, make_graph_seq2seq_trainer)
+
+    n = ff.n_atoms
+    history, decode_len = 10, 5
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    phi_idx, psi_idx, phi_row, psi_row = per_atom_angle_rows(top)
+    has_torsions = bool(len(phi_idx) and len(psi_idx))
+    feats = _atom_features(raw_traj, traj, top, device)
+    model = GraphSeq2Seq(hidden_size=int(os.environ.get("MDX_GSEQ_HIDDEN", 64)),
+                         k=int(os.environ.get("MDX_GSEQ_K", 6)),
+                         noise_scale=float(os.environ.get("MDX_GSEQ_NOISE", 0.5)),
+                         generator=gen, device=device)
+    _, step = make_graph_seq2seq_trainer(model, lr=float(os.environ.get("MDX_GSEQ_LR", 1e-3)))
+
+    def update(wins, tgts):  # one noise draw a row
+        return step(_noise(gen, (len(wins), decode_len, n, 5)), wins, tgts)
+
+    t0 = time.time()
+    i = _epochs(epochs, lambda: _decode_batches(feats, history, decode_len, batch_size, device,
+                                                transpose=True),
+                update, logger, curves, keeper, model, t0)
+    refeature = None
+    if os.environ.get("MDX_GSEQ_REFEAT", "1") == "1" and has_torsions:
+        refeature = _refeaturizer(phi_idx, psi_idx, phi_row, psi_row, w_mean, w_std, device)
+    ft_segs = int(os.environ.get("MDX_GSEQ_FT_SEGS", 4))
+    ft_epochs = int(os.environ.get("MDX_GSEQ_FT_EPOCHS", 4))
+    if ft_epochs > 0 and ft_segs > 0:
+        fw0, ftg = _windows_ahead(feats, history, ft_segs * decode_len, transpose=True)
+        if fw0:
+            arrays = [torch.as_tensor(np.stack(a).astype(np.float32), device=device)
+                      for a in (fw0, ftg)]
+
+            def ft_loss(w0, tgt):  # one draw a row and segment
+                noise = _noise(gen, (len(w0), ft_segs, decode_len, n, 5))
+                return _graph_unroll_loss(model, w0, tgt, noise, refeature)
+
+            _finetune(model, keeper, rng, arrays, ft_loss, batch_size, ft_epochs, epochs, i, t0,
+                      logger, curves, lr=float(os.environ.get("MDX_GSEQ_FT_LR", 2e-5)))
+    starts = torch.as_tensor(np.stack([f[:history].transpose(1, 0, 2) for f in feats[:8]]),
+                             device=device)
+    frames = graph_chained_decode_rollout(model, starts, decode_len, _roll_len(traj),
+                                          generator=gen, refeature=refeature)
+    generated = _unwhitened_rows(frames[..., :3], n, w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED["seq2seq-graph"] + ".xyz"), generated[0], names,
+                top=top)
+    _eval_rollout_ensemble(out_dir, "seq2seq-graph", generated, raw_traj)
+    return model
+
+
 _FAMILIES = {
     "pretrain": _run_pretrain,
     "cgan": _run_cgan,
@@ -861,4 +1498,12 @@ _FAMILIES = {
     "hnn-schnet": lambda **kw: _run_hnn(backbone="schnet", **kw),
     "hnn-latent": _run_hnn_latent,
     "node": _run_node,
+    "lstm": _run_lstm,
+    "lstm-nll": lambda **kw: _run_lstm(nll=True, **kw),
+    "seq2seq": _run_seq2seq,
+    "seq2seq-gan": lambda **kw: _run_seq2seq(adversarial=True, **kw),
+    "transformer": _run_transformer,
+    "gat": _run_gat,
+    "lstm-gat": _run_lstm_gat,
+    "seq2seq-graph": _run_seq2seq_graph,
 }

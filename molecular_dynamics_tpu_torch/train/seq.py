@@ -1,10 +1,29 @@
-"""Physics correctors for generated frames (the rollout correctors of the
-sequence-model module; the window trainers come with the sequence line,
-ROADMAP A12).
+"""Sequence-model training: the trainers, the rollouts that generate with
+them, and the physics correctors of generated frames.
 
-A corrector relaxes each generated frame of a rollout through the
-differentiable force field before it is fed back: a few FIRE steps
-(``make_frame_corrector``) or a short thermostatted Langevin burst
+**Trainers.** Each ``make_*_trainer`` returns its ``ClippedAdam`` (Adam after
+optax's global-norm clip) and a step that updates the model in place and
+returns the loss (a 0-dim tensor on the device); the loss itself is a plain
+function of the module and the batch (``window_loss``, ``nll_loss``,
+``seq2seq_loss``, ``gan_generator_loss``, ``gan_critic_loss``,
+``graph_seq2seq_loss``). The window trainer scores the next frame with the
+composite position + phi + psi + kNN-distance loss; the NLL trainer the
+Gaussian head; Seq2Seq the sequence MSE of a noise-fed decode (no teacher
+forcing), its adversarial variant adds an LSTM critic; the graph trainer
+per-atom windows with a mirrored-pair end-to-end term. Decoder noise is an
+argument of every step: the caller draws it from its ``torch.Generator``.
+
+**Rollouts.** ``autoregressive_rollout`` (predict, shift the window),
+``nll_sampling_rollout`` (sample the predicted Gaussian),
+``chained_decode_rollout`` and ``graph_chained_decode_rollout`` (decode a
+trained horizon, shift the window by the segment). Every leading axis of
+the start windows is a row of one batched rollout; each row is the
+reference's rollout from that start, given the same draws. They run
+without a graph and return frames time first, ``(T, ...)``.
+
+**Correctors.** A corrector relaxes each generated frame of a rollout
+through the differentiable force field before it is fed back: a few FIRE
+steps (``make_frame_corrector``) or a short thermostatted Langevin burst
 (``make_langevin_corrector``), optionally holding the frame's own
 end-to-end distance with a harmonic pin. Each works on the rollout's
 representation (whitened flat features ``(..., 3N)``: it unwhitens,
@@ -15,16 +34,263 @@ where the relaxation is not finite. ``corrector_from_env`` reads the
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from molecular_dynamics_tpu_torch import units
 from molecular_dynamics_tpu_torch.energy import REFERENCE_CONFIG, _neg_grad, total_energy
+from molecular_dynamics_tpu_torch.features import knn_mask
 from molecular_dynamics_tpu_torch.integrate import minimize_fire, mix_seed
+from molecular_dynamics_tpu_torch.models.seq import gaussian_nll
+from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
+from molecular_dynamics_tpu_torch.train.losses import window_composite_loss
 
 Tensor = torch.Tensor
+
+
+# --- trainers -----------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqTrainConfig:
+    lr: float = 1e-4
+    clip_norm: float = 1.0
+    n_atoms: int = 40
+    w_pos: float = 1.0
+    w_phi: float = 1.0
+    w_psi: float = 1.0
+    w_dist: float = 1.0
+    knn_k: int = 5
+
+
+def window_loss(model, window: Tensor, target: Tensor, phi_idx: Tensor, psi_idx: Tensor,
+                knn: Tensor, config: SeqTrainConfig = SeqTrainConfig()) -> Tensor:
+    """The composite next-frame loss of ``model(window)`` against ``target``
+    (flat frames ``(B, 3N)``, scored as ``(B, N, 3)``)."""
+    pred = model(window)
+    n = config.n_atoms
+    return window_composite_loss(
+        pred.reshape(-1, n, 3), target.to(pred.dtype).reshape(-1, n, 3), phi_idx, psi_idx, knn,
+        config.w_pos, config.w_phi, config.w_psi, config.w_dist)
+
+
+def make_window_trainer(model, phi_idx, psi_idx, config: SeqTrainConfig = SeqTrainConfig()):
+    """Composite-loss next-frame trainer: ``(opt, step(window, target))``."""
+    opt = ClippedAdam(model.parameters(), lr=config.lr, clip_norm=config.clip_norm)
+    device = next(model.parameters()).device
+    knn = knn_mask(config.n_atoms, config.knn_k, device=device)
+    phi = torch.as_tensor(np.asarray(phi_idx), device=device)
+    psi = torch.as_tensor(np.asarray(psi_idx), device=device)
+    return opt, stepper(opt, lambda w, t: window_loss(model, w, t, phi, psi, knn, config))
+
+
+def nll_loss(model, window: Tensor, target: Tensor) -> Tensor:
+    mu, sigma = model(window)
+    return gaussian_nll(mu, sigma, target.to(mu.dtype))
+
+
+def make_nll_trainer(model, lr: float = 1e-4, clip_norm: float = 1.0):
+    """Gaussian-NLL next-frame trainer: ``(opt, step(window, target))``."""
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=clip_norm)
+    return opt, stepper(opt, lambda w, t: nll_loss(model, w, t))
+
+
+def mse_loss(model, window: Tensor, target: Tensor) -> Tensor:
+    """The next frame's mean squared error (the transformer's loss)."""
+    pred = model(window)
+    return torch.mean((pred - target.to(pred.dtype)) ** 2)
+
+
+def make_mse_trainer(model, lr: float = 1e-4, clip_norm: float = 1.0):
+    """Next-frame MSE trainer: ``(opt, step(window, target))``."""
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=clip_norm)
+    return opt, stepper(opt, lambda w, t: mse_loss(model, w, t))
+
+
+def seq2seq_loss(model, noise: Tensor, window: Tensor, target_seq: Tensor) -> Tensor:
+    pred = model(window, noise)
+    return torch.mean((pred - target_seq.to(pred.dtype)) ** 2)
+
+
+def make_seq2seq_trainer(model, lr: float = 1e-4, clip_norm: float = 1.0):
+    """Sequence-MSE trainer of a noise-fed decoder: ``(opt, step(noise,
+    window, target_seq))``, the decode as long as ``noise``."""
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=clip_norm)
+    return opt, stepper(opt, lambda z, w, t: seq2seq_loss(model, z, w, t))
+
+
+def _bce_logits(logits: Tensor, label: float) -> Tensor:
+    return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, label))
+
+
+def gan_generator_loss(gen, disc, noise: Tensor, window: Tensor, target_seq: Tensor,
+                       adv_weight: float = 0.1) -> Tensor:
+    """Sequence MSE + ``adv_weight`` x the non-saturating BCE of the critic
+    on the decode."""
+    pred = gen(window, noise)
+    l2 = torch.mean((pred - target_seq.to(pred.dtype)) ** 2)
+    return l2 + adv_weight * _bce_logits(disc(pred), 1.0)
+
+
+def gan_critic_loss(disc, gen, noise: Tensor, window: Tensor, target_seq: Tensor) -> Tensor:
+    """The critic's BCE: real future windows against decoded ones (no
+    gradient into the generator)."""
+    with torch.no_grad():
+        fake = gen(window, noise)
+    return _bce_logits(disc(target_seq), 1.0) + _bce_logits(disc(fake), 0.0)
+
+
+def make_seq2seq_gan_trainer(gen, disc, lr_g: float = 1e-4, lr_d: float = 1e-4,
+                             adv_weight: float = 0.1, clip_norm: float = 1.0):
+    """Adversarial Seq2Seq: ``(opt_g, opt_d, g_step, d_step)``, each step
+    ``(noise, window, target_seq)``. The critic is the one ``d_step``
+    updates; ``g_step`` reads it as it stands."""
+    opt_g = ClippedAdam(gen.parameters(), lr=lr_g, clip_norm=clip_norm)
+    opt_d = ClippedAdam(disc.parameters(), lr=lr_d, clip_norm=clip_norm)
+    g_step = stepper(opt_g, lambda z, w, t: gan_generator_loss(gen, disc, z, w, t, adv_weight))
+    d_step = stepper(opt_d, lambda z, w, t: gan_critic_loss(disc, gen, z, w, t))
+    return opt_g, opt_d, g_step, d_step
+
+
+def mirrored_pair_distances(pos: Tensor) -> Tensor:
+    """``(..., N, 3)`` -> ``(..., N // 2)``: the distance of atom i to atom
+    N-1-i (the end-to-end pairing the reference meant)."""
+    half = pos.shape[-2] // 2
+    return torch.linalg.norm(pos[..., :half, :] - torch.flip(pos, (-2,))[..., :half, :], dim=-1)
+
+
+def graph_seq2seq_loss(model, noise: Tensor, windows: Tensor, targets: Tensor,
+                       w_angles: float = 0.1, w_e2e: float = 1.0) -> Tensor:
+    """Per-atom windows ``(B, N, T, F)`` decoded to ``(B, N, L, F)`` against
+    ``targets`` of that shape: position MSE + ``w_angles`` x the angle
+    channels' MSE + ``w_e2e`` x the mirrored-pair distance MSE."""
+    pred = model(windows, noise)
+    targets = targets.to(pred.dtype)
+    pos_p = pred[..., :3].transpose(1, 2)  # (B, L, N, 3)
+    pos_t = targets[..., :3].transpose(1, 2)
+    val = torch.mean((pos_p - pos_t) ** 2)
+    val = val + w_angles * torch.mean((pred[..., 3:] - targets[..., 3:]) ** 2)
+    return val + w_e2e * torch.mean(
+        (mirrored_pair_distances(pos_p) - mirrored_pair_distances(pos_t)) ** 2)
+
+
+def make_graph_seq2seq_trainer(model, lr: float = 1e-3, clip_norm: float = 1.0,
+                               w_angles: float = 0.1, w_e2e: float = 1.0):
+    """Graph-conditioned Seq2Seq trainer: ``(opt, step(noise, windows,
+    targets))``, ``noise (B, L, N, F)`` one draw a row."""
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=clip_norm)
+    return opt, stepper(
+        opt, lambda z, w, t: graph_seq2seq_loss(model, z, w, t, w_angles, w_e2e))
+
+
+# --- rollouts -----------------------------------------------------------------
+
+
+def _draws(noise: Optional[Tensor], generator: Optional[torch.Generator], shape, like: Tensor):
+    """``noise`` as given, or standard normals of ``shape`` from
+    ``generator``."""
+    if noise is not None:
+        return noise.to(device=like.device, dtype=like.dtype)
+    if generator is None:
+        raise ValueError("a rollout that samples needs its noise or a torch.Generator")
+    return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def _shift(window: Tensor, frames: Tensor) -> Tensor:
+    """Drop as many oldest frames as ``frames (..., k, F)`` brings, append them."""
+    return torch.cat([window[..., frames.shape[-2]:, :], frames], dim=-2)
+
+
+@torch.no_grad()
+def autoregressive_rollout(model, windows: Tensor, n_steps: int, corrector=None) -> Tensor:
+    """Predict the next frame of ``windows (..., T, F)``, correct it, shift
+    it in; ``n_steps`` times. Returns ``(n_steps, ..., F)``."""
+    w, frames = windows, []
+    for _ in range(n_steps):
+        pred = model(w)
+        if corrector is not None:
+            pred = corrector(pred)
+        w = _shift(w, pred[..., None, :])
+        frames.append(pred)
+    return torch.stack(frames)
+
+
+@torch.no_grad()
+def nll_sampling_rollout(model, windows: Tensor, n_steps: int, noise: Optional[Tensor] = None,
+                         generator: Optional[torch.Generator] = None, corrector=None) -> Tensor:
+    """Sample each next frame from the predicted Gaussian, ``mu + sigma *
+    noise[i]``, correct it and feed it back. ``noise (n_steps, ..., F)``, or
+    drawn from ``generator``. Returns ``(n_steps, ..., F)``."""
+    w, frames = windows, []
+    for i in range(n_steps):
+        mu, sigma = model(w)
+        if i == 0:
+            noise = _draws(noise, generator, (n_steps,) + tuple(mu.shape), mu)
+        pred = mu + sigma * noise[i].to(mu.dtype)
+        if corrector is not None:
+            pred = corrector(pred)
+        w = _shift(w, pred[..., None, :])
+        frames.append(pred)
+    return torch.stack(frames)
+
+
+@torch.no_grad()
+def chained_decode_rollout(model, windows: Tensor, decode_len: int, n_steps: int,
+                           noise: Optional[Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           corrector=None) -> Tensor:
+    """Seq2Seq generation by chained decodes of the trained horizon: decode
+    ``decode_len`` frames from each window, correct them, shift the window by
+    the whole segment; ``segments = max(1, n_steps // decode_len)`` times
+    (the decoder, and a critic, only ever see the horizon they were trained
+    at). ``noise (segments, ..., decode_len, noise_dim)``, or drawn from
+    ``generator``. Returns ``(segments * decode_len, ..., F)``."""
+    segs = max(1, n_steps // decode_len)
+    ref = model.layers[0].weight
+    shape = (segs,) + model.noise_shape(windows.shape[:-2], decode_len)
+    noise = _draws(noise, generator, shape, ref)
+    w, out = windows, []
+    for s in range(segs):
+        seg = model(w, noise[s])
+        if corrector is not None:
+            seg = corrector(seg)
+        w = _shift(w, seg)
+        out.append(seg.movedim(-2, 0))
+    return torch.cat(out)
+
+
+@torch.no_grad()
+def graph_chained_decode_rollout(model, windows: Tensor, decode_len: int, n_steps: int,
+                                 noise: Optional[Tensor] = None,
+                                 generator: Optional[torch.Generator] = None,
+                                 refeature=None) -> Tensor:
+    """Chained trained-horizon decodes of per-atom windows ``(..., N, T, F)``
+    (the graph family's generation). ``refeature`` ``(..., N, L, F) -> (...,
+    N, L, F)`` rebuilds derived channels (phi / psi) of each decoded segment
+    from its own geometry before it is fed back. ``noise (segments, ..., L,
+    N, F)``, or drawn from ``generator``. Returns ``(segments * L, ..., N,
+    F)``."""
+    segs = max(1, n_steps // decode_len)
+    n, feat = windows.shape[-3], windows.shape[-1]
+    ref = model.layers[0].weight
+    noise = _draws(noise, generator, (segs,) + windows.shape[:-3] + (decode_len, n, feat), ref)
+    w, out = windows, []
+    for s in range(segs):
+        seg = model(w, noise[s])
+        if refeature is not None:
+            seg = refeature(seg)
+        w = _shift(w, seg)
+        out.append(seg.movedim(-2, 0))
+    return torch.cat(out)
+
+
+# --- correctors ---------------------------------------------------------------
+
 
 #: the Langevin corrector's stream: each frame's generator is seeded from
 #: this and the bits of the frame's float32 sum

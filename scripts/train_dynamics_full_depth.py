@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Train the port's Hamiltonian dynamics families at docs/TRAINING.md's depth.
+"""Train the port's dynamics and sequence families at docs/TRAINING.md's depth.
 
 Runs ``python -m molecular_dynamics_tpu_torch.cli train <family>`` in process
-for ``hnn`` (16 epochs), ``hnn-schnet`` (16), ``hnn-latent`` (32) and
-``node`` (32) on ``datasets/backbone_smd`` (batch 32, seed 0 or each of
-``--seeds``), and prints one JSON line per run (wall seconds, eval.json's
-``mean_abs_error``, ``rg_abs_error`` and ``std_abs_error``) and, last, the
-device's name and ``nvidia-smi``'s name and power limit. Runs on the CUDA device unless
-``--device cpu`` is given.
+for each family of ``DEPTH`` (its ``--epochs``; the fine-tunes run their
+default epochs after them) on ``datasets/backbone_smd`` (batch 32, seed 0 or
+each of ``--seeds``), and prints one JSON line per run (wall seconds,
+eval.json's ``mean_abs_error``, ``rg_abs_error`` and ``std_abs_error``)
+and, last, the device's name and ``nvidia-smi``'s name and power limit.
+Runs on the CUDA device unless ``--device cpu`` is given.
 
     python3 scripts/train_dynamics_full_depth.py [--families hnn node] [--seeds 0 1]
 """
@@ -22,8 +22,16 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-#: docs/TRAINING.md's epochs for each family
-DEPTH = {"hnn": 16, "hnn-schnet": 16, "hnn-latent": 32, "node": 32}
+#: ``--epochs`` of each family at docs/TRAINING.md's depth. That table's
+#: epochs count the base epochs and the fine-tune's (the committed
+#: runs_r3/<family>/train_log.csv end at epoch ``epochs + ft_epochs - 1``):
+#: lstm 64 + 4, lstm-gat 2 + 8, transformer 16 + 4, seq2seq-graph 64 + 4;
+#: lstm-nll, seq2seq and seq2seq-gan have no fine-tune. gat's committed log
+#: (last epoch 5, 5,220 updates) fits no setting of today's knobs: it runs
+#: the table's 6 epochs, then its default 6-epoch fine-tune.
+DEPTH = {"hnn": 16, "hnn-schnet": 16, "hnn-latent": 32, "node": 32, "lstm": 64, "lstm-nll": 64,
+         "seq2seq": 64, "seq2seq-gan": 16, "transformer": 16, "gat": 6, "lstm-gat": 2,
+         "seq2seq-graph": 64}
 
 
 def main(argv=None) -> int:

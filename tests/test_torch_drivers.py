@@ -94,7 +94,7 @@ def test_cli_train_cgan(data_glob, tmp_path, capsys):
 
 
 def test_unported_families_and_devices_raise(data_glob):
-    for family, item in (("vae", "A13"), ("seq2seq-graph", "A12"), ("flow", "A13")):
+    for family, item in (("vae", "A13"), ("sde", "A13"), ("flow", "A13")):
         with pytest.raises(NotImplementedError, match=item):
             tdrivers.run_training(family=family, data=data_glob, device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):

@@ -83,3 +83,18 @@ def t(x, dtype=None):
     """numpy -> CPU torch tensor."""
     out = torch.as_tensor(np.array(x))
     return out if dtype is None else out.to(dtype)
+
+
+def float64_lstm_carries(monkeypatch):
+    """Give flax's ``OptimizedLSTMCell`` float64 zero carries: ``nn.RNN``
+    scans the cell from ``initialize_carry``, whose zeros follow the
+    float32 ``param_dtype``, and a scan over weights cast to float64 would
+    otherwise change its carry's type. The zeros are the same numbers."""
+    import flax.linen as nn
+
+    initialize = nn.OptimizedLSTMCell.initialize_carry
+
+    def carry64(self, rng, input_shape):
+        return jax.tree.map(lambda c: c.astype(jnp.float64), initialize(self, rng, input_shape))
+
+    monkeypatch.setattr(nn.OptimizedLSTMCell, "initialize_carry", carry64)
