@@ -139,6 +139,18 @@ Phases, one JSON line each on standard output:
    seq2seq-graph fine-tune update (LSTM layers, graphs, refeaturizer,
    backward, optimizer) with the device's busy share. No kernel launches
    there; the run fails if one does.
+   ``generative``: the generative line on the same data: ``cli train
+   flow``, ``vae``, ``aae`` and ``sde`` at 2 epochs under the 100 A sanity
+   bound (``sde``'s marginal TV in [0, 1]); from the runs' trained weights,
+   every step kind (the flow's NLL step, the VAE step, the AAE's
+   autoencoder and critic steps, the SDE-GAN's generator step, its critic
+   step with the gradient penalty and its potential-injection step) on the
+   card against float64 on the CPU with the same draws, as the sequence
+   phase holds them, and the weight average; the update rates of each at
+   40 atoms x batch 32; a launch census of an SDE critic step with the
+   penalty and of an injection step (generator, critic, penalty, energy,
+   backward, optimizer) with the device's busy share. No kernel launches
+   there either; the run fails if one does.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
@@ -282,6 +294,9 @@ SEQUENCE_FAMILIES = ("lstm", "lstm-gat", "lstm-nll", "seq2seq", "seq2seq-gan", "
 #: each sequence step kind on the card against float64: the loss, the
 #: gradient's norm and direction, relative (the update within TOL_TRAIN_STEP)
 TOL_SEQUENCE_STEP = 1e-5
+#: the generative phase: the four families at DYNAMICS_EPOCHS under the
+#: sanity bound (they have no live budget in the JAX package's guard)
+GENERATIVE_FAMILIES = ("flow", "vae", "aae", "sde")
 #: where float32 itself misses those tolerances on a step (the same step in
 #: float32 on the CPU against float64), the card is held within this factor
 #: of float32's own error instead
@@ -2802,6 +2817,216 @@ def sequence_phase(tmp, dev):
     return res, launches
 
 
+# -- the generative line ----------------------------------------------------------
+
+
+def generative_data(pattern):
+    """The in-repo 40-atom data as the generative drivers see it, one batch
+    of each step kind (numpy, the first TRAIN_BATCH of a seeded permutation)
+    with its draws: min-max scaled frames and times for the flow (the
+    driver's scaling over all frames), whitened frames with their time
+    buckets and reparameterisation draws for the VAE, whitened frames,
+    times and prior draws for the AAE, and whitened 8-frame path windows
+    with the generator's ``z0`` and ``dw`` and the penalty's ``eps`` for
+    the SDE-GAN, and the whitening."""
+    from molecular_dynamics_tpu_torch.train import drivers as d
+    from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData
+
+    traj = TrajectoryData.from_npy_glob(pattern)
+    white, w_mean, w_std = d._whitened(traj)
+    rng = np.random.default_rng(0)
+    b = TRAIN_BATCH
+    frames, times = traj.stacked()
+    flat = frames.reshape(len(frames), -1)
+    lo, hi = flat.min(axis=0), flat.max(axis=0)
+    sel = rng.permutation(len(flat))[:b]
+    wflat = np.concatenate(white.trajectories).reshape(len(flat), -1)
+    paths, _ = d._sde_windows(white, 8)
+    dts = np.diff(np.linspace(0.0, 1.0, 8))
+    return {
+        "flow_x": ((flat[sel] - lo) / (hi - lo + 1e-12)).astype(np.float32),
+        "flow_c": times[sel, None],
+        "vae_x": wflat[sel], "vae_b": np.minimum((times[sel] * 10).astype(np.int64), 9),
+        "vae_eps": rng.standard_normal((b, 32)).astype(np.float32),
+        "aae_x": wflat[sel], "aae_c": times[sel, None],
+        "aae_prior": rng.standard_normal((b, 16)).astype(np.float32),
+        "sde_real": paths[rng.permutation(len(paths))[:b]],
+        "sde_z0": rng.standard_normal((b, 16)).astype(np.float32),
+        "sde_dw": (rng.standard_normal((7, b, 16)) * np.sqrt(dts)[:, None, None]).astype(
+            np.float32),
+        "sde_eps": rng.uniform(size=(b, 1, 1)).astype(np.float32),
+        "w_mean": np.asarray(w_mean, np.float32), "w_std": np.asarray(w_std, np.float32),
+    }
+
+
+def generative_models(runs, device, dtype):
+    """The four trained models of the phase's runs (their best.ckpt), on
+    ``device`` in ``dtype``, at the drivers' widths; beside the AAE's
+    autoencoder and the SDE's averaged generator, the critics from their
+    seeded initialisation (the runs keep the generators only)."""
+    from molecular_dynamics_tpu_torch.models import CDEDiscriminator, ConditionalVAE, RealNVP
+    from molecular_dynamics_tpu_torch.models import LatentDiscriminator, MLPAutoencoder, SDEGenerator
+
+    kw = dict(device=device, dtype=dtype)
+    built = {"flow": RealNVP(120, 6, (256, 256), 1, **kw), "vae": ConditionalVAE(120, **kw),
+             "aae": MLPAutoencoder(120, 16, cond_dim=1, **kw),
+             "sde": SDEGenerator(120, latent_dim=64, noise_dim=16, hidden=(128, 128), **kw)}
+    for family, module in built.items():
+        state = torch.load(runs / family / "best.ckpt", weights_only=True)
+        module.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in state.items()})
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    built["aae_critic"] = LatentDiscriminator(16, generator=cpu_gen, device="cpu").to(**kw)
+    built["sde_critic"] = CDEDiscriminator(120, generator=cpu_gen, device="cpu").to(**kw)
+    return built
+
+
+#: the SDE driver's configuration at its defaults
+SDE_DRIVER_CONFIG = dict(gp_weight=10.0, adam=True, lr_g=2e-4, lr_d=1e-3, moment_weight=1.0)
+
+
+def generative_steps(ff, models, data, device, dtype):
+    """Each step kind of the line as (name, module, loss thunk, rows): the
+    flow's NLL, the VAE's MSE + KLD, the AAE's autoencoder loss and its
+    critic's, the SDE-GAN's generator loss (critic, moments), its critic
+    loss with the gradient penalty (a double backward) and its potential
+    injection on the unwhitened paths. Every update is ``ClippedAdam(lr
+    1e-3, clip 1.0)`` down that loss."""
+    from molecular_dynamics_tpu_torch.train import drivers as d
+    from molecular_dynamics_tpu_torch.train import generative as tgen
+    from molecular_dynamics_tpu_torch.train import sde as tsde_train
+
+    a = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    a = {k: v if k == "vae_b" else v.to(dtype) for k, v in a.items()}
+    m = models
+    ts = torch.linspace(0.0, 1.0, 8, device=device, dtype=dtype)
+    cfg = tsde_train.SDEGANConfig(**SDE_DRIVER_CONFIG)
+    b = TRAIN_BATCH
+    return [
+        ("flow.step", m["flow"], lambda: tgen.flow_loss(m["flow"], a["flow_x"], a["flow_c"]), b),
+        ("vae.step", m["vae"], lambda: tgen.vae_step_loss(
+            m["vae"], a["vae_eps"], a["vae_x"], a["vae_b"]), b),
+        ("aae.ae", m["aae"], lambda: d._aae_losses(m["aae"], m["aae_critic"], a["aae_x"],
+                                                   a["aae_c"]), b),
+        ("aae.d", m["aae_critic"], lambda: d._aae_losses(
+            m["aae"], m["aae_critic"], a["aae_x"], a["aae_c"], a["aae_prior"]), b),
+        ("sde.g", m["sde"], lambda: tsde_train.generator_loss(
+            m["sde"], m["sde_critic"], ts, a["sde_z0"], a["sde_dw"], a["sde_real"], None, cfg), b),
+        ("sde.d_gp", m["sde_critic"], lambda: tsde_train.critic_loss(
+            m["sde_critic"], m["sde"], ts, a["sde_z0"], a["sde_dw"], a["sde_eps"], a["sde_real"],
+            None, cfg), b),
+        ("sde.informed", m["sde"], lambda: tsde_train.informed_loss(
+            m["sde"], ff, ts, a["sde_z0"], a["sde_dw"], None, cfg,
+            unwhiten=(a["w_mean"], a["w_std"])), b),
+    ]
+
+
+def swa_vs_float64(runs, dev):
+    """``swa_update`` on the card against float64 on the CPU: the trained
+    SDE generator averaged (as the sixth of a run) with a seeded perturbation
+    of itself, relative."""
+    from molecular_dynamics_tpu_torch.train.sde import swa_update
+
+    out = {}
+    for side, device, dtype in (("card", dev, torch.float32),
+                                ("cpu_f64", torch.device("cpu"), torch.float64)):
+        avg = generative_models(runs, device, dtype)["sde"]
+        other = generative_models(runs, device, dtype)["sde"]
+        rng = np.random.default_rng(SEED)
+        with torch.no_grad():
+            for p in other.parameters():
+                p.add_(torch.as_tensor(0.01 * rng.standard_normal(tuple(p.shape)), device=device,
+                                       dtype=dtype))
+        swa_update(avg, other, 5)
+        out[side] = flat_params(avg)
+    err = float((out["card"] - out["cpu_f64"]).norm() / out["cpu_f64"].norm())
+    check(err <= TOL_SEQUENCE_STEP, f"swa_update, card vs float64: {err}")
+    return {"param_rel_err": err, "n_averaged": 5, "tolerance": TOL_SEQUENCE_STEP}
+
+
+def generative_census(runs, data, dev, steps=5):
+    """Kernel launches and host ms by source of one SDE critic update with
+    the gradient penalty and one potential-injection update, at 40 atoms x
+    batch 32 with the driver's configuration: the generator's paths, the
+    critic's scores, the penalty's input gradient, the batched energy, the
+    backward pass, the optimizer; the rest of the step outside them."""
+    from molecular_dynamics_tpu_torch.models import sde as msde
+    from molecular_dynamics_tpu_torch.train import sde as tsde_train
+
+    ff = cli._load_system("example:backbone", "", device=dev)[0]
+    models = generative_models(runs, dev, torch.float32)
+    a = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    ts = torch.linspace(0.0, 1.0, 8, device=dev)
+    _, _, _, d_step, informed_step, _ = tsde_train.make_sde_gan_trainer(
+        models["sde"], models["sde_critic"], ts, ff=ff,
+        config=tsde_train.SDEGANConfig(**SDE_DRIVER_CONFIG), unwhiten=(a["w_mean"], a["w_std"]))
+    runs_by_name = {
+        "census_sde_d_gp_40": lambda: d_step(a["sde_z0"], a["sde_dw"], a["sde_eps"],
+                                             a["sde_real"]),
+        "census_sde_informed_40": lambda: informed_step(a["sde_z0"], a["sde_dw"]),
+    }
+    sources = ("critic", "generator", "penalty", "energy", "backward", "optimizer")
+    out = {}
+    with patched(((msde.SDEGenerator, "forward", labelled("generator", msde.SDEGenerator.forward)),
+                  (msde.CDEDiscriminator, "forward",
+                   labelled("critic", msde.CDEDiscriminator.forward)),
+                  (tsde_train, "_input_gradient",
+                   labelled("penalty", tsde_train._input_gradient)),
+                  (tsde_train, "potential_loss", labelled("energy", tsde_train.potential_loss)),
+                  (tsde_train, "descend", census_descend))):
+        for name, step in runs_by_name.items():
+            out[name] = census_summary(census_by_source(step, sources, steps), sources,
+                                       atoms=40, batch=TRAIN_BATCH, steps=steps)
+    return out
+
+
+def generative_phase(tmp, dev):
+    """The generative line on the card: ``cli train flow``, ``vae``, ``aae``
+    and ``sde`` at DYNAMICS_EPOCHS under the sanity bound, on the in-repo
+    40-atom data; every step kind against float64 from the trained weights
+    and the weight average; update rates; the census of an SDE critic step
+    with the penalty and an injection step."""
+    res, launches = {}, {}
+    pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
+    runs = tmp / "generative"
+    for family in GENERATIVE_FAMILIES:
+        reset_launches()
+        run, _ = train_run([family, "--data", pattern, "--epochs", str(DYNAMICS_EPOCHS),
+                            "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+                            "--out-dir", str(runs)])
+        launches[family] = read_launches()
+        e2e = run["eval"]["mean_abs_error"]
+        check(e2e < DYNAMICS_SANITY_A,
+              f"train {family} --epochs {DYNAMICS_EPOCHS}: mean_abs_error {e2e} A")
+        if family == "sde":
+            tv = run["eval"]["marginal_tv_mean"]
+            check(0.0 <= tv <= 1.0, f"train sde: marginal_tv_mean {tv}")
+            res["sde_marginal_tv"] = {k: run["eval"][k] for k in (
+                "marginal_tv_mean", "marginal_tv_max", "marginal_tv_floor")}
+        res[family] = {**run, "epochs": DYNAMICS_EPOCHS, "ceiling_A": DYNAMICS_SANITY_A,
+                       "mean_abs_error": e2e, "rg_abs_error": run["eval"]["rg_abs_error"],
+                       "launches": launches[family]}
+    data = generative_data(pattern)
+    cpu = torch.device("cpu")
+    sides = {}
+    for side, device, dtype in (("card", dev, torch.float32), ("cpu_f32", cpu, torch.float32),
+                                ("cpu_f64", cpu, torch.float64)):
+        ff = cli._load_system("example:backbone", "", dtype=dtype, device=device)[0]
+        sides[side] = generative_steps(ff, generative_models(runs, device, dtype), data, device,
+                                       dtype)
+    res["step_vs_float64"] = {
+        **steps_vs_float64(sides, TOL_SEQUENCE_STEP, TOL_TRAIN_STEP),
+        "tolerance_loss_grad": TOL_SEQUENCE_STEP, "tolerance_update": TOL_TRAIN_STEP,
+        "float32_floor_factor": FLOAT32_FLOOR, "float64_side": "cpu",
+        "float32_side": torch.cuda.get_device_name(0)}
+    res["swa_update_vs_float64"] = swa_vs_float64(runs, dev)
+    ff = cli._load_system("example:backbone", "", device=dev)[0]
+    res["update_rates_40"] = update_rates_of(
+        generative_steps(ff, generative_models(runs, dev, torch.float32), data, dev,
+                         torch.float32))
+    res.update(generative_census(runs, data, dev))
+    return res, launches
+
+
 def main():
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -3786,6 +4011,11 @@ def main():
         emit("sequence", **seq_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
+        t_phase = time.perf_counter()
+        gen_res, gen_launches = generative_phase(tmp, dev)
+        emit("generative", **gen_res, seconds=round(time.perf_counter() - t_phase, 1),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             script_seconds=round(time.perf_counter() - t_script, 1))
     # the training path reaches no kernel: the energy of a generated batch is
     # the plain PyTorch energy, differentiated by autograd
     train_total = {name: regen_train_launches[name] + sum(run[name] for run in train_launches.values())
@@ -3797,6 +4027,10 @@ def main():
     # nor does the sequence and graph line: LSTMs, attention and dense GAT layers
     seq_total = {name: sum(run[name] for run in seq_launches.values()) for name in train_total}
     check(not any(seq_total.values()), f"cli train (sequence) launched kernels: {seq_total}")
+    # nor does the generative line: MLPs, couplings, SDE and CDE loops, and
+    # the injection's plain energy
+    gen_total = {name: sum(run[name] for run in gen_launches.values()) for name in train_total}
+    check(not any(gen_total.values()), f"cli train (generative) launched kernels: {gen_total}")
 
     kernels["campaign_advance"]["launches_by_path"] = {
         f"simulate_ensemble(fused_campaign) {N_REPLICAS} x {N_STEPS}": launches_k1,
@@ -3824,6 +4058,7 @@ def main():
     train_path = "train: cli train pretrain and cgan (40 atoms), cgan (104 atoms)"
     dyn_path = "dynamics: cli train node, hnn, hnn-schnet, hnn-latent (40 atoms)"
     seq_path = ("sequence: cli train " + ", ".join(SEQUENCE_FAMILIES) + " (40 atoms)")
+    gen_path = ("generative: cli train " + ", ".join(GENERATIVE_FAMILIES) + " (40 atoms)")
     for row, counter in (("pair_forces", "pair_forces"), ("campaign_advance", None),
                          ("gb_forces", "gb_forces"), ("sasa_forces", "sasa_forces"),
                          ("campaign_advance[gbis]", "campaign_advance"),
@@ -3834,6 +4069,7 @@ def main():
         by_path[train_path] = train_total["campaign_advance" if counter is None else counter]
         by_path[dyn_path] = dyn_total["campaign_advance" if counter is None else counter]
         by_path[seq_path] = seq_total["campaign_advance" if counter is None else counter]
+        by_path[gen_path] = gen_total["campaign_advance" if counter is None else counter]
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

@@ -6,15 +6,16 @@ replica SMD campaign and leaves per-replica ``.npy`` trajectories, a DCD and
 an XYZ of replica 0 and a CSV log; ``energy`` prints per-term energies;
 ``train pretrain | cgan | hnn | hnn-schnet | hnn-latent | node | lstm |
 lstm-nll | seq2seq | seq2seq-gan | transformer | gat | lstm-gat |
-seq2seq-graph`` trains the flagship generator, a Hamiltonian dynamics model
-or a sequence or graph model and leaves its log, best checkpoint, generated
-structures and ``eval.json``; ``convert``
+seq2seq-graph | flow | vae | aae | sde`` (every family of the JAX package)
+trains the flagship generator, a Hamiltonian dynamics model, a sequence or
+graph model or a generative model and leaves its log, best checkpoint,
+generated structures and ``eval.json``; ``convert``
 turns trajectories into ``.npy`` or PDB; ``bench`` runs ``bench_torch.py``.
 One option more, ``--device`` (default ``cuda``): the commands run on the
 card unless the caller asks for the CPU.
 
-Not ported yet, and raising with the ROADMAP item that brings them: the
-generative training families (A13), ``--devices`` above 1 (A14),
+Not ported yet, and raising with the ROADMAP item that brings them:
+``--devices`` above 1 (A14),
 ``.prmtop`` topologies and ``.xtc`` / ``.mdxtc`` trajectories (A8).
 """
 
@@ -405,7 +406,7 @@ def main(argv=None) -> int:
     p_en.set_defaults(fn=cmd_energy)
 
     p_tr = sub.add_parser(
-        "train", help="train a model family (vae, aae, flow and sde are not ported yet)")
+        "train", help="train a model family")
     p_tr.add_argument("family", choices=[
         "pretrain", "cgan", "hnn", "hnn-schnet", "hnn-latent", "lstm", "lstm-nll", "seq2seq",
         "seq2seq-graph", "seq2seq-gan", "lstm-gat", "aae", "flow", "vae", "transformer",

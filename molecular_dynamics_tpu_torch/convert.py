@@ -148,6 +148,20 @@ _LSTM_INPUT = ("ii", "if", "ig", "io")
 _LSTM_HIDDEN = ("hi", "hf", "hg", "ho")
 
 
+#: the leaves of the port's parameters of each flax kind that sits in a list
+#: (a Dense without bias is a GAT layer's)
+_KIND_LEAVES = {"Dense": ({"weight", "bias"}, {"weight"}), "LayerNorm": ({"weight", "bias"},),
+                "OptimizedLSTMCell": ({"weight_ih", "weight_hh", "bias"},)}
+
+
+def _named_dense(leaf) -> bool:
+    """A scope holding a 2-D ``kernel`` (and a ``bias``): a ``Dense`` that a
+    module names itself (``mu_head``, ``readout``, a CDE's ``embed``), as
+    opposed to a ``DenseGeneral``, whose kernels are 3-D."""
+    return (isinstance(leaf, Mapping) and set(leaf) in ({"kernel"}, {"kernel", "bias"})
+            and np.ndim(leaf["kernel"]) == 2)
+
+
 def _leaves(kind: str, leaf: Mapping) -> dict:
     """One flax leaf scope of ``kind`` as the port's parameters (numpy)."""
     if kind == "Dense":  # (in, out) kernel -> (out, in) weight; no bias in a GAT layer
@@ -168,11 +182,14 @@ def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
     """A flax params tree, as numpy arrays (``{"params": {...}}``, nested
     scopes at any depth), as the ``state_dict`` of the port module with the
     same structure. ``layers.i.weight`` is ``Dense_i``'s kernel transposed,
-    ``(out, in)``; ``lstm.i`` holds an ``OptimizedLSTMCell``'s eight
+    ``(out, in)``, and so is the weight of a ``Dense`` a module names itself
+    (``mu_head.weight``); ``lstm.i`` holds an ``OptimizedLSTMCell``'s eight
     kernels and four biases as ``LSTMLayer``'s ``weight_ih``, ``weight_hh``
     and ``bias``; ``norms.i.weight`` is a ``LayerNorm``'s scale; an ``Embed``
-    table is ``embed.weight``; any other array (a ``DenseGeneral`` kernel,
-    ``pos_embed``) is taken as it is. CPU tensors; ``load_state_dict``
+    table is ``embed.weight``; the ``i``-th module of a list a flax module
+    sets up (``couplings_i``, ``norms_i``) is ``couplings.i``; any other
+    array (a ``DenseGeneral`` kernel, ``pos_embed``, an ActNorm's
+    ``log_scale``) is taken as it is. CPU tensors; ``load_state_dict``
     copies them onto the module's device."""
     out = {}
 
@@ -180,16 +197,23 @@ def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
         x = torch.as_tensor(np.array(arr))
         return x if dtype is None else x.to(dtype)
 
+    def put(where, kind, leaf):
+        for key, arr in _leaves(kind, leaf).items():
+            out[f"{where}.{key}"] = tensor(arr)
+
     def walk(tree, prefix):
         for name, leaf in tree.items():
             kind, _, index = name.rpartition("_")
             if name == "Embed_0" or (kind in ("Dense", "OptimizedLSTMCell", "LayerNorm")
                                      and index.isdigit()):
                 where = "embed" if name == "Embed_0" else f"{_LISTS[kind]}.{index}"
-                for key, arr in _leaves(kind or "Embed", leaf).items():
-                    out[f"{prefix}{where}.{key}"] = tensor(arr)
+                put(prefix + where, kind or "Embed", leaf)
             elif kind in _LISTS and index.isdigit():
                 walk(leaf, f"{prefix}{_LISTS[kind]}.{index}.")
+            elif index.isdigit() and kind[:1].islower() and isinstance(leaf, Mapping):
+                walk(leaf, f"{prefix}{kind}.{index}.")  # a list the module sets up
+            elif _named_dense(leaf):
+                put(prefix + name, "Dense", leaf)
             elif isinstance(leaf, Mapping):
                 walk(leaf, f"{prefix}{_SINGLES.get(name, name)}.")
             else:
@@ -199,38 +223,57 @@ def flax_params_to_state_dict(params: Mapping, dtype=None) -> dict:
     return out
 
 
+def _flax_kind(part: str, leaves: set, last: bool) -> str:
+    """The flax kind of the port scope ``part`` (a list's name, or the name
+    of a scope) whose parameters are ``leaves``; "" where the scope keeps
+    its name. A list name's kind holds only where the leaves are that
+    kind's: a ``norms`` list of ActNorms is not one of LayerNorms."""
+    kind = {v: k for k, v in _LISTS.items()}.get(part, "")
+    if not last:
+        return kind
+    if kind in _KIND_LEAVES:
+        return kind if leaves in _KIND_LEAVES[kind] else ""
+    if part == "embed" and leaves == {"weight"}:
+        return "Embed"
+    return "Dense" if leaves in _KIND_LEAVES["Dense"] else ""
+
+
 def state_dict_to_flax_params(state_dict: Mapping) -> dict:
     """The inverse of ``flax_params_to_state_dict``: numpy arrays in flax's
     layout, ``{"params": {...}}`` with the same nested scopes."""
     names = {v: k for k, v in _SINGLES.items()}
-    lists = {v: k for k, v in _LISTS.items()}
-    tree = {}
+    groups = {}
     for key, value in state_dict.items():
-        parts = key.split(".")
-        arr = value.detach().cpu().numpy()
+        *path, leaf = key.split(".")
+        groups.setdefault(tuple(path), {})[leaf] = value.detach().cpu().numpy()
+    tree = {}
+    for path, arrays in groups.items():
         node, kind, i = tree, "", 0
-        while i < len(parts) - 1:
-            part = parts[i]
-            if part in lists and parts[i + 1].isdigit():
-                kind = lists[part]
-                node, i = node.setdefault(f"{kind}_{parts[i + 1]}", {}), i + 2
+        while i < len(path):
+            part = path[i]
+            listed = i + 1 < len(path) and path[i + 1].isdigit()
+            last = i + (2 if listed else 1) == len(path)
+            kind = _flax_kind(part, set(arrays), last)
+            if listed:
+                scope = f"{kind or part}_{path[i + 1]}"
             else:
-                kind = "Embed" if part == "embed" else ""
-                node, i = node.setdefault(names.get(part, part), {}), i + 1
-        leaf = parts[-1]
-        if kind == "Dense" and leaf == "weight":
-            node["kernel"] = arr.T.copy()
-        elif kind == "Dense":
-            node["bias"] = arr.copy()
+                scope = "Embed_0" if kind == "Embed" else (part if last else names.get(part, part))
+            node, i = node.setdefault(scope, {}), i + (2 if listed else 1)
+        if kind == "Dense":
+            node["kernel"] = arrays["weight"].T.copy()
+            if "bias" in arrays:
+                node["bias"] = arrays["bias"].copy()
         elif kind == "OptimizedLSTMCell":
-            gates = _LSTM_INPUT if leaf == "weight_ih" else _LSTM_HIDDEN
-            for gate, rows in zip(gates, np.split(arr, 4)):
-                node.setdefault(gate, {})["bias" if leaf == "bias" else "kernel"] = (
-                    rows.copy() if leaf == "bias" else rows.T.copy())
+            for leaf, gates in (("weight_ih", _LSTM_INPUT), ("weight_hh", _LSTM_HIDDEN)):
+                for gate, rows in zip(gates, np.split(arrays[leaf], 4)):
+                    node.setdefault(gate, {})["kernel"] = rows.T.copy()
+            for gate, rows in zip(_LSTM_HIDDEN, np.split(arrays["bias"], 4)):
+                node[gate]["bias"] = rows.copy()
         elif kind == "LayerNorm":
-            node["scale" if leaf == "weight" else "bias"] = arr.copy()
+            node["scale"], node["bias"] = arrays["weight"].copy(), arrays["bias"].copy()
         elif kind == "Embed":
-            node["embedding"] = arr.copy()
+            node["embedding"] = arrays["weight"].copy()
         else:
-            node[leaf] = arr.copy()
+            for leaf, arr in arrays.items():
+                node[leaf] = arr.copy()
     return {"params": tree}

@@ -1,14 +1,15 @@
 """Model zoo, as ``torch.nn.Module``s with the reference's flax layouts.
 
-Ported so far: the shared ``MLP``, the flagship time-conditioned cGAN
+The shared ``MLP``, the flagship time-conditioned cGAN
 (``Generator``, ``Discriminator``), the Hamiltonian dynamics line (``HNN``,
 ``SchNet`` / ``SchNetHNN`` with ``CfConv``, ``MLPAutoencoder``,
 ``LatentHNN``, ``LatentDiscriminator``, and the ODE solvers
 ``odeint_field``, ``rk4_rollout``, ``hnn_field``) and the sequence and graph
 line (``LSTMPredictor``, ``LSTMNLLPredictor``, ``Seq2Seq``, ``Seq2SeqNLL``,
 ``SequenceDiscriminator``, ``TrajectoryTransformer``, ``GATSimulator``,
-``DenseGATLayer``, ``LSTMGAT``; ``GraphSeq2Seq`` in ``models.gat``). The
-generative families are queued in ROADMAP.md §A (A13).
+``DenseGATLayer``, ``LSTMGAT``; ``GraphSeq2Seq`` in ``models.gat``) and the
+generative line (``ConditionalVAE``, ``RealNVP``, ``SDEGenerator``,
+``CDEDiscriminator``): every model of the JAX package.
 """
 
 from molecular_dynamics_tpu_torch.models.common import MLP
@@ -30,6 +31,9 @@ from molecular_dynamics_tpu_torch.models.autoencoder import (
 from molecular_dynamics_tpu_torch.models.gat import LSTMGAT, DenseGATLayer, GATSimulator
 from molecular_dynamics_tpu_torch.models.transformer import TrajectoryTransformer
 from molecular_dynamics_tpu_torch.models.node import hnn_field, odeint_field, rk4_rollout
+from molecular_dynamics_tpu_torch.models.vae import ConditionalVAE
+from molecular_dynamics_tpu_torch.models.flows import RealNVP
+from molecular_dynamics_tpu_torch.models.sde import CDEDiscriminator, SDEGenerator
 
 __all__ = [
     "MLP",
@@ -53,4 +57,8 @@ __all__ = [
     "LatentHNN",
     "LatentDiscriminator",
     "LSTMGAT",
+    "ConditionalVAE",
+    "RealNVP",
+    "SDEGenerator",
+    "CDEDiscriminator",
 ]

@@ -1,16 +1,18 @@
-"""Shared optimizer: Adam with global-norm clipping, as optax chains them
-(the reference's ``make_state`` and the trainers' optimizers).
+"""Shared optimizers: Adam with global-norm clipping, as optax chains them
+(the reference's ``make_state`` and the trainers' optimizers), the same
+Adam without the clip, and optax's Adadelta.
 
 ``torch.optim.Adam`` computes optax's ``adam`` (the same moments, bias
 corrections and epsilon outside the square root) in exact arithmetic. The
 clip is optax's ``clip_by_global_norm``: a gradient whose global norm
 exceeds ``max_norm`` is scaled by ``max_norm / norm``
-(``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead).
+(``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead), so
+a ``max_norm`` of 0 zeroes every update, as in optax.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -24,18 +26,20 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[
 
 class ClippedAdam:
     """Adam over ``params`` with global-norm clipping of each update's
-    gradients (every caller clips, as the reference's trainers do).
-    ``step(grads)`` takes the gradients explicitly (as ``torch.autograd.grad``
-    returns them), so two optimizers over the same parameters keep separate
-    moments and never read each other's ``.grad``."""
+    gradients, or, with ``clip_norm=None``, bare Adam (optax's ``adam``
+    alone, the SDE-GAN trainer's ``adam=True``). ``step(grads)`` takes the
+    gradients explicitly (as ``torch.autograd.grad`` returns them), so two
+    optimizers over the same parameters keep separate moments and never read
+    each other's ``.grad``."""
 
-    def __init__(self, params, lr: float = 1e-4, clip_norm: float = 1.0):
+    def __init__(self, params, lr: float = 1e-4, clip_norm: Optional[float] = 1.0):
         self.params = list(params)
         self.clip_norm = clip_norm
         self.adam = torch.optim.Adam(self.params, lr=lr)
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        grads = clip_by_global_norm(grads, self.clip_norm)
+        if self.clip_norm is not None:
+            grads = clip_by_global_norm(grads, self.clip_norm)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adam.step()
@@ -47,6 +51,31 @@ class ClippedAdam:
 
     def load_state_dict(self, state: dict) -> None:
         self.adam.load_state_dict(state)
+
+
+class Adadelta:
+    """optax's ``adadelta(lr, rho, eps, weight_decay)``: the decayed weights
+    added to the gradient, then ``scale_by_adadelta`` (the running mean of
+    squared gradients ``e_g``, the update ``sqrt(e_x + eps) / sqrt(e_g +
+    eps) * g``, the running mean of squared updates ``e_x``), scaled by
+    ``-lr``. The same ``step(grads)`` interface as ``ClippedAdam``."""
+
+    def __init__(self, params, lr: float, rho: float = 0.9, eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        self.params = list(params)
+        self.lr, self.rho, self.eps, self.weight_decay = lr, rho, eps, weight_decay
+        self.e_g = [torch.zeros_like(p) for p in self.params]
+        self.e_x = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        rho, eps = self.rho, self.eps
+        for p, g, e_g, e_x in zip(self.params, grads, self.e_g, self.e_x):
+            g = g + self.weight_decay * p
+            e_g.copy_((1 - rho) * g ** 2 + rho * e_g)
+            delta = torch.sqrt(e_x + eps) / torch.sqrt(e_g + eps) * g
+            e_x.copy_((1 - rho) * delta ** 2 + rho * e_x)
+            p.sub_(self.lr * delta)
 
 
 def descend(opt: ClippedAdam, loss: torch.Tensor) -> None:

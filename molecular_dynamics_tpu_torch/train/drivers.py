@@ -16,9 +16,16 @@ against an LSTM critic, chained decodes), ``gat`` (a GNS acceleration
 model with input noise and an unrolled fine-tune), ``lstm-gat`` (per-atom
 LSTM + GAT, a clamped unrolled fine-tune) and ``seq2seq-graph`` (per-atom
 Seq2Seq with GAT refinement, torsion channels rebuilt from each decoded
-segment, a chained fine-tune). Every family generates by rollout from the
-data trajectories' starts, as rows of one batched rollout. Every other
-family raises ``NotImplementedError`` naming the ROADMAP item that brings
+segment, a chained fine-tune), each generating by rollout from the data
+trajectories' starts, as rows of one batched rollout; and the generative
+line: ``flow`` (a conditional RealNVP on min-max scaled frames, sampled
+along the normalized time), ``vae`` (a time-bucket conditional VAE on
+whitened frames, one decode a bucket), ``aae`` (an adversarial autoencoder
+with a time-conditioned decoder and evaluator-probed snapshots) and ``sde``
+(a neural SDE-GAN on 8-frame path windows: a gradient-penalised CDE critic,
+moment matching, potential injection, weight averaging and marginal-TV
+probed snapshots). These are all the reference's families; ``--devices``
+above 1 raises ``NotImplementedError`` naming the ROADMAP item that brings
 it.
 
 When no ``--data`` glob is given the driver first generates a small SMD
@@ -35,9 +42,6 @@ import time
 import numpy as np
 import torch
 
-#: families of the reference not ported yet, and the ROADMAP item of each
-_QUEUED = dict.fromkeys(("vae", "aae", "flow", "sde"), "A13")
-
 #: the stem of the generated trajectory each family writes (``.xyz``, and a
 #: ``.pdb`` beside it), the reference's file names
 GENERATED = {"pretrain": "pretrain_generated", "cgan": "cGAN_generated", "hnn": "HNN_generated",
@@ -45,7 +49,9 @@ GENERATED = {"pretrain": "pretrain_generated", "cgan": "cGAN_generated", "hnn": 
              "node": "NODE_generated", "lstm": "LSTM_generated", "lstm-nll": "LSTMNLL_generated",
              "seq2seq": "Seq2Seq_generated", "transformer": "Transformer_generated",
              "gat": "GAT_generated", "seq2seq-gan": "Seq2SeqGAN_generated",
-             "lstm-gat": "LSTMGAT_generated", "seq2seq-graph": "Seq2SeqGraph_generated"}
+             "lstm-gat": "LSTMGAT_generated", "seq2seq-graph": "Seq2SeqGraph_generated",
+             "flow": "cFlow_generated", "vae": "VAE_generated", "aae": "AAE_generated",
+             "sde": "SDE_generated"}
 
 
 def _bootstrap_dataset(ff, coords, out_dir, n_replicas=8, n_steps=8000, device=None):
@@ -134,9 +140,6 @@ def run_training(
     from molecular_dynamics_tpu_torch.train.checkpoint import BestKeeper
     from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData
 
-    if family in _QUEUED:
-        raise NotImplementedError(
-            f"train {family}: this family is not ported yet (ROADMAP {_QUEUED[family]})")
     if family not in _FAMILIES:
         raise ValueError(f"unknown family {family!r}")
     if devices and devices > 1:
@@ -865,9 +868,17 @@ def _run_hnn_latent(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curv
 
 def _noise(gen, shape):
     """Standard normal training noise of ``shape`` from the run's generator
-    (decoder inputs, the GNS input noise): every training draw of the
-    sequence line goes through here, the rollouts draw their own."""
+    (decoder inputs, the GNS input noise, the generative line's latents,
+    reparameterisation draws and SDE paths): every training draw of the
+    sequence line, and every draw of the generative line, goes through
+    here or ``_uniform``; the sequence line's rollouts draw their own."""
     return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def _uniform(gen, shape):
+    """Uniform [0, 1) draws of ``shape`` from the run's generator (the
+    gradient penalty's interpolation weights)."""
+    return torch.rand(shape, generator=gen, device=gen.device)
 
 
 def _epochs(epochs, batches, update, logger, curves, keeper, model, t0, i=0, epoch0=0,
@@ -1491,6 +1502,341 @@ def _run_seq2seq_graph(ff, traj, epochs, batch_size, rng, gen, logger, keeper, c
     return model
 
 
+# --- the generative line -----------------------------------------------------
+
+
+def _run_flow(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+              top, device):
+    """Conditional RealNVP on min-max scaled flat frames, the NLL at the
+    frame's normalized time; then a sweep of ``MDX_FLOW_NGEN`` samples along
+    the time (base draws scaled by ``MDX_FLOW_TAU``). ``MDX_FLOW_TEMB=K``
+    conditions on ``[t, sin(2 pi k t), cos(2 pi k t)]``, k = 1..K, built in
+    float32; ``MDX_FLOW_COUPLING`` and ``MDX_FLOW_HIDDEN`` size the flow."""
+    from molecular_dynamics_tpu_torch.features import minmax_fit, minmax_scale, minmax_unscale
+    from molecular_dynamics_tpu_torch.models.flows import RealNVP
+    from molecular_dynamics_tpu_torch.train.datasets import frame_time_batches
+    from molecular_dynamics_tpu_torch.train.generative import make_flow_trainer
+
+    n = ff.n_atoms
+    frames_all, _ = traj.stacked()
+    lo, hi = minmax_fit(torch.as_tensor(frames_all.reshape(len(frames_all), -1), device=device))
+    n_coupling = int(os.environ.get("MDX_FLOW_COUPLING", 6))
+    width = int(os.environ.get("MDX_FLOW_HIDDEN", 256))
+    temb = int(os.environ.get("MDX_FLOW_TEMB", 0))
+    tau = float(os.environ.get("MDX_FLOW_TAU", 1.0))
+    k = 2.0 * math.pi * torch.arange(1, temb + 1, device=device, dtype=torch.float32)
+
+    def embed(t):  # (B, 1) normalized time -> (B, 1 + 2 temb)
+        if not temb:
+            return t
+        kt = t * k
+        return torch.cat([t, torch.sin(kt), torch.cos(kt)], dim=-1)
+
+    model = RealNVP(n * 3, n_coupling, (width, width), 1 + 2 * temb, generator=gen,
+                    device=device)
+    _, step = make_flow_trainer(model)
+
+    def batches():
+        for frames, times in frame_time_batches(traj, batch_size, rng):
+            x = torch.as_tensor(frames.reshape(len(frames), -1), device=device)
+            yield minmax_scale(x, lo, hi), embed(torch.as_tensor(times, device=device)[:, None])
+
+    _epochs(epochs, batches, step, logger, curves, keeper, model, time.time())
+    # conditional sweep along the reaction coordinate
+    n_gen = int(os.environ.get("MDX_FLOW_NGEN", 20))
+    z = tau * _noise(gen, (n_gen, n * 3))
+    with torch.no_grad():
+        samples = model.inverse(z, embed(torch.linspace(0.0, 1.0, n_gen, device=device)[:, None]))
+    coords = minmax_unscale(samples, lo, hi).cpu().numpy().reshape(n_gen, n, 3)
+    _export_xyz(os.path.join(out_dir, GENERATED["flow"] + ".xyz"), coords, names, top=top)
+    _eval_generated(out_dir, "flow", coords, traj)
+    return model
+
+
+def _run_vae(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+             top, device):
+    """Conditional VAE on whitened flat frames, conditioned on the frame's
+    time bucket; then one decode of a prior draw a bucket, each relaxed by
+    ``MDX_ROLLOUT_CORRECT``'s corrector where it is set."""
+    from molecular_dynamics_tpu_torch.evaluate import unwhiten
+    from molecular_dynamics_tpu_torch.models.vae import ConditionalVAE
+    from molecular_dynamics_tpu_torch.train.datasets import frame_time_batches
+    from molecular_dynamics_tpu_torch.train.generative import make_vae_trainer
+    from molecular_dynamics_tpu_torch.train.seq import corrector_from_env
+
+    n = ff.n_atoms
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    model = ConditionalVAE(out_dim=n * 3, generator=gen, device=device)
+    _, step = make_vae_trainer(model)
+
+    def batches():  # ten time buckets, min(int(t * 10), 9)
+        for frames, times in frame_time_batches(traj, batch_size, rng):
+            yield (torch.as_tensor(frames.reshape(len(frames), -1), device=device),
+                   torch.as_tensor(np.minimum((times * 10).astype(np.int32), 9), device=device))
+
+    _epochs(epochs, batches, lambda x, b: step(_noise(gen, (len(x), model.latent_dim)), x, b),
+            logger, curves, keeper, model, time.time())
+    z = _noise(gen, (10, model.latent_dim))
+    with torch.no_grad():
+        decoded = model.decode(z, torch.arange(10, device=device))
+    correct = corrector_from_env(ff, w_mean, w_std)
+    if correct is not None:
+        # no feedback loop to stabilise here: relax each decoded frame onto
+        # the physical manifold before scoring
+        decoded = correct(decoded)
+    coords = unwhiten(decoded.cpu().numpy().reshape(10, n, 3), w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED["vae"] + ".xyz"), coords, names, top=top)
+    _eval_generated(out_dir, "vae", coords, raw_traj)
+    return model
+
+
+def _fixed_latents(n, latent_dim, device, seed=7):
+    """The AAE probe's fixed prior sample: standard normals from a
+    ``torch.Generator`` of its own, seeded ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn((n, latent_dim), generator=gen, device=device)
+
+
+def _aae_losses(ae, disc, x, c, prior=None):
+    """The AAE's two losses: the autoencoder's ``reconstruction + 0.1 x``
+    the critic's BCE on its codes read as prior samples (``prior`` None),
+    or the critic's BCE separating ``prior`` draws from the detached codes."""
+    from molecular_dynamics_tpu_torch.models.autoencoder import aae_losses
+
+    if prior is None:
+        recon, z = ae(x, c)
+        rec, g_adv, _ = aae_losses(recon, x, disc(z))
+        return rec + 0.1 * g_adv
+    with torch.no_grad():
+        _, z = ae(x, c)
+    return aae_losses(x, x, disc(z), disc(prior))[2]
+
+
+def _run_aae(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+             top, device):
+    """Adversarial autoencoder on whitened flat frames: reconstruction +
+    a latent critic shaping the codes to the Gaussian prior, the decoder
+    conditioned on the normalized time, so that prior samples sweep the
+    pathway. Every ``MDX_AAE_PROBE`` epochs the decoder is scored by the
+    end-to-end evaluator on 200 fixed prior draws and the best kept; then
+    ``MDX_AAE_NGEN`` decodes along the time. ``MDX_AAE_LATENT`` sizes the
+    code."""
+    from molecular_dynamics_tpu_torch.evaluate import compare_e2e, unwhiten
+    from molecular_dynamics_tpu_torch.models.autoencoder import (LatentDiscriminator,
+                                                                 MLPAutoencoder)
+    from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
+    from molecular_dynamics_tpu_torch.train.datasets import frame_time_batches
+
+    n = ff.n_atoms
+    feat = n * 3
+    latent = int(os.environ.get("MDX_AAE_LATENT", 16))
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    ae = MLPAutoencoder(in_dim=feat, latent_dim=latent, cond_dim=1, generator=gen, device=device)
+    disc = LatentDiscriminator(latent, generator=gen, device=device)
+    ae_step = stepper(ClippedAdam(ae.parameters(), lr=1e-3, clip_norm=1.0),
+                      lambda x, c: _aae_losses(ae, disc, x, c))
+    d_step = stepper(ClippedAdam(disc.parameters(), lr=1e-4, clip_norm=1.0),
+                     lambda prior, x, c: _aae_losses(ae, disc, x, c, prior))
+
+    def batches():
+        for frames, times in frame_time_batches(traj, batch_size, rng):
+            yield (torch.as_tensor(frames.reshape(len(frames), -1), device=device),
+                   torch.as_tensor(times, device=device)[:, None])
+
+    def update(x, c):
+        loss = ae_step(x, c)
+        d_step(_noise(gen, (len(x), latent)), x, c)
+        return loss
+
+    probe_every = int(os.environ.get("MDX_AAE_PROBE", 8))
+    probe_n = 200
+    probe_z = _fixed_latents(probe_n, latent, device)
+    probe_c = torch.linspace(0.0, 1.0, probe_n, device=device)[:, None]
+    probe_data, _ = raw_traj.stacked()
+    best = {"err": float("inf"), "state": None}
+
+    def probe(epoch):
+        if not probe_every or (epoch + 1) % probe_every:
+            return
+        with torch.no_grad():
+            dec = ae.decode(probe_z, probe_c).cpu().numpy()
+        pc = unwhiten(dec.reshape(probe_n, n, 3), w_mean, w_std)
+        err = compare_e2e(pc, probe_data, data_trajectories=raw_traj.trajectories)["mean_abs_error"]
+        if err < best["err"]:
+            best.update(err=err, state=_clone_state(ae))
+        print(f"aae probe epoch {epoch + 1}: e2e={err:.3f} (best {best['err']:.3f})")
+
+    _epochs(epochs, batches, update, logger, curves, keeper, ae, time.time(), epoch_end=probe)
+    if best["state"] is not None:
+        ae.load_state_dict(best["state"])
+    n_gen = int(os.environ.get("MDX_AAE_NGEN", 200))
+    z = _noise(gen, (n_gen, latent))
+    with torch.no_grad():
+        decoded = ae.decode(z, torch.linspace(0.0, 1.0, n_gen, device=device)[:, None])
+    coords = unwhiten(decoded.cpu().numpy().reshape(n_gen, n, 3), w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED["aae"] + ".xyz"), coords, names, top=top)
+    _eval_generated(out_dir, "aae", coords, raw_traj)
+    return ae
+
+
+def _sde_windows(traj, path_len):
+    """The SDE-GAN's path windows ``(B, path_len, 3N)`` (float32), every
+    ``path_len // 2`` frames of each trajectory, and each window's start as
+    normalized time along its trajectory."""
+    wins, win_t = [], []
+    for t_arr in traj.trajectories:
+        flat = t_arr.reshape(len(t_arr), -1)
+        span = max(1, len(flat) - path_len)
+        for s in range(0, len(flat) - path_len + 1, path_len // 2):
+            wins.append(flat[s: s + path_len])
+            win_t.append(s / span)
+    return np.stack(wins).astype(np.float32), np.asarray(win_t, np.float32)
+
+
+def _run_sde(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
+             top, device):
+    """Neural SDE-GAN on whitened 8-frame path windows (stride 4): a batch
+    is one generator update, three critic updates (a gradient penalty of
+    ``MDX_SDE_GP``) and, every 10th, a potential-injection update on the
+    unwhitened paths; the generator averaged uniformly over the second half
+    of the updates. Every ``MDX_SDE_PROBE`` epochs the average's marginal TV
+    on 512 paths (mean of ``MDX_SDE_PROBE_SEEDS`` draws) picks the best
+    snapshot; then 1,024 paths are scored (the non-finite dropped) beside
+    the data's own TV floor of a random half split, and ``best.ckpt`` holds
+    the averaged generator. Knobs: ``MDX_SDE_TEMB`` (time conditioning),
+    ``_HIDDEN``, ``_LATENT``, ``_NOISE``, ``_GP``, ``_LR_G``, ``_LR_D``,
+    ``_MOMENT``, ``_QUANTILE``, ``_SWA``."""
+    import copy
+
+    from molecular_dynamics_tpu_torch.evaluate import marginal_histograms, unwhiten
+    from molecular_dynamics_tpu_torch.models.sde import CDEDiscriminator, SDEGenerator
+    from molecular_dynamics_tpu_torch.train.checkpoint import save
+    from molecular_dynamics_tpu_torch.train.sde import SDEGANConfig, make_sde_gan_trainer
+
+    n = ff.n_atoms
+    feat = n * 3
+    path_len = 8
+    raw_traj = traj
+    traj, w_mean, w_std = _whitened(traj)
+    paths, win_t = _sde_windows(traj, path_len)
+    temb_k = int(os.environ.get("MDX_SDE_TEMB", 0))
+    cond_dim = 2 * temb_k + 1 if temb_k else 0
+
+    def conds_at(tvals):  # (B,) times -> float32 [t, sin(2 pi k t), cos(2 pi k t)], k = 1..K
+        if not temb_k:
+            return None
+        t = np.asarray(tvals, np.float32)[:, None]
+        feats = [t]
+        for k in range(1, temb_k + 1):
+            feats += [np.sin(2.0 * np.pi * k * t), np.cos(2.0 * np.pi * k * t)]
+        return torch.as_tensor(np.concatenate(feats, axis=-1), device=device)
+
+    conds = conds_at(win_t)
+    ts = torch.linspace(0.0, 1.0, path_len, device=device)
+    h = int(os.environ.get("MDX_SDE_HIDDEN", 128))
+    g_model = SDEGenerator(feat, latent_dim=int(os.environ.get("MDX_SDE_LATENT", 64)),
+                           noise_dim=int(os.environ.get("MDX_SDE_NOISE", 16)), hidden=(h, h),
+                           cond_dim=cond_dim, generator=gen, device=device)
+    d_model = CDEDiscriminator(feat, cond_dim=cond_dim, generator=gen, device=device)
+    cfg = SDEGANConfig(
+        gp_weight=float(os.environ.get("MDX_SDE_GP", 10.0)), adam=True,
+        lr_g=float(os.environ.get("MDX_SDE_LR_G", 2e-4)),
+        lr_d=float(os.environ.get("MDX_SDE_LR_D", 1e-3)),
+        moment_weight=float(os.environ.get("MDX_SDE_MOMENT", 1.0)),
+        quantile_weight=float(os.environ.get("MDX_SDE_QUANTILE", 0.0)),
+        swa_decay=float(os.environ.get("MDX_SDE_SWA", 0.99)))
+    # the potential injection reads the physical scale: the generator emits
+    # whitened paths, unwhitened (differentiably) before the energy
+    unwhitening = tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                        for a in (w_mean, w_std))
+    init_fn, _, g_step, d_step, informed_step, swa_update = make_sde_gan_trainer(
+        g_model, d_model, ts, ff=ff, config=cfg, unwhiten=unwhitening)
+    init_fn()
+
+    def draws(batch):  # z0 and dw of ``batch`` paths, the increments scaled by sqrt(dt)
+        z0 = _noise(gen, (batch, g_model.init_noise_dim))
+        dts = torch.diff(ts)
+        dw = _noise(gen, (len(dts), batch, g_model.noise_dim)) * torch.sqrt(dts)[:, None, None]
+        return z0, dw
+
+    g_avg = copy.deepcopy(g_model)
+    paths_d = torch.as_tensor(paths, device=device)
+    t0 = time.time()
+    i = 0
+    # uniform averaging over the second half of training
+    steps_per_epoch = max(1, (len(paths) - batch_size + 1) // batch_size + 1)
+    swa_start = (epochs * steps_per_epoch) // 2
+    n_avg = 0
+    probe_every = int(os.environ.get("MDX_SDE_PROBE", 1))
+    probe_seeds = int(os.environ.get("MDX_SDE_PROBE_SEEDS", 1))
+    best_tv, best_g = float("inf"), None
+    for epoch in range(epochs):
+        order = rng.permutation(len(paths))
+        for s in range(0, len(order) - batch_size + 1, batch_size):
+            sel = torch.as_tensor(order[s: s + batch_size], device=device)
+            # the fakes share the real batch's conditions
+            real, bc = paths_d[sel], None if conds is None else conds[sel]
+            g_step(*draws(batch_size), real, bc)
+            for _ in range(3):
+                z0, dw = draws(batch_size)
+                eps = _uniform(gen, (batch_size, 1, 1)) if cfg.gp_weight > 0.0 else None
+                d_loss = d_step(z0, dw, eps, real, bc)
+            if i % cfg.potential_every == cfg.potential_every - 1:
+                informed_step(*draws(batch_size), bc)
+            if i >= swa_start:
+                swa_update(g_avg, g_model, n_avg)
+                n_avg += 1
+            else:
+                g_avg.load_state_dict(g_model.state_dict())
+            i += 1
+            if i % 10 == 0:
+                _log(logger, curves, keeper, g_model, epoch, i, d_loss, t0)
+        # marginal-TV probed snapshot selection of the averaged generator
+        # (the critic collapses in long runs: keep the best pre-collapse one)
+        if probe_every and (epoch + 1) % probe_every == 0:
+            tvs = []
+            for _ in range(max(1, probe_seeds)):
+                with torch.no_grad():
+                    probe = g_avg(ts, *draws(512), conds_at(np.linspace(0.0, 1.0, 512)))
+                probe = probe.cpu().numpy()
+                if not np.isfinite(probe).all():
+                    tvs = None
+                    break
+                tvs.append(marginal_histograms(probe, paths)["marginal_tv_mean"])
+            if tvs is None:
+                print(f"sde probe epoch {epoch + 1}: non-finite paths")
+            else:
+                tv = float(np.mean(tvs))
+                if tv < best_tv:
+                    best_tv, best_g = tv, _clone_state(g_avg)
+                print(f"sde probe epoch {epoch + 1}: tv={tv:.4f} (best {best_tv:.4f})")
+    if best_g is not None:
+        g_avg.load_state_dict(best_g)
+    # 1,024 paths (finite-sample TV biases upward), swept along the time
+    # with conditioning; a diverged run is scored on its finite paths
+    with torch.no_grad():
+        fake = g_avg(ts, *draws(1024), conds_at(np.linspace(0.0, 1.0, 1024))).cpu().numpy()
+    finite = np.isfinite(fake).all(axis=(1, 2))
+    if not finite.all():
+        print(f"sde: {int((~finite).sum())}/{len(finite)} generated paths non-finite "
+              "(diverged run); evaluating the finite subset")
+        fake = fake[finite] if finite.any() else np.zeros((1,) + fake.shape[1:], np.float32)
+    coords = unwhiten(fake.reshape(-1, n, 3), w_mean, w_std)
+    _export_xyz(os.path.join(out_dir, GENERATED["sde"] + ".xyz"), coords[:256], names, top=top)
+    half = rng.permutation(len(paths))
+    floor = marginal_histograms(paths[half[: len(half) // 2]], paths[half[len(half) // 2:]])
+    extra = marginal_histograms(fake, paths)
+    extra["marginal_tv_floor"] = floor["marginal_tv_mean"]
+    _eval_generated(out_dir, "sde", coords, raw_traj, extra=extra)
+    # best.ckpt holds the generator the evaluation scored (the probe's
+    # averaged snapshot), not the keeper's lowest critic loss
+    save(os.path.join(out_dir, "best.ckpt"), g_avg)
+    return g_avg
+
+
 _FAMILIES = {
     "pretrain": _run_pretrain,
     "cgan": _run_cgan,
@@ -1506,4 +1852,8 @@ _FAMILIES = {
     "gat": _run_gat,
     "lstm-gat": _run_lstm_gat,
     "seq2seq-graph": _run_seq2seq_graph,
+    "flow": _run_flow,
+    "vae": _run_vae,
+    "aae": _run_aae,
+    "sde": _run_sde,
 }

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Train the port's dynamics and sequence families at docs/TRAINING.md's depth.
+"""Train the port's families at docs/TRAINING.md's depth.
 
 Runs ``python -m molecular_dynamics_tpu_torch.cli train <family>`` in process
 for each family of ``DEPTH`` (its ``--epochs``; the fine-tunes run their
-default epochs after them) on ``datasets/backbone_smd`` (batch 32, seed 0 or
-each of ``--seeds``), and prints one JSON line per run (wall seconds,
-eval.json's ``mean_abs_error``, ``rg_abs_error`` and ``std_abs_error``)
-and, last, the device's name and ``nvidia-smi``'s name and power limit.
-Runs on the CUDA device unless ``--device cpu`` is given.
+default epochs after them; the recipe knobs of ``ENV`` set for the run) on
+``datasets/backbone_smd`` (batch 32, seed 0 or each of ``--seeds``), and
+prints one JSON line per run (wall seconds, eval.json's ``mean_abs_error``,
+``rg_abs_error`` and ``std_abs_error``, and ``sde``'s marginal TV and its
+floor) and, last, the device's name and ``nvidia-smi``'s name and power
+limit. Runs on the CUDA device unless ``--device cpu`` is given.
 
     python3 scripts/train_dynamics_full_depth.py [--families hnn node] [--seeds 0 1]
 """
 
 import argparse
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -31,7 +33,14 @@ sys.path.insert(0, str(ROOT))
 #: the table's 6 epochs, then its default 6-epoch fine-tune.
 DEPTH = {"hnn": 16, "hnn-schnet": 16, "hnn-latent": 32, "node": 32, "lstm": 64, "lstm-nll": 64,
          "seq2seq": 64, "seq2seq-gan": 16, "transformer": 16, "gat": 6, "lstm-gat": 2,
-         "seq2seq-graph": 64}
+         "seq2seq-graph": 64, "flow": 64, "aae": 128, "vae": 64, "sde": 32, "pretrain": 16,
+         "cgan": 16}
+#: the non-default recipes behind docs/TRAINING.md's rows (its closing
+#: notes): the flow's Fourier time features, the AAE's probe every 2 epochs
+ENV = {"flow": {"MDX_FLOW_TEMB": "8"}, "aae": {"MDX_AAE_PROBE": "2"}}
+#: eval.json's keys each line carries
+KEYS = ("mean_abs_error", "rg_abs_error", "std_abs_error", "marginal_tv_mean",
+        "marginal_tv_floor")
 
 
 def main(argv=None) -> int:
@@ -50,19 +59,28 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         out_dir = pathlib.Path(args.out_dir) / f"seed{seed}"
         for family in args.families:
-            t0 = time.perf_counter()
-            rc = cli.main(["train", family, "--data", data, "--epochs", str(DEPTH[family]),
-                           "--batch-size", "32", "--seed", str(seed), "--out-dir", str(out_dir),
-                           "--device", args.device])
-            if args.device != "cpu":
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            env = ENV.get(family, {})
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                t0 = time.perf_counter()
+                rc = cli.main(["train", family, "--data", data, "--epochs", str(DEPTH[family]),
+                               "--batch-size", "32", "--seed", str(seed), "--out-dir",
+                               str(out_dir), "--device", args.device])
+                if args.device != "cpu":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k)
+                    else:
+                        os.environ[k] = v
             with open(out_dir / family / "eval.json") as fh:
                 metrics = json.load(fh)
             print(json.dumps({"family": family, "epochs": DEPTH[family], "seed": seed, "rc": rc,
-                              "wall_seconds": wall, **{k: metrics[k] for k in (
-                                  "mean_abs_error", "rg_abs_error", "std_abs_error")}}),
-                  flush=True)
+                              "env": env, "wall_seconds": wall,
+                              **{k: metrics[k] for k in KEYS if k in metrics}}), flush=True)
     if args.device == "cpu":
         print(json.dumps({"device": "cpu"}))
     else:

@@ -204,9 +204,13 @@ def test_convert_writes_the_jax_files(tmp_path, capsys, case):
     capsys.readouterr()
 
 
-def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        tcli.main(["train", "vae", "--device", "cpu"])
+def test_unported_options_raise(tmp_path, capsys):
+    # train vae runs since the generative line was ported (it raised before)
+    data = pathlib.Path(__file__).resolve().parents[1] / "datasets" / "backbone_smd"
+    assert tcli.main(["train", "vae", "--device", "cpu", "--data",
+                      str(data / "raw-traj_rep-1.npy"), "--stride", "10", "--epochs", "1",
+                      "--batch-size", "8", "--out-dir", str(tmp_path)]) == 0
+    assert "vae eval:" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="A14"):
         tcli.main(["simulate", "--device", "cpu", "--devices", "2"])
     with pytest.raises(NotImplementedError, match="A8"):
