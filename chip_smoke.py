@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA device and ``nvcc``; without a device it exits non-zero and
-prints no result. It imports ``molecular_dynamics_tpu_torch`` only.
+It needs one CUDA device, ``nvcc`` and ``g++``; without a device it exits
+non-zero and prints no result. It imports ``molecular_dynamics_tpu_torch``
+only, and loads the numpy file writer ``tests/torch_files.py`` by its path.
 
 Phases, one JSON line each on standard output:
 
@@ -89,6 +90,25 @@ Phases, one JSON line each on standard output:
    in-repo PSF / PDB / YAML system against ``energy_terms`` in float64, and
    ``simulate`` with ``fused_nonbonded`` at both ``kernel_variant``s, 8
    replicas x 50 steps, one pair-tile or dense-row launch a step.
+   ``host_io``: the packaged 104-atom tables written as a CHARMM chamber
+   prmtop by the numpy writer of the CPU tests (``tests/torch_files.py``,
+   loaded by path), with a PDB of the start: ``energy`` on it against
+   ``energy_terms`` of ``example:full`` in float64, and its tables against
+   the packaged ones in float64 on the card under ``REFERENCE_CONFIG`` and
+   ``GBIS_CONFIG``; ``simulate topology=<prmtop> coordinates=<pdb>`` at
+   1024 x 2000 in vacuum (rigid X-H bonds, 2 fs) and under ``GBIS_CONFIG``
+   with the cli campaigns' gates and 40 campaign-kernel launches each,
+   their rates beside ``example:full``'s; a CHARMM ``.prm`` with one
+   periodic 24 x 24 CMAP map on the alanine key, read by ``CharmmPrm`` and
+   attached on the rows ``ff.builder`` derives: energy and forces with the
+   ``cmap`` term in float32 on 1024 jittered states against float64 on the
+   CPU, ``simulate_ensemble`` with no kernel flag for 50 steps (no kernel
+   launches), ``tile_ff_params(m=4)`` against four copies, ``repulsion`` /
+   ``repulsioncg`` in float32 against float64; ``convert`` on the golden
+   xtc (the C++ decoder equal to the pure-Python one, the re-encoding equal
+   to the file's bytes), replica 0's frames through the native xtc and
+   mdxtc writers and ``convert`` within their quantisation, and through
+   the asynchronous sink in both formats.
    ``bench``: ``bench_torch.py``'s three protocols (vacuum, ``gbis``,
    ``gbis_sasa``; a warm-up and three timed calls each): its record with
    the median and the spread, and the campaign kernel's launches.
@@ -184,6 +204,8 @@ import contextlib
 import csv
 import ctypes
 import dataclasses
+import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -206,9 +228,12 @@ import molecular_dynamics_tpu_torch as mdx
 from molecular_dynamics_tpu_torch.bias import HarmonicSMDBias
 from molecular_dynamics_tpu_torch.constraints import hydrogen_bond_constraints
 from molecular_dynamics_tpu_torch.energy import (
+    DEFAULT_TERMS,
     GBIS_CONFIG,
     REFERENCE_CONFIG,
+    EnergyConfig,
     _neg_grad,
+    energy_and_forces,
     energy_terms,
     total_energy,
 )
@@ -237,7 +262,19 @@ from molecular_dynamics_tpu_torch.sim import (
     make_ensemble_step_fn,
     simulate_ensemble,
 )
-from molecular_dynamics_tpu_torch.io import read_dcd, read_pdb, read_psf, read_xyz
+from molecular_dynamics_tpu_torch.ff import builder as ff_builder
+from molecular_dynamics_tpu_torch.ff.params import attach_cmap_params, tile_ff_params
+from molecular_dynamics_tpu_torch.io import (
+    CharmmPrm,
+    native,
+    prmtop_to_ff_params,
+    read_dcd,
+    read_pdb,
+    read_psf,
+    read_xyz,
+    write_pdb,
+)
+from molecular_dynamics_tpu_torch.io.xtc import read_xtc_py
 from molecular_dynamics_tpu_torch.system import MDState, replicate, system_init
 from molecular_dynamics_tpu_torch import regenerate_smd
 from molecular_dynamics_tpu_torch.models import Discriminator, Generator
@@ -297,6 +334,29 @@ TOL_SEQUENCE_STEP = 1e-5
 #: the generative phase: the four families at DYNAMICS_EPOCHS under the
 #: sanity bound (they have no live budget in the JAX package's guard)
 GENERATIVE_FAMILIES = ("flow", "vae", "aae", "sde")
+#: the host_io phase: the packaged 104-atom tables written as a chamber
+#: prmtop by the numpy writer of the CPU tests (loaded by path, the one file
+#: of tests/ this script reads)
+TEST_FILES = pathlib.Path(__file__).resolve().parent / "tests" / "torch_files.py"
+FULL_DA_NPZ = (pathlib.Path(__file__).resolve().parent / "molecular_dynamics_tpu_torch"
+               / "examples" / "data" / "full_da.npz")
+#: the prmtop system against the packaged one in float64 on the card, term
+#: by term: the tables pass through %16.8E text (9 significant digits), and
+#: the packaged qq_pair is a float32 product
+TOL_PRMTOP_REL = 2e-6
+#: the CHARMM22 alanine CMAP key, which the packaged system's types carry
+ALA_CMAP_KEY = ("C", "NH1", "CT1", "C", "NH1", "CT1", "C", "NH1")
+CMAP_STEPS = 50  # simulate_ensemble with no kernel flag on the CMAP system
+#: float32 on the card against float64 on the CPU on 1024 jittered states:
+#: the total energy (relative), forces (relative to the largest), and the
+#: cmap term alone (kcal/mol)
+TOL_F32_ENERGY_REL = 1e-5
+TOL_F32_FORCE_REL = 1e-4
+TOL_F32_CMAP_ABS = 1e-4
+#: trajectory codecs: xtc at 1000 / nm (0.01 A steps), mdxtc at 10000 / nm
+XTC_QUANT_A = 0.011
+MDXTC_QUANT_A = 1e-3
+GOLDEN_XTC_SHA256 = "77ba35f14e78995e568fbdfd66a68714c4bd2257168498527967fec8ee1d4d51"
 #: where float32 itself misses those tolerances on a step (the same step in
 #: float32 on the CPU against float64), the card is held within this factor
 #: of float32's own error instead
@@ -1779,7 +1839,7 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
     and the gates on what it wrote. A replica whose logged T
     passes COLLAPSE_T_K at some save has collapsed: at most
     ``collapse_share`` of them may, and the ensemble gates hold over the
-    others."""
+    others. Returns the result and replica 0's frames."""
     n_saves = N_STEPS // N_INNER
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "out"
@@ -1844,7 +1904,7 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
         "colvar_center_last_A": float(column("colvar_center")[-1, 0]),
         "min_neighbour_spread_A": spread, "dcd_equals_frames": True,
         "collapsed_replicas": np.flatnonzero(collapsed).tolist(),
-    }
+    }, frames[:, 0]
 
 
 def campaign_overrides(overrides):
@@ -1945,10 +2005,10 @@ def cli_phase(ff, coords):
         # centre from the measured distance to 34 A over 500,000 steps
         full = ["topology=example:full", "colvar.group2=[103]", "colvar.T=500000",
                 "sim.dt_fs=2.0", "sim.constrain_h_bonds=true"]
-        res["vacuum"] = cli_campaign_run(104, full)
-        res["gbis"] = cli_campaign_run(104, full, config=str(cfg_path))
+        res["vacuum"], _ = cli_campaign_run(104, full)
+        res["gbis"], _ = cli_campaign_run(104, full, config=str(cfg_path))
     # the generated backbone as the JAX CLI test runs it, at 1 fs
-    res["backbone"] = cli_campaign_run(40, ["sim.dt_fs=1.0"],
+    res["backbone"], _ = cli_campaign_run(40, ["sim.dt_fs=1.0"],
                                        collapse_share=COLLAPSE_SHARE_BACKBONE)
     res["backbone_collapse"] = collapse_check(["sim.dt_fs=1.0"],
                                               res["backbone"]["collapsed_replicas"])
@@ -1980,6 +2040,224 @@ def cli_phase(ff, coords):
             res[f"fused_nonbonded_{variant}"] = {
                 "line": json.loads(lines[-1]), f"{counted.__name__}_launches": counted.launches}
     return res, pair_launches
+
+
+# -- host I/O: prmtop, CHARMM .prm with CMAP, trajectories ------------------------
+
+
+def load_test_files():
+    """``tests/torch_files.py``, the numpy-only writer of the prmtop, .prm
+    and PSF fixtures, loaded by its path."""
+    spec = importlib.util.spec_from_file_location("torch_files", TEST_FILES)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_prmtop_system(files, tmp):
+    """The packaged 104-atom tables as a chamber prmtop and their start
+    coordinates as a PDB; returns both paths and the PDB's coordinates."""
+    with np.load(FULL_DA_NPZ) as raw:
+        tables = {k[3:]: raw[k] for k in raw.files if k.startswith("ff_")}
+        meta = {k: raw[k] for k in ("atom_names", "atom_types", "res_ids", "res_names")}
+        coords = raw["coords"]
+    prmtop, pdb = tmp / "full_da.prmtop", tmp / "full_da.pdb"
+    files.write_prmtop(prmtop, tables, meta["atom_names"], meta["atom_types"],
+                       meta["res_ids"], meta["res_names"])
+    write_pdb(str(pdb), coords, meta["atom_names"], resnames=meta["res_names"],
+              resids=meta["res_ids"])
+    return str(prmtop), str(pdb), read_pdb(str(pdb))[0]
+
+
+def prmtop_energies(prmtop, pdb, pdb_coords, ff, dev):
+    """``cli energy`` on the prmtop + PDB against ``energy_terms`` of
+    ``example:full`` in float64, and the prmtop's tables against the
+    packaged ones in float64 on the card under REFERENCE_CONFIG and
+    GBIS_CONFIG (the GB tables follow the elements inferred from the
+    prmtop's names and masses), term by term."""
+    res = {"cli_energy": energy_printed_vs(
+        ["--topology", prmtop, "--coordinates", pdb, "--device", dev.type], ff, pdb_coords)}
+    ff_p = prmtop_to_ff_params(prmtop, dtype=torch.float64, device=dev)
+    ff_e, _, _ = decaalanine_full(dtype=torch.float64, device=dev)
+    pos = torch.as_tensor(pdb_coords, dtype=torch.float64, device=dev)
+    for name, cfg in (("reference", REFERENCE_CONFIG), ("gbis", GBIS_CONFIG)):
+        got, want = energy_terms(pos, ff_p, config=cfg), energy_terms(pos, ff_e, config=cfg)
+        check(set(got) == set(want), f"prmtop energy terms {sorted(got)} vs {sorted(want)}")
+        rel = {k: abs(float(got[k]) - float(v)) / max(abs(float(v)), 1.0)
+               for k, v in want.items()}
+        check(max(rel.values()) <= TOL_PRMTOP_REL,
+              f"prmtop vs example:full ({name}), relative errors {rel}")
+        res[f"f64_{name}"] = {"max_rel_err": max(rel.values()),
+                              "terms": {k: float(v) for k, v in got.items()}}
+    res["nb_mask_equal"] = bool(torch.equal(ff_p.nb_mask, ff_e.nb_mask))
+    res["qq_pair_max_abs_diff"] = max_err(ff_p.qq_pair, ff_e.qq_pair)
+    check(res["nb_mask_equal"], "prmtop: the exclusion mask differs from the packaged one")
+    return res
+
+
+def cmap_checks(files, tmp, ff, coords, meta, dev, n_rep=N_REPLICAS):
+    """A CHARMM .prm with one smooth periodic 24 x 24 map on the alanine
+    key, read by ``CharmmPrm`` and attached to the 104-atom system on the
+    rows ``ff.builder`` derives from its backbone names; ``total_energy`` and
+    forces with the cmap term in float32 on ``dev`` against float64 on the
+    CPU on ``n_rep`` jittered states; ``simulate_ensemble`` with no kernel
+    flag (no launch); ``tile_ff_params(m=4)`` against 4 copies;
+    ``repulsion`` / ``repulsioncg`` in float32 against float64."""
+    prm_path = tmp / "ala_cmap.prm"
+    files.write_charmm_prm(prm_path, {ALA_CMAP_KEY: files.smooth_cmap(24, seed=SEED % 1000)})
+    prm = CharmmPrm(str(prm_path))
+    top = cli._meta_topology(ff, meta)
+    rows, grids, gids = ff_builder._cmap_tables(top, prm, np.asarray(top.atom_types))
+    check(len(rows) == 8 and len(grids) == 1,
+          f"cmap: {len(rows)} cross-terms on {len(grids)} maps, expected 8 on 1")
+    ff_c = attach_cmap_params(ff.to(device=dev, dtype=torch.float32), rows, grids, gids)
+    ff64 = ff_c.to(device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(SEED)
+    pos = coords[None] + rng.normal(0.0, 0.1, (n_rep,) + coords.shape)
+    pos32 = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    pos64 = torch.as_tensor(pos, dtype=torch.float64)
+    res = {"cross_terms": len(rows), "grid": list(grids[0].shape), "replicas": n_rep}
+
+    def vs_float64(cfg, ff32, ff_64, label):
+        t32, f32 = energy_and_forces(pos32, ff32, config=cfg)
+        t64, f64 = energy_and_forces(pos64, ff_64, config=cfg)
+        e32 = torch.stack(list(t32.values())).sum(0).double().cpu()
+        e64 = torch.stack(list(t64.values())).sum(0)
+        out = {
+            "energy_max_rel_err": float(((e32 - e64).abs() / e64.abs().clamp_min(1.0)).max()),
+            "force_max_rel_err": max_err(f32.cpu(), f64) / float(f64.abs().max()),
+            "terms_max_abs_err": {k: max_err(t32[k].cpu(), v) for k, v in t64.items()},
+            "terms_mean_f64": {k: float(v.mean()) for k, v in t64.items()},
+        }
+        check(out["energy_max_rel_err"] <= TOL_F32_ENERGY_REL
+              and out["force_max_rel_err"] <= TOL_F32_FORCE_REL,
+              f"{label}: float32 on {dev} against float64: {out}")
+        return out
+
+    cfg_c = dataclasses.replace(REFERENCE_CONFIG, terms=DEFAULT_TERMS + ("cmap",))
+    res["cmap_f32_vs_f64"] = vs_float64(cfg_c, ff_c, ff64, "cmap")
+    res["cmap_f32_abs_err"] = res["cmap_f32_vs_f64"]["terms_max_abs_err"]["cmap"]
+    check(res["cmap_f32_abs_err"] <= TOL_F32_CMAP_ABS,
+          f"cmap term: float32 off float64 by {res['cmap_f32_abs_err']} kcal/mol")
+    check(abs(res["cmap_f32_vs_f64"]["terms_mean_f64"]["cmap"]) > 0.1, "cmap term reads 0")
+
+    # the composed per-step path with the cmap term: autograd, no kernel
+    scfg = SimulationConfig(dt_fs=1.0, temperature=300.0, energy=cfg_c)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    state = system_init(torch.as_tensor(coords, dtype=torch.float32, device=dev),
+                        vel=maxwell_boltzmann(gen, ff_c.masses, 300.0), key=SEED, device=dev)
+    force = mdx.force_fn(cfg_c)
+    state = initialize_forces(state, lambda p, box: force(p, ff_c))
+    ens = replicate(state, n_rep, seed=SEED)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, frames, log = simulate_ensemble(ens, ff_c, CMAP_STEPS, CMAP_STEPS, scfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["simulate_no_flag"] = {
+        "steps": CMAP_STEPS, "seconds": time.perf_counter() - t0, "launches": read_launches(),
+        "T_K": float(log["T"].mean()), "frames_finite": bool(torch.isfinite(frames).all())}
+    check(not any(res["simulate_no_flag"]["launches"].values()),
+          f"cmap simulate_ensemble (no kernel flag) launched {res['simulate_no_flag']['launches']}")
+    check(res["simulate_no_flag"]["frames_finite"], "cmap simulate_ensemble: non-finite frames")
+
+    # four far-apart copies: four times the single copy's energy, term by term
+    ff_dev64 = ff_c.to(device=dev, dtype=torch.float64)
+    ff4 = tile_ff_params(ff_dev64, 4)
+    one = energy_terms(torch.as_tensor(coords, dtype=torch.float64, device=dev), ff_dev64,
+                       config=cfg_c)
+    shifted = np.concatenate([coords + [60.0 * k, 0.0, 0.0] for k in range(4)])
+    four = energy_terms(torch.as_tensor(shifted, dtype=torch.float64, device=dev), ff4,
+                        config=cfg_c)
+    rel4 = {k: abs(float(four[k]) - 4 * float(v)) / max(abs(4 * float(v)), 1.0)
+            for k, v in one.items()}
+    res["tile_m4_max_rel_err"] = max(rel4.values())
+    check(res["tile_m4_max_rel_err"] <= 1e-9 and ff4.cmap_idx.shape[0] == 4 * len(rows),
+          f"tile_ff_params(m=4) with CMAP: {rel4}")
+
+    cfg_r = EnergyConfig(terms=("bonds", "angles", "repulsion", "repulsioncg"),
+                         cutoff=9.0, switch_dist=7.5)
+    res["repulsion_f32_vs_f64"] = vs_float64(cfg_r, ff_c, ff64, "repulsion")
+    return res
+
+
+def trajectory_checks(tmp, rep0):
+    """``cli convert`` on the in-repo golden .xtc (the native decoder equal
+    to the pure-Python one, the re-encoding equal to the file's bytes), the
+    campaign's replica-0 frames through the native xtc and mdxtc writers
+    and back through ``cli convert`` within their quantisation, and through
+    the asynchronous sink in both formats, read back equal."""
+    res = {}
+    golden = GOLDENS / "golden.xtc"
+    blob = golden.read_bytes()
+    check(hashlib.sha256(blob).hexdigest() == GOLDEN_XTC_SHA256, "golden.xtc changed")
+    _, lines = run_cli(["convert", str(golden), str(tmp / "golden.npy")])
+    decoded, plain = np.load(tmp / "golden.npy"), read_xtc_py(str(golden))
+    check(np.array_equal(decoded, plain) and np.array_equal(native.xtc_read(str(golden)), plain),
+          "golden.xtc: the native decoder and the pure-Python one differ")
+    native.xtc_write(str(tmp / "again.xtc"), np.load(GOLDENS / "golden_xtc_coords.npy"))
+    check((tmp / "again.xtc").read_bytes() == blob, "golden.xtc: re-encoding differs")
+    res["golden_xtc"] = {"frames": list(decoded.shape), "decoders_equal": True,
+                         "reencoded_sha256_equal": True}
+    for codec, precision, quant in (("xtc", 1000.0, XTC_QUANT_A),
+                                    ("mdxtc", 10000.0, MDXTC_QUANT_A)):
+        path = tmp / f"rep0.{codec}"
+        getattr(native, f"{codec}_write")(str(path), rep0, precision=precision)
+        run_cli(["convert", str(path), str(tmp / f"rep0_{codec}.npy")])
+        err = float(np.abs(np.load(tmp / f"rep0_{codec}.npy") - rep0).max())
+        check(err <= quant, f"rep0 through {codec} and cli convert: {err} A, bound {quant}")
+        res[codec] = {"frames": list(rep0.shape), "max_abs_err_A": err, "bound_A": quant,
+                      "bytes": path.stat().st_size, "raw_bytes": int(rep0.nbytes)}
+    for fmt in ("raw", "dcd"):
+        path = tmp / f"sink.{fmt}"
+        with native.AsyncTrajectorySink(str(path), rep0.shape[1], fmt=fmt) as sink:
+            for frame in rep0:
+                sink.push(frame)
+            written = sink.close()
+        back = (np.fromfile(path, np.float32).reshape(rep0.shape) if fmt == "raw"
+                else read_dcd(str(path))[0])
+        check(written == len(rep0) and np.array_equal(back, rep0),
+              f"AsyncTrajectorySink {fmt}: {written} frames, read back differs")
+        res[f"sink_{fmt}"] = {"frames": written, "equal": True}
+    return res
+
+
+def host_io_phase(ff, coords, meta, cli_res):
+    """The host I/O on the card: the prmtop system's energies and two
+    1024 x 2000 ``cli simulate`` campaigns from it (vacuum with rigid X-H
+    bonds at 2 fs, and GBIS_CONFIG), CMAP at full width, and the trajectory
+    codecs on the vacuum campaign's replica 0."""
+    files = load_test_files()
+    dev = torch.device("cuda")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        native.build()
+        res["native_build_seconds"] = time.perf_counter() - t0
+        prmtop, pdb, pdb_coords = write_prmtop_system(files, tmp)
+        res["energies"] = prmtop_energies(prmtop, pdb, pdb_coords, ff, dev)
+        gbis_cfg = {**dataclasses.asdict(GBIS_CONFIG), "terms": list(GBIS_CONFIG.terms)}
+        cfg_path = tmp / "gbis.json"
+        cfg_path.write_text(json.dumps({"sim": {"energy": gbis_cfg, "sasa_every": 1}}))
+        run = [f"topology={prmtop}", f"coordinates={pdb}", "colvar.group2=[103]",
+               "colvar.T=500000", "sim.dt_fs=2.0", "sim.constrain_h_bonds=true"]
+        res["vacuum"], rep0 = cli_campaign_run(104, run)
+        res["gbis"], _ = cli_campaign_run(104, run, config=str(cfg_path))
+        for name in ("vacuum", "gbis"):
+            res[name]["example_full_steps_per_sec"] = cli_res[name]["steps_per_sec"]
+        res["cmap"] = cmap_checks(files, tmp, ff, coords, meta, dev)
+        res["trajectories"] = trajectory_checks(tmp, rep0)
+    launches = {
+        f"host_io: cli simulate prmtop vacuum {N_REPLICAS} x {N_STEPS}":
+            res["vacuum"]["campaign_kernel_launches"],
+        f"host_io: cli simulate prmtop GBIS_CONFIG {N_REPLICAS} x {N_STEPS}":
+            res["gbis"]["campaign_kernel_launches"],
+        f"host_io: simulate_ensemble with cmap, no kernel flag {N_REPLICAS} x {CMAP_STEPS}":
+            res["cmap"]["simulate_no_flag"]["launches"],
+    }
+    return res, launches
 
 
 def bench_phase():
@@ -3044,7 +3322,7 @@ def main():
     lever_builds = start_lever_builds()
 
     # -- the system: minimised 104-atom deca-alanine -------------------------
-    ff, coords, _ = decaalanine_full()
+    ff, coords, meta_full = decaalanine_full()
     n = ff.n_atoms
     check(n == 104, f"expected the 104-atom system, got {n}")
     force = mdx.force_fn(REFERENCE_CONFIG)
@@ -3983,6 +4261,12 @@ def main():
     emit("cli", **cli_res, seconds=round(time.perf_counter() - t_cli, 1),
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
+    t_phase = time.perf_counter()
+    host_res, host_launches = host_io_phase(ff, coords, meta_full, cli_res)
+    emit("host_io", **host_res, launches_by_path=host_launches,
+         seconds=round(time.perf_counter() - t_phase, 1),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
     bench_record, bench_launches, bench_s = bench_phase()
     emit("bench", record=bench_record, campaign_kernel_launches=bench_launches,
          seconds=round(bench_s, 1), device=torch.cuda.get_device_name(0), nvidia_smi=smi,
@@ -4046,6 +4330,9 @@ def main():
         f"cli simulate example:full GBIS_CONFIG {N_REPLICAS} x {N_STEPS}":
             cli_res["gbis"]["campaign_kernel_launches"],
     }
+    host_vacuum, host_gbis, host_cmap = host_launches
+    kernels["campaign_advance"]["launches_by_path"][host_vacuum] = host_launches[host_vacuum]
+    kernels["campaign_advance[gbis]"]["launches_by_path"][host_gbis] = host_launches[host_gbis]
     for name in ("nonbonded_rows", "pair_tiles"):
         kernels[name]["launches_by_path"] = {
             f"tiers, {TIER_STEPS} steps at each size": kernels[name]["launches"],
@@ -4070,6 +4357,8 @@ def main():
         by_path[dyn_path] = dyn_total["campaign_advance" if counter is None else counter]
         by_path[seq_path] = seq_total["campaign_advance" if counter is None else counter]
         by_path[gen_path] = gen_total["campaign_advance" if counter is None else counter]
+        by_path[host_cmap] = host_launches[host_cmap]["campaign_advance" if counter is None
+                                                       else counter]
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

@@ -6,17 +6,20 @@ dataclasses of tensors, plain functions on ``(..., N, 3)`` tensors, an
 explicit ``device``/``dtype``, and hand-written CUDA kernels (``csrc/``,
 bound in ``ops/``) where the reference used Pallas.
 
-Ported so far: the replica SMD campaign path, the composed, differentiable
-force path, and the command line with the host I/O it needs:
+Ported: every module of the JAX package but its multi-device sharding:
 
 - ``units``, ``topology`` (``Topology``), ``build`` (angles and dihedrals
-  from bonds), ``io`` (PSF, PDB, XYZ, DCD), ``ff`` (``FFParams``,
-  ``YamlForceField``, ``build_ff_params``, ``finalize_ff_params``,
-  ``tile_ff_params``), ``solvent``, ``examples`` (the generated 40-atom
+  from bonds), ``io`` (PSF, PDB, XYZ, DCD, AMBER prmtop plain and chamber,
+  CHARMM ``.prm`` with CMAP, GROMACS xtc, mol2, sdf, NAMD xsc, and
+  ``io.native``: the C++ DCD / xtc / ``.mdxtc`` codecs and the
+  asynchronous trajectory sink), ``ff`` (``FFParams``, ``YamlForceField``,
+  ``build_ff_params``, ``finalize_ff_params``, ``tile_ff_params``,
+  ``attach_cmap_params``), ``solvent``, ``examples`` (the generated 40-atom
   deca-alanine backbone, the packaged 104-atom deca-alanine and 22-atom
   di-alanine, ``tiled_decaalanine``)
 - ``energy`` (bonded terms, 1-4, switched LJ, reaction-field Coulomb,
-  Urey-Bradley, GB, SASA; forces through ``torch.autograd``)
+  Urey-Bradley, CHARMM CMAP, the repulsion variants, GB, SASA; forces
+  through ``torch.autograd``)
 - ``system``, ``bias``, ``integrate`` (with the FIRE, L-BFGS and
   steepest-descent minimisers), ``constraints``, ``sim``
 - ``ops``: ``make_nonbonded_op`` and ``make_pair_ring_op`` (differentiable
@@ -26,18 +29,16 @@ force path, and the command line with the host I/O it needs:
 - ``config``, ``log`` and ``cli`` (``python -m
   molecular_dynamics_tpu_torch.cli simulate | energy | train | convert |
   bench``)
-- ``features``, ``evaluate``, ``models`` (the flagship cGAN and the
-  Hamiltonian dynamics line: HNN, SchNet, the latent HNN, the ODE solvers)
-  and ``train`` (losses, datasets, checkpoints, updates, rollout correctors
-  and drivers: ``train pretrain | cgan | hnn | hnn-schnet | hnn-latent |
-  node``); ``regenerate_smd``, the SMD training-data campaign;
+- ``features``, ``evaluate``, ``models`` (the flagship cGAN, the
+  Hamiltonian dynamics line, the sequence and graph line, the generative
+  line) and ``train`` (losses, datasets, checkpoints, updates, rollout
+  correctors and the drivers of all 18 ``cli train`` families);
+  ``regenerate_smd``, the SMD training-data campaign;
   ``utils.write_vmd_loader``
 - ``convert`` — numpy arrays into the port's objects
 
-Not ported yet (ROADMAP.md §A): prmtop/chamber, CHARMM ``.prm`` with CMAP,
-xtc, mol2, sdf, xsc, the native codec, the CMAP and repulsion terms, the
-sequence, graph and generative model families and their training, and
-sharding over several devices.
+Not ported yet (ROADMAP.md §A): sharding over several devices
+(``parallel``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``--device cpu`` on the command line).

@@ -10,13 +10,15 @@ seq2seq-graph | flow | vae | aae | sde`` (every family of the JAX package)
 trains the flagship generator, a Hamiltonian dynamics model, a sequence or
 graph model or a generative model and leaves its log, best checkpoint,
 generated structures and ``eval.json``; ``convert``
-turns trajectories into ``.npy`` or PDB; ``bench`` runs ``bench_torch.py``.
+turns ``.dcd``, ``.xyz``, ``.xtc``, ``.mdxtc`` or ``.npy`` trajectories into
+``.npy`` or PDB; ``bench`` runs ``bench_torch.py``. A topology is one of
+the packaged examples, a PSF with a YAML force field, or an AMBER
+``.prmtop`` (plain or chamber).
 One option more, ``--device`` (default ``cuda``): the commands run on the
 card unless the caller asks for the CPU.
 
-Not ported yet, and raising with the ROADMAP item that brings them:
-``--devices`` above 1 (A14),
-``.prmtop`` topologies and ``.xtc`` / ``.mdxtc`` trajectories (A8).
+Not ported yet, and raising with the ROADMAP item that brings it:
+``--devices`` above 1 (A14).
 """
 
 from __future__ import annotations
@@ -26,11 +28,6 @@ import json
 import os
 import sys
 import time
-
-_PRMTOP_MSG = (
-    "prmtop topologies (with chamber) are not ported yet "
-    "(ROADMAP A8: prmtop/chamber)"
-)
 
 
 def _device(name: str):
@@ -95,7 +92,11 @@ def _load_system(topology: str, parameters: str, coordinates: str = "",
         top = _meta_topology(ff, meta)
         names = meta["atom_names"]
     elif topology.endswith(".prmtop"):
-        raise NotImplementedError(_PRMTOP_MSG)
+        from molecular_dynamics_tpu_torch.io import prmtop_to_ff_params, read_prmtop
+
+        ff = prmtop_to_ff_params(topology, dtype=dtype, device=device)
+        top, _ = read_prmtop(topology)
+        coords, names = top.coords, np.asarray(top.atom_names)
     else:
         from molecular_dynamics_tpu_torch.io import read_psf
 
@@ -287,23 +288,24 @@ def cmd_train(args) -> int:
 
 
 def cmd_convert(args) -> int:
-    """Trajectory conversion: dcd/xyz/npy -> npy or PDB, with an optional
-    backbone selection and Kabsch alignment to the first frame."""
+    """Trajectory conversion: dcd/xtc/mdxtc/xyz/npy -> npy or PDB, with an
+    optional backbone selection and Kabsch alignment to the first frame."""
     import numpy as np
 
     from molecular_dynamics_tpu_torch.io import read_dcd, read_psf, read_xyz
 
-    if args.input.endswith((".xtc", ".mdxtc")):
-        raise NotImplementedError(
-            f"{args.input}: xtc trajectories and the native codec are not ported "
-            "yet (ROADMAP A8: xtc, the native codec)"
-        )
-    if args.topology and args.topology.endswith(".prmtop"):
-        raise NotImplementedError(_PRMTOP_MSG)
     if args.input.endswith(".dcd"):
         frames, _ = read_dcd(args.input)
     elif args.input.endswith(".xyz"):
         frames = read_xyz(args.input)
+    elif args.input.endswith(".xtc"):
+        from molecular_dynamics_tpu_torch.io import read_xtc
+
+        frames = read_xtc(args.input)
+    elif args.input.endswith(".mdxtc"):
+        from molecular_dynamics_tpu_torch.io import native
+
+        frames = native.mdxtc_read(args.input)
     else:
         frames = np.load(args.input)
 

@@ -16,11 +16,9 @@ Periodic boundaries use minimum-image wrapping over a rectangular box; pass
 
 The implicit-solvent terms ``gb`` (GB-OBC II) and ``sasa`` (LCPO) come from
 ``solvent`` and need the GB tables on the ``FFParams``
-(``solvent.attach_gb_params``).
-
-Not ported yet: ``cmap`` (with the CHARMM parameter reader, ROADMAP A8) and
-the ``repulsion``/``repulsioncg`` variants (ROADMAP A8). Asking for one
-raises ``NotImplementedError``.
+(``solvent.attach_gb_params``); the CHARMM ``cmap`` cross-term needs the
+CMAP tables (``ff.params.attach_cmap_params``). ``repulsion`` and
+``repulsioncg`` are the two halves of the 12-6 pair term on their own.
 """
 
 from __future__ import annotations
@@ -50,15 +48,6 @@ DEFAULT_TERMS = (
     "1-4",
     "impropers",
 )
-
-#: terms the configs may name but this port does not evaluate yet, with the
-#: slice that brings each
-_DEFERRED_TERMS = {
-    "cmap": "the CHARMM parameter reader with CMAP (ROADMAP A8)",
-    "repulsion": "the CG repulsion variants (ROADMAP A8)",
-    "repulsioncg": "the CG repulsion variants (ROADMAP A8)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class EnergyConfig:
@@ -192,6 +181,35 @@ def _urey_bradley_energy(pos, ff: FFParams, box) -> Tensor:
     return _harmonic_pair_energy(pos, ff.ub_bonds, ff.ub_params, box)
 
 
+def _cmap_energy(pos, ff: FFParams, box) -> Tensor:
+    """CHARMM CMAP phi/psi cross-term correction (kcal/mol).
+
+    Bicubic interpolation on the periodic correction grids (the
+    CHARMM31+/NAMD scheme; the per-cell coefficients come from
+    ``ff.params.bicubic_coefficients``). ``floor`` and ``remainder`` wrap a
+    negative or exactly-``G`` grid coordinate onto the grid; forces come
+    from autograd through the polynomial.
+    """
+    idx = ff.cmap_idx  # (C, 8)
+    phi = dihedral_angles(pos, idx[:, :4], box)
+    psi = dihedral_angles(pos, idx[:, 4:], box)
+    g = ff.cmap_coeffs.shape[1]
+    h = 2.0 * math.pi / g
+    x = (phi + math.pi) / h  # grid coordinates in [0, G]
+    y = (psi + math.pi) / h
+    ix = torch.floor(x)
+    iy = torch.floor(y)
+    t = x - ix
+    u = y - iy
+    ii = torch.remainder(ix.long(), g)
+    jj = torch.remainder(iy.long(), g)
+    coeff = ff.cmap_coeffs[ff.cmap_grid_id, ii, jj].to(pos.dtype)  # (..., C, 4, 4)
+    one = torch.ones_like(t)
+    tv = torch.stack([one, t, t * t, t * t * t], dim=-1)
+    uv = torch.stack([one, u, u * u, u * u * u], dim=-1)
+    return torch.einsum("...cmn,...cm,...cn->...", coeff, tv, uv)
+
+
 def _angle_energy(pos, ff: FFParams, box) -> Tensor:
     a = ff.angles
     pbox = _pair_box(box, pos)
@@ -283,6 +301,13 @@ def _nonbonded_energies(pos, ff: FFParams, box, cfg: EnergyConfig) -> Dict[str, 
             sw = 1.0 + t * t * t * (-10.0 + t * (15.0 - t * 6.0))
             pot = torch.where(safe_d > cfg.switch_dist, pot * sw, pot)
         out["lj"] = torch.sum(torch.where(mask, pot, zero), dim=(-2, -1))
+
+    if "repulsion" in cfg.terms:
+        out["repulsion"] = torch.sum(
+            torch.where(mask, ff.lj_a_pair * inv12, zero), dim=(-2, -1))
+    if "repulsioncg" in cfg.terms:
+        out["repulsioncg"] = torch.sum(
+            torch.where(mask, ff.lj_b_pair * inv6, zero), dim=(-2, -1))
     return out
 
 
@@ -317,12 +342,6 @@ def energy_terms(
     external potential/bias is attached.
     """
     cfg = config
-    for t in cfg.terms:
-        if t in _DEFERRED_TERMS:
-            raise NotImplementedError(
-                f"energy term {t!r} is not ported yet: it comes with "
-                f"{_DEFERRED_TERMS[t]}"
-            )
     zero = torch.zeros(pos.shape[:-2], dtype=pos.dtype, device=pos.device)
     out: Dict[str, Tensor] = {t: zero for t in cfg.terms}
 
@@ -353,6 +372,15 @@ def energy_terms(
 
     if resolve_urey_bradley(cfg, ff):
         out["urey_bradley"] = _urey_bradley_energy(pos, ff, box)
+
+    if "cmap" in cfg.terms:
+        if not ff.has_cmap:
+            raise ValueError(
+                "cmap term requested but the FFParams carry no CMAP tables: "
+                "build from a PSF + CHARMM .prm with a CMAP section "
+                "(ff.params.attach_cmap_params)"
+            )
+        out["cmap"] = _cmap_energy(pos, ff, box)
 
     if "gb" in cfg.terms or "sasa" in cfg.terms:
         from molecular_dynamics_tpu_torch import solvent

@@ -25,7 +25,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from molecular_dynamics_tpu_torch.ff.params import FFParams, finalize_ff_params
+from molecular_dynamics_tpu_torch.ff.params import (
+    FFParams,
+    attach_cmap_params,
+    finalize_ff_params,
+)
 from molecular_dynamics_tpu_torch.solvent import attach_gb_params, infer_elements
 from molecular_dynamics_tpu_torch.topology import Topology
 
@@ -64,9 +68,11 @@ def build_ff_params(
     ``urey_bradley=True`` (default) builds 1-3 UB springs when the force
     field exposes ``get_urey_bradley``; YAML force fields carry none.
 
-    A parameter source that carries CMAP grids raises
-    ``NotImplementedError``: the CMAP term is not ported yet, and dropping
-    it silently would change the energy.
+    A parameter source that carries CMAP grids (``CharmmPrm`` with a CMAP
+    section) attaches the CMAP tables: the cross-terms are the topology's
+    PSF ``!NCRTERM`` rows when it has them, else the protein phi/psi pairs
+    ``_backbone_cross_terms`` derives from the backbone atom names. They
+    are inert until the "cmap" energy term is enabled.
 
     ``dtype`` (default float32) and ``device`` (``None``: the CUDA device)
     place the tensors; the GB/SASA per-atom tables ride along
@@ -74,11 +80,6 @@ def build_ff_params(
     """
     if dtype is None:
         dtype = torch.float32
-    if hasattr(ff, "get_cmap") and getattr(ff, "cmaps", None):
-        raise NotImplementedError(
-            "build_ff_params: this parameter source carries CMAP grids, and the "
-            "CMAP term is not ported yet (ROADMAP A8: charmm_prm with CMAP)"
-        )
     atom_types = np.asarray(top.atom_types, dtype=object)
     n = len(atom_types)
     uq_types, type_idx = np.unique(atom_types.astype(str), return_inverse=True)
@@ -161,6 +162,10 @@ def build_ff_params(
             ub_bonds = np.array(ub_rows, np.int64)
             ub_params = np.array(ub_pars, np.float64)
 
+    cmap = None
+    if hasattr(ff, "get_cmap") and getattr(ff, "cmaps", None):
+        cmap = _cmap_tables(top, ff, atom_types)
+
     params = finalize_ff_params(
         masses=masses,
         charges=charges,
@@ -184,4 +189,62 @@ def build_ff_params(
     )
     # GB/SASA tables ride along so implicit-solvent terms are available on
     # demand (inert until "gb"/"sasa" appear in EnergyConfig.terms)
-    return attach_gb_params(params, elements=infer_elements(masses, top.atom_names))
+    params = attach_gb_params(params, elements=infer_elements(masses, top.atom_names))
+    if cmap is not None:
+        params = attach_cmap_params(params, *cmap, dtype=dtype)
+    return params
+
+
+def _cmap_tables(top: Topology, ff, atom_types: np.ndarray):
+    """(cross-term rows, grids, grid id per row) of the rows a CMAP grid of
+    ``ff`` covers, or None where it covers none. The rows are the PSF
+    ``!NCRTERM`` section when the topology has one, else
+    ``_backbone_cross_terms``; one grid object is stored once."""
+    rows = np.asarray(getattr(top, "cross_terms", np.zeros((0, 8))))
+    if not len(rows):
+        rows = _backbone_cross_terms(top)
+    kept, gids, grids, seen = [], [], [], {}
+    for r in np.asarray(rows, np.int64).reshape(-1, 8):
+        grid = ff.get_cmap(tuple(atom_types[r].astype(str)))
+        if grid is None:
+            continue
+        if id(grid) not in seen:
+            seen[id(grid)] = len(grids)
+            grids.append(np.asarray(grid))
+        kept.append(r)
+        gids.append(seen[id(grid)])
+    if not kept:
+        return None
+    return np.asarray(kept, np.int64), grids, np.asarray(gids, np.int64)
+
+
+def _backbone_cross_terms(top: Topology) -> np.ndarray:
+    """Standard protein CMAP cross-terms (C-,N,CA,C,N,CA,C,N+) per interior
+    residue, derived from backbone atom names: the pairing CHARMM's
+    topology generation writes into !NCRTERM for protein segments.
+
+    Residues are keyed by (segment, res_id): PSF res_ids restart per
+    segment, so same-numbered residues in different chains must not
+    collapse into one entry, and phi/psi are never linked across a chain
+    break. Only numerically consecutive res_ids within one segment are
+    paired."""
+    seg_ids = top.seg_ids
+    if seg_ids is None:
+        seg_ids = np.zeros(top.n_atoms, np.int64)
+    by_res = {}
+    for i, (s, r, nm) in enumerate(zip(seg_ids, top.res_ids, top.atom_names)):
+        by_res.setdefault((str(s), int(r)), {})[str(nm)] = i
+    rows = []
+    for (seg, rid), cur in sorted(by_res.items()):
+        prev = by_res.get((seg, rid - 1))
+        nxt = by_res.get((seg, rid + 1))
+        if (
+            prev is not None
+            and nxt is not None
+            and "C" in prev
+            and all(n in cur for n in ("N", "CA", "C"))
+            and "N" in nxt
+        ):
+            rows.append((prev["C"], cur["N"], cur["CA"], cur["C"],
+                         cur["N"], cur["CA"], cur["C"], nxt["N"]))
+    return np.asarray(rows, np.int64).reshape(-1, 8)

@@ -126,6 +126,65 @@ def _pad_terms(term_lists: Sequence[Sequence[Sequence[float]]], dtype):
     return params, mask
 
 
+def bicubic_coefficients(grid: np.ndarray) -> np.ndarray:
+    """Per-cell bicubic coefficients for a periodic 2D grid, (G, G, 4, 4).
+
+    The CHARMM/NAMD CMAP evaluation scheme: grid-point derivatives by
+    centered finite differences on the periodic grid, then the standard
+    bicubic coefficient solve per cell, so the surface is C1-continuous and
+    interpolates the node values exactly. Cell-local coordinates t, u in
+    [0, 1); E(t, u) = sum_mn A[m, n] t^m u^n.
+    """
+    f = np.asarray(grid, np.float64)
+
+    def shift(a, di, dj):
+        return np.roll(np.roll(a, -di, 0), -dj, 1)
+
+    fx = (shift(f, 1, 0) - shift(f, -1, 0)) / 2.0
+    fy = (shift(f, 0, 1) - shift(f, 0, -1)) / 2.0
+    fxy = (shift(f, 1, 1) - shift(f, 1, -1) - shift(f, -1, 1) + shift(f, -1, -1)) / 4.0
+
+    def corners(a):
+        return a, shift(a, 1, 0), shift(a, 0, 1), shift(a, 1, 1)
+
+    f00, f10, f01, f11 = corners(f)
+    fx00, fx10, fx01, fx11 = corners(fx)
+    fy00, fy10, fy01, fy11 = corners(fy)
+    fxy00, fxy10, fxy01, fxy11 = corners(fxy)
+    fmat = np.stack(
+        [
+            np.stack([f00, f01, fy00, fy01], -1),
+            np.stack([f10, f11, fy10, fy11], -1),
+            np.stack([fx00, fx01, fxy00, fxy01], -1),
+            np.stack([fx10, fx11, fxy10, fxy11], -1),
+        ],
+        -2,
+    )  # (G, G, 4, 4)
+    b = np.array(
+        [[1, 0, 0, 0], [0, 0, 1, 0], [-3, 3, -2, -1], [2, -2, 1, 1]], np.float64
+    )
+    return np.einsum("mp,ijpq,nq->ijmn", b, fmat, b)
+
+
+def attach_cmap_params(
+    params: FFParams, cmap_idx: np.ndarray, grids: Sequence[np.ndarray],
+    grid_id: np.ndarray, dtype=None,
+) -> FFParams:
+    """Return a copy of ``params`` carrying CMAP tables on its device
+    (inert until the "cmap" energy term is enabled). ``dtype`` defaults to
+    the float type of ``params``."""
+    if dtype is None:
+        dtype = params.masses.dtype
+    coeffs = np.stack([bicubic_coefficients(g) for g in grids])
+    device = params.device
+    return dataclasses.replace(
+        params,
+        cmap_idx=torch.as_tensor(np.asarray(cmap_idx, np.int64).reshape(-1, 8), device=device),
+        cmap_grid_id=torch.as_tensor(np.asarray(grid_id, np.int64).reshape(-1), device=device),
+        cmap_coeffs=torch.as_tensor(coeffs, device=device).to(dtype),
+    )
+
+
 def _exclusion_mask(
     n_atoms: int,
     bonds: np.ndarray,
@@ -245,14 +304,9 @@ def tile_ff_params(ff: FFParams, m: int) -> FFParams:
     atoms), and the exclusion mask excludes nothing between copies. The
     GB/SASA per-atom tables tile alongside. With copies placed far apart
     the composite energy is ``m`` times the single copy's, an exact oracle
-    at ``m``-fold atom count. CMAP is not ported: a force field that
-    carries it raises.
+    at ``m``-fold atom count. CMAP tables tile too: the cross-term rows
+    offset per copy, their grid ids repeated, the coefficients shared.
     """
-    if ff.has_cmap:
-        raise NotImplementedError(
-            "tile_ff_params: CMAP tables are not ported yet; they come with "
-            "the CHARMM parameter reader (ROADMAP A8, CMAP)"
-        )
     if m < 1:
         raise ValueError(f"m must be >= 1, got {m}")
     n = ff.n_atoms
@@ -269,11 +323,14 @@ def tile_ff_params(ff: FFParams, m: int) -> FFParams:
     for k in range(m):
         nb[k * n : (k + 1) * n, k * n : (k + 1) * n] = ff.nb_mask
 
-    solvent = {
+    optional = {
         name: tile_rows(getattr(ff, name))
         for name in ("gb_radii", "gb_screen", "sasa_radii", "sasa_params")
         if getattr(ff, name) is not None
     }
+    if ff.cmap_idx is not None:
+        optional["cmap_idx"] = tile_idx(ff.cmap_idx)
+        optional["cmap_grid_id"] = tile_rows(ff.cmap_grid_id)
     return dataclasses.replace(
         ff,
         masses=tile_rows(ff.masses),
@@ -296,5 +353,5 @@ def tile_ff_params(ff: FFParams, m: int) -> FFParams:
         nb_mask=nb,
         ub_bonds=tile_idx(ff.ub_bonds),
         ub_params=tile_rows(ff.ub_params),
-        **solvent,
+        **optional,
     )

@@ -24,7 +24,12 @@ from molecular_dynamics_tpu_torch import build as tbuild
 from molecular_dynamics_tpu_torch import examples as texamples
 from molecular_dynamics_tpu_torch import ff as tff
 from molecular_dynamics_tpu_torch import io as tio
-from molecular_dynamics_tpu_torch.energy import REFERENCE_CONFIG, energy_terms, force_fn
+from molecular_dynamics_tpu_torch.energy import (
+    REFERENCE_CONFIG,
+    EnergyConfig,
+    energy_terms,
+    force_fn,
+)
 
 from test_golden import GOLD_ENERGIES, GOLD_FORCES
 
@@ -122,18 +127,30 @@ def test_yaml_lookups_match_jax():
 
 
 def test_cmap_source_raises():
-    """A parameter source with CMAP grids raises instead of dropping the
-    term silently."""
-    top, _ = texamples.decaalanine_backbone()
+    """A parameter source with CMAP grids attaches CMAP tables (on the rows
+    derived from the backbone names) instead of dropping the term; an
+    unknown ``charges_from`` still raises."""
+    top, coords = texamples.decaalanine_backbone()
+    grid = np.cos(np.linspace(-np.pi, np.pi, 24, endpoint=False))[:, None] * np.ones(24)
 
-    class WithCmap(tff.YamlForceField):
-        cmaps = {"grid": np.zeros((24, 24))}
+    def with_cmap(base):
+        class WithCmap(base):
+            cmaps = {"grid": grid}
 
-        def get_cmap(self, types):
-            return self.cmaps["grid"]
+            def get_cmap(self, types):
+                return self.cmaps["grid"]
+        return WithCmap(texamples.BACKBONE_FF_PRM)
 
-    with pytest.raises(NotImplementedError, match="CMAP"):
-        tff.build_ff_params(top, WithCmap(texamples.BACKBONE_FF_PRM), device="cpu")
+    ff = tff.build_ff_params(top, with_cmap(tff.YamlForceField), device="cpu",
+                             dtype=torch.float64)
+    jtop, _ = jexamples.decaalanine_backbone()
+    want = jff.build_ff_params(jtop, with_cmap(jff.YamlForceField), dtype=jnp.float64)
+    assert ff.has_cmap and ff.cmap_idx.shape == (8, 8) and ff.cmap_coeffs.shape == (1, 24, 24, 4, 4)
+    for k in ("cmap_idx", "cmap_grid_id", "cmap_coeffs"):
+        assert np.array_equal(getattr(ff, k).numpy(), np.asarray(getattr(want, k))), k
+    e = energy_terms(torch.as_tensor(coords, dtype=torch.float64), ff,
+                     config=EnergyConfig(terms=("cmap",)))["cmap"]
+    assert np.isfinite(float(e)) and float(e) != 0.0
     with pytest.raises(ValueError, match="charges_from"):
         tff.build_ff_params(top, tff.YamlForceField(texamples.BACKBONE_FF_PRM),
                             charges_from="psf", device="cpu")

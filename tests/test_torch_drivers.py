@@ -150,11 +150,12 @@ def _jax_cgan_run(data_glob, out_dir):
 
     rec = {"z": [], "losses": []}
     make_pretrain, make_trainer = jcgan.make_pretrain_step, jcgan.make_cgan_trainer
+    normal = jax.jit(jax.random.normal, static_argnums=1)
 
     def recorded(step, phase, loss_at):
         def run(*args):
             key, t = args[loss_at[0]], args[loss_at[1]]
-            rec["z"].append(np.asarray(jax.random.normal(key, (t.shape[0], 31))))
+            rec["z"].append(np.asarray(normal(key, (t.shape[0], 31))))
             out = step(*args)
             rec["losses"].append((phase, float(out[2])))
             return out
@@ -168,7 +169,7 @@ def _jax_cgan_run(data_glob, out_dir):
         init_fn, opts, g_step, d_step, i_step = make_trainer(*args, **kw)
 
         def init(key):
-            rec["init"] = init_fn(key)
+            rec["init"] = jax.jit(init_fn)(key)
             return rec["init"]
 
         return (init, opts, recorded(g_step, "g", (3, 4)), recorded(d_step, "d", (3, 5)),
@@ -303,8 +304,14 @@ def smd_runs(tmp_path_factory):
     script = ROOT / "scripts" / "regenerate_smd.py"
 
     def run_jax():
+        import molecular_dynamics_tpu.integrate as jintegrate
+
+        init_forces = jintegrate.initialize_forces
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(sys, "argv", [str(script), *SMD_ARGS, "--out", str(root / "jax")])
+            # the script's seed forces, jitted (op by op they take seconds)
+            mp.setattr(jintegrate, "initialize_forces",
+                       lambda state, force_fn: init_forces(state, jax.jit(force_fn)))
             runpy.run_path(str(script), run_name="__main__")
 
     def run_torch():

@@ -137,9 +137,12 @@ def test_wrap_displacement_matches_jax():
 
 @pytest.mark.parametrize("term", ["gb", "sasa", "cmap", "repulsion", "repulsioncg"])
 def test_deferred_terms_raise_by_name(term):
-    """A term the port does not evaluate yet raises by name; ``gb`` and
-    ``sasa`` are evaluated now, and raise by name only where the force field
-    carries no GB tables."""
+    """Every term the configs may name evaluates. ``gb`` and ``sasa`` raise
+    by name only where the force field carries no GB tables, ``cmap`` (JAX's
+    ValueError) only where it carries no CMAP tables; ``repulsion`` and
+    ``repulsioncg`` need no table beyond the LJ pairs."""
+    from molecular_dynamics_tpu_torch.ff.params import attach_cmap_params
+
     tff, coords = torch_system("diala")
     terms = ("dihedrals", term)
     if term in ("gb", "sasa"):
@@ -148,11 +151,14 @@ def test_deferred_terms_raise_by_name(term):
         )
         with pytest.raises(ValueError, match="(?i)" + term):
             tenergy.energy_terms(t(coords), bare, config=tenergy.EnergyConfig(terms=terms))
-        out = tenergy.energy_terms(t(coords), tff, config=tenergy.EnergyConfig(terms=terms))
-        assert np.isfinite(float(out[term])) and float(out[term]) != 0.0
-        return
-    with pytest.raises(NotImplementedError, match=term):
-        tenergy.energy_terms(t(coords), tff, config=tenergy.EnergyConfig(terms=terms))
+    elif term == "cmap":
+        with pytest.raises(ValueError, match="(?i)" + term):
+            tenergy.energy_terms(t(coords), tff, config=tenergy.EnergyConfig(terms=terms))
+        grid = np.cos(np.linspace(-np.pi, np.pi, 24, endpoint=False))[:, None] * np.ones(24)
+        rows = tff.dihedrals[:2].reshape(1, 8).numpy()
+        tff = attach_cmap_params(tff, rows, [grid], np.zeros(1, np.int64))
+    out = tenergy.energy_terms(t(coords), tff, config=tenergy.EnergyConfig(terms=terms))
+    assert np.isfinite(float(out[term])) and float(out[term]) != 0.0
 
 
 def test_config_validation_matches_jax():

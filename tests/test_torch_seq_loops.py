@@ -88,8 +88,11 @@ def _compare(family, data, tmp_path, monkeypatch, rows, epochs, batch, carried, 
 
 
 def _recording(init, inits, name):
+    """``init``, jitted (the same weights; op by op it takes seconds),
+    recording what it returns under ``name``."""
     def recorded(self, *args, **kw):
-        params = init(self, *args, **kw)
+        static = tuple(i for i, a in enumerate(args) if isinstance(a, int))
+        params = jax.jit(lambda *a: init(self, *a, **kw), static_argnums=static)(*args)
         inits[name] = tconvert.flax_params_to_state_dict(
             jax.tree.map(np.asarray, params), torch.float32)
         return params

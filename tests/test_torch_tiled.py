@@ -84,14 +84,21 @@ def test_tiled_energy_is_m_times_the_single_copy(config, m, spacing):
 
 
 def test_tile_ff_params_refuses_what_it_cannot_tile():
+    """CMAP tables tile as JAX tiles them (the rows offset per copy, the
+    grid ids repeated, the coefficients shared); ``m`` below 1 raises."""
+    from molecular_dynamics_tpu.ff.params import attach_cmap_params as jattach
+    from molecular_dynamics_tpu_torch.ff.params import attach_cmap_params
+
     tff, _ = torch_system("full_da")
-    cmap = dataclasses.replace(
-        tff, cmap_idx=torch.zeros((1, 5), dtype=torch.int64),
-        cmap_grid_id=torch.zeros(1, dtype=torch.int64),
-        cmap_coeffs=torch.zeros((1, 24, 24, 16), dtype=torch.float64),
-    )
-    with pytest.raises(NotImplementedError, match="CMAP"):
-        tile_ff_params(cmap, 2)
+    jff, _ = jax_system("full_da")
+    rows = np.array([[9, 11, 13, 19, 11, 13, 19, 21], [19, 21, 23, 29, 21, 23, 29, 31]])
+    grids = [np.outer(np.cos(np.arange(24) * np.pi / 12), np.ones(24)), np.eye(24)]
+    cmap = attach_cmap_params(tff, rows, grids, np.array([1, 0]))
+    got = tile_ff_params(cmap, 2)
+    want = jtile_ff_params(jattach(jff, rows, grids, np.array([1, 0])), 2)
+    for k in ("cmap_idx", "cmap_grid_id", "cmap_coeffs"):
+        assert np.array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k))), k
+    assert got.cmap_idx.tolist() == rows.tolist() + (rows + 104).tolist()
     with pytest.raises(ValueError, match="m must be"):
         tile_ff_params(tff, 0)
     assert tile_ff_params(tff, 1).nb_mask.equal(tff.nb_mask)
