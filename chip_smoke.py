@@ -83,7 +83,8 @@ Phases, one JSON line each on standard output:
    campaign kernel into a temporary directory: (a) ``example:full`` in
    vacuum (rigid X-H bonds, 2 fs), (b) the same under ``GBIS_CONFIG`` from a
    JSON config, (c) the generated 40-atom backbone at 1 fs. Each: 40 kernel
-   launches, the printed rate, the seconds outside ``simulate_ensemble``,
+   launches, the printed rate, the seconds outside ``simulate_ensemble``
+   (the start, ``cli.prepare_campaign``, timed inside the run, and the files),
    frames finite, T in 150-350 K, mean abs(colvar - centre) < 2 A, replicas
    apart, every file there with its shape and ``rep0.dcd`` read back equal
    to replica 0's frames. Then ``energy`` on ``example:full`` and on the
@@ -109,6 +110,21 @@ Phases, one JSON line each on standard output:
    to the file's bytes), replica 0's frames through the native xtc and
    mdxtc writers and ``convert`` within their quantisation, and through
    the asynchronous sink in both formats.
+   ``parallel``: several devices on the one card (its two gloo ranks start
+   with the script and wait for it). ``simulate_ensemble``
+   with a mesh of two shards on ``cuda:0`` on the 1024 x 2000 campaign in
+   vacuum and under ``GBIS_CONFIG``: at 0 K equal to the unsharded call
+   within 1e-6 A; at 300 K from the identical replicas of the main path,
+   the campaign's gates, replica j and 512 + j apart (the shards' noise
+   streams differ), 80 kernel launches a run (2 x 40), the rate beside
+   the unsharded call's. The data-parallel path (``parallel.data``) at
+   world size 1 (NCCL, in this process) and 2 (gloo, both ranks on
+   ``cuda:0``): one pretrain and one informed update of the 40-atom
+   generator at published widths, batch 32, against one process (loss,
+   the all-reduced gradient and the generator after it within 1e-5
+   relative), and ``run_training``'s rank body on a short pretrain run
+   whose files rank 0 writes once. ``cli simulate | train --devices N``
+   with N above the visible count raise, naming it.
    ``bench``: ``bench_torch.py``'s three protocols (vacuum, ``gbis``,
    ``gbis_sasa``; a warm-up and three timed calls each): its record with
    the median and the spread, and the campaign kernel's launches.
@@ -131,8 +147,8 @@ Phases, one JSON line each on standard output:
    it does.
    ``dynamics``: the Hamiltonian dynamics line on the same data: ``cli
    train node --epochs 8`` under the JAX package's live-quality ceiling
-   (mean_abs_error 1.10 A), ``hnn``, ``hnn-schnet`` and ``hnn-latent`` at 2
-   epochs under the 100 A sanity bound (eval.json finite, the generated
+   (mean_abs_error 1.10 A), ``hnn`` and ``hnn-latent`` at 2 epochs and
+   ``hnn-schnet`` at 1 under the 100 A sanity bound (eval.json finite, the generated
    rollouts finite); from the four runs' trained weights, every step kind
    (HNN and SchNet HNN L2, informed and 10-step unroll; node's RK4 step and
    10-frame chained-solver update; the latent HNN's update) on the card
@@ -209,6 +225,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -246,7 +263,7 @@ from molecular_dynamics_tpu_torch.examples import (
     tiled_decaalanine,
 )
 from molecular_dynamics_tpu_torch.ff import YamlForceField, build_ff_params
-from molecular_dynamics_tpu_torch.config import CampaignConfig, apply_overrides, load_config
+from molecular_dynamics_tpu_torch.config import CampaignConfig, apply_overrides
 from molecular_dynamics_tpu_torch.integrate import (
     initialize_forces,
     maxwell_boltzmann,
@@ -324,6 +341,10 @@ TRAIN_BATCH = 32
 #: driver test (tests/test_train.py: generated e2e within 100 A of the data)
 DYNAMICS_EPOCHS = 2
 DYNAMICS_SANITY_A = 100.0
+#: ``hnn-schnet``'s sanity run at one epoch: its (32, 40, 40, 64) filters,
+#: differentiated twice, took 48.8 s of a two-epoch run against 5.6 s at
+#: one (H100 80GB HBM3 at 700 W); the same gate
+SCHNET_EPOCHS = 1
 #: the sequence phase: ``lstm`` and ``lstm-gat`` at their live budgets
 #: above, the other six at DYNAMICS_EPOCHS under the sanity bound
 SEQUENCE_FAMILIES = ("lstm", "lstm-gat", "lstm-nll", "seq2seq", "seq2seq-gan", "transformer",
@@ -1835,8 +1856,8 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
     """One ``cli simulate`` campaign of N_REPLICAS x N_STEPS through the
     campaign kernel into a temporary directory: the kernel's launches, the
     printed rate, the seconds outside ``simulate_ensemble`` (loading, FIRE,
-    the files; the start timed again alone, so that the rest is the files),
-    and the gates on what it wrote. A replica whose logged T
+    the files; the start, ``cli.prepare_campaign``, timed inside the run, so
+    that the rest is the files), and the gates on what it wrote. A replica whose logged T
     passes COLLAPSE_T_K at some save has collapsed: at most
     ``collapse_share`` of them may, and the ensemble gates hold over the
     others. Returns the result and replica 0's frames."""
@@ -1847,7 +1868,20 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
         argv = ["simulate", *(["--config", config] if config else [])]
         for ov in (*campaign_overrides(overrides), f"out_dir={out}"):
             argv += ["-o", ov]
-        wall, lines = run_cli(argv)
+        prepare = cli.prepare_campaign
+        prepare_s = []
+
+        def timed_prepare(*args, **kwargs):
+            t0 = time.perf_counter()
+            start = prepare(*args, **kwargs)
+            torch.cuda.synchronize()
+            prepare_s.append(time.perf_counter() - t0)
+            return start
+
+        with patched([(cli, "prepare_campaign", timed_prepare)]):
+            wall, lines = run_cli(argv)
+        check(len(prepare_s) == 1, f"cli simulate ran prepare_campaign {len(prepare_s)} times")
+        prepare_s = prepare_s[0]
         launches = fused_step.campaign_advance.launches
         line = json.loads(lines[-1])
         tag = f"cli simulate {' '.join(overrides)}"
@@ -1886,14 +1920,8 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
     check(lag < 2.0, f"{tag}: mean |colvar - centre| {lag} A")
     check(spread > 1e-3, f"{tag}: neighbouring replicas coincide ({spread})")
     simulate_s = line["replicas"] * line["steps"] / line["steps_per_sec"]
-    # what the seconds outside simulate_ensemble hold: the start again (load,
-    # FIRE, bias, velocities, forces, replicas), the rest is the files
-    cfg = apply_overrides(load_config(config) if config else CampaignConfig(),
-                          campaign_overrides(overrides))
-    t0 = time.perf_counter()
-    cli.prepare_campaign(cfg, torch.device("cuda"))
-    torch.cuda.synchronize()
-    prepare_s = time.perf_counter() - t0
+    # what the seconds outside simulate_ensemble hold: the start (load, FIRE,
+    # bias, velocities, forces, replicas), the rest is the files
     return {
         "atoms": n_atoms, "frames": line["frames"], "campaign_kernel_launches": launches,
         "steps_per_sec": line["steps_per_sec"], "wall_seconds": wall,
@@ -2258,6 +2286,305 @@ def host_io_phase(ff, coords, meta, cli_res):
             res["cmap"]["simulate_no_flag"]["launches"],
     }
     return res, launches
+
+
+# -- several devices: sharded campaigns and data-parallel training --------------
+
+
+#: the parallel phase's data-parallel run: pretrain, 1 epoch of the in-repo
+#: data at this stride (16 updates of batch 32, one logged row)
+DP_STRIDE = 10
+TOL_DP = 1e-5            # relative, float32: data-parallel against one process
+DP_RATE_UPDATES = 10     # timed pretrain updates of batch 32, after the checked one
+TOL_SHARDED_A = 1e-6     # A: the sharded campaign against the unsharded one at 0 K
+
+
+def sharded_campaign(ff, ens, cfg, bias, cons, mesh, tag):
+    """``simulate_ensemble(mesh=)`` on a 1024 x 2000 campaign over ``mesh``
+    (two shards on one card): at 0 K against the unsharded call; at 300 K
+    from the identical replicas of ``ens``, the campaign gates, the two
+    shards' streams apart, and the rate beside the unsharded call's at 300 K
+    in this phase. Returns the result and every kernel's launches by run."""
+    n_saves = N_STEPS // N_INNER
+    launches, runs = {}, {}
+    cold = dataclasses.replace(cfg, temperature=0.0)
+    for label, kw, conf in (("unsharded_0K", {}, cold), ("sharded_0K", {"mesh": mesh}, cold),
+                            ("sharded_300K", {"mesh": mesh}, cfg), ("unsharded_300K", {}, cfg)):
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[label] = simulate_ensemble(ens, ff, n_steps=N_STEPS, save_every=N_INNER,
+                                        config=conf, bias=bias, **kw)
+        torch.cuda.synchronize()
+        runs[label] += (time.perf_counter() - t0,)
+        launches[label] = read_launches()
+        want = n_saves * (mesh.size if kw else 1)
+        check(launches[label]["campaign_advance"] == want,
+              f"{tag} {label}: kernels launched {launches[label]}, expected {want} campaign "
+              "launches")
+    final, frames, log, seconds = runs["sharded_300K"]
+    err_0k = max_err(runs["sharded_0K"][1], runs["unsharded_0K"][1])
+    check(err_0k <= TOL_SHARDED_A, f"{tag}: sharded vs unsharded at 0 K, {err_0k} A")
+    check(tuple(frames.shape) == (n_saves, N_REPLICAS, ff.n_atoms, 3),
+          f"{tag}: frames {tuple(frames.shape)}")
+    check(bool(torch.isfinite(frames).all()), f"{tag}: non-finite frames")
+    last = frames[-1]
+    bond = torch.linalg.norm(last[:, cons.pairs[:, 0]] - last[:, cons.pairs[:, 1]], dim=-1)
+    violation = float((bond - cons.lengths[None]).abs().max())
+    check(violation < 1e-5, f"{tag}: max X-H constraint violation {violation} A")
+    t_mean = float(log["T"][-1].mean())
+    check(150.0 < t_mean < 350.0, f"{tag}: ensemble-mean T of the last save {t_mean} K")
+    lag = float((log["colvar_value"][-1] - log["colvar_center"][-1]).abs().mean())
+    check(lag < 2.0, f"{tag}: mean |colvar - centre| {lag} A")
+    half = N_REPLICAS // mesh.size
+    apart = float((last[:half] - last[half:2 * half]).abs().amax(dim=(1, 2)).min())
+    check(apart > 1e-3, f"{tag}: replica j and {half} + j coincide ({apart} A): "
+                        "the shards replayed one noise stream")
+    check(int(final.step[0]) == N_STEPS and str(frames.device) == str(mesh.devices[0]),
+          f"{tag}: final step {int(final.step[0])}, frames on {frames.device}")
+    rate = N_STEPS * N_REPLICAS / seconds
+    rate_1 = N_STEPS * N_REPLICAS / runs["unsharded_300K"][3]
+    return {"shards": mesh.size, "sharded_vs_unsharded_0K_A": err_0k,
+            "max_constraint_violation_A": violation, "T_last_mean_K": t_mean,
+            "colvar_lag_A": lag, "min_shard_pair_apart_A": apart,
+            "sharded_call_seconds": seconds, "aggregate_steps_per_s": rate,
+            "unsharded_call_seconds": runs["unsharded_300K"][3],
+            "unsharded_aggregate_steps_per_s": rate_1,
+            "campaign_kernel_launches": launches}, launches
+
+
+def dp_inputs():
+    """What every process of the data-parallel checks starts from, made the
+    same in each: the in-repo 40-atom data, one batch of 32 (frames, times,
+    latents) and a seeded generator at published widths whose output layer
+    is anchored at a data frame (so that the informed loss sits at its
+    physical scale; a random generator's structures collapse)."""
+    from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData, frame_time_batches
+
+    traj = TrajectoryData.from_npy_glob(str(TRAIN_DATA / "raw-traj_rep-*.npy"))
+    frames, times = next(frame_time_batches(traj, TRAIN_BATCH, np.random.default_rng(0)))
+    z = np.random.default_rng(1).standard_normal((TRAIN_BATCH, 31))
+    gen = Generator(40, generator=torch.Generator().manual_seed(0), device="cpu")
+    weights = gen.state_dict()
+    last = len(gen.layers) - 1
+    weights[f"layers.{last}.weight"] = 0.01 * weights[f"layers.{last}.weight"]
+    weights[f"layers.{last}.bias"] = torch.as_tensor(
+        traj.trajectories[0][0].reshape(-1), dtype=torch.float32)
+    return traj, (z, frames, times), weights
+
+
+def dp_updates(dp, dev):
+    """One pretrain update (alpha 0.01) and one informed update from
+    ``dp_inputs``, float32 on ``dev``: each update's loss (the global
+    batch's), the gradient it stepped along (all-reduced under ``dp``, one
+    process's without) and the generator after it; then the pretrain
+    update's rate, DP_RATE_UPDATES more of them timed (global batches a
+    second)."""
+    traj, batch, weights = dp_inputs()
+    rows = (lambda a: a) if dp is None else dp.rows
+    z, frames, times = (torch.as_tensor(rows(a), device=dev, dtype=torch.float32) for a in batch)
+    out = {}
+    for name in ("pretrain", "informed"):
+        ff, gen, disc, bias = train_systems(traj, 40, weights, dev, torch.float32)
+        g_fwd, d_fwd = (gen, disc) if dp is None else (dp.wrap(gen), dp.wrap(disc))
+        trainer = tcgan.CGANTrainer(g_fwd, d_fwd, ff, bias=bias)
+        pretrain = tcgan.PretrainStep(g_fwd, ff, lr=1e-3)
+        loss_fn = ((lambda: pretrain.loss(z, frames, times, 0.01)[0]) if name == "pretrain"
+                   else (lambda: trainer.informed_loss(z, times)))
+        loss = loss_fn()
+        if dp is None:
+            grads = torch.autograd.grad(loss, list(gen.parameters()))
+        else:
+            loss.backward()
+            grads = [p.grad.clone() for p in gen.parameters()]
+            for p in gen.parameters():
+                p.grad = None
+        step_loss = (pretrain(z, frames, times, 0.01)[0] if name == "pretrain"
+                     else trainer.informed_step(z, times))
+        if dp is not None:
+            loss, step_loss = dp.mean(loss), dp.mean(step_loss)
+        out[name] = {"loss": float(loss.detach()), "step_loss": float(step_loss),
+                     "grad": torch.cat([g.reshape(-1).double().cpu() for g in grads]).numpy(),
+                     "after": flat_params(gen).numpy()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(DP_RATE_UPDATES):
+        pretrain(z, frames, times, 0.01)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["pretrain"]["updates_per_s"] = DP_RATE_UPDATES / (time.perf_counter() - t0)
+    return out
+
+
+def dp_rank(dp, root, t_spawn, parent=None):
+    """One rank of the parallel phase: ``dp_updates``, then
+    ``run_training``'s rank body on a short pretrain run into ``root``;
+    rank 0 writes its updates to ``root/updates.npz``, with the seconds
+    from the spawn (``t_spawn``, ``time.time()``) to its start and those of
+    its work. Ranks started ahead (``parent``: the script's pid) warm up,
+    then wait for ``root/go``, and leave if the script has ended."""
+    from molecular_dynamics_tpu_torch.train import drivers
+
+    entered = time.time()
+    if parent is not None:
+        # what a fresh process pays at its first update: the context and
+        # cuBLAS, the optimizer's and DDP's imports
+        warm = torch.ones((64, 64), device=dp.device)
+        float((warm @ warm).sum())
+        ClippedAdam([torch.nn.Parameter(warm)], lr=1e-3)
+        importlib.import_module("torch.nn.parallel.distributed")
+        while not (root / "go").exists():
+            if os.getppid() != parent:
+                sys.exit(1)
+            time.sleep(0.05)
+    started = time.time()
+    out = dp_updates(dp, dp.device)
+    drivers._train_rank(dp, dict(
+        family="pretrain", data=str(TRAIN_DATA / "raw-traj_rep-*.npy"), data_stride=DP_STRIDE,
+        topology="example:backbone", parameters="", epochs=1, batch_size=TRAIN_BATCH,
+        out_dir=str(root / "runs"), seed=0))
+    if dp.writer:
+        np.savez(root / "updates.npz", start_seconds=entered - t_spawn,
+                 ready_seconds=started - t_spawn, work_seconds=time.time() - started,
+                 **{f"{k}:{f}": v for k, row in out.items() for f, v in row.items()})
+
+
+def start_dp_ranks(dev):
+    """The parallel phase's two gloo ranks on ``dev``, started now (their
+    process start and first-use costs run beside the earlier phases); they
+    wait for ``dp_phase``. Returns (context, temporary directory, their
+    root, the time they were started)."""
+    import torch.multiprocessing as mp
+
+    from molecular_dynamics_tpu_torch.parallel import data as pdata
+    from molecular_dynamics_tpu_torch.parallel.mesh import indexed
+
+    tmp = tempfile.TemporaryDirectory()
+    root = pathlib.Path(tmp.name) / "world2"
+    root.mkdir()
+    t_spawn = time.time()
+    # the ranks' bodies as ``pdata.spawn`` runs them, left running: daemons
+    # that end with this process
+    ctx = mp.start_processes(
+        pdata.rank_main, nprocs=2, join=False, daemon=True, start_method="spawn",
+        args=(dp_rank, [indexed(dev)] * 2, "gloo", pdata.free_port(),
+              (root, t_spawn, os.getpid())))
+    return ctx, tmp, root, t_spawn
+
+
+def dp_phase(dev, ranks):
+    """The data-parallel path at world size 1 (NCCL, in this process) and 2
+    (``ranks``, from ``start_dp_ranks``: both on ``dev``, gloo) against
+    one process: each update's loss, gradient and the generator after it,
+    and the short pretrain run's files and logged losses."""
+    from molecular_dynamics_tpu_torch.parallel import data as pdata
+    from molecular_dynamics_tpu_torch.parallel.mesh import indexed
+    from molecular_dynamics_tpu_torch.train import drivers
+
+    dev = indexed(dev)
+    one = dp_updates(None, dev)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        argv = dict(family="pretrain", data=str(TRAIN_DATA / "raw-traj_rep-*.npy"),
+                    data_stride=DP_STRIDE, epochs=1, batch_size=TRAIN_BATCH,
+                    out_dir=str(tmp / "one"), seed=0)
+        t0 = time.perf_counter()
+        check(drivers.run_training(**argv) == 0, "one-process pretrain run")
+        one_s = time.perf_counter() - t0
+        with open(tmp / "one" / "pretrain" / "train_log.csv") as fh:
+            one_log = [float(r["loss"]) for r in csv.DictReader(fh)]
+        one_files = sorted(p.name for p in (tmp / "one" / "pretrain").iterdir())
+        ctx, _, root2, _ = ranks
+        for world, devices, backend in ((1, [dev], "nccl"), (2, [dev, dev], "gloo")):
+            t0 = time.perf_counter()
+            if world == 1:
+                root = tmp / "world1"
+                root.mkdir()
+                pdata.spawn(dp_rank, 1, devices=devices, backend=backend,
+                            args=(root, time.time()))
+            else:
+                root = root2
+                (root / "go").touch()
+                while not ctx.join():
+                    pass
+            spawn_s = time.perf_counter() - t0
+            got = dict(np.load(root / "updates.npz"))
+            row = {"backend": backend, "devices": [str(d) for d in devices],
+                   "processes": "this one" if world == 1 else
+                   f"{world} spawned at the script's start, waiting for this phase",
+                   "seconds_in_phase": spawn_s,
+                   "rank0_start_seconds": float(got["start_seconds"]),
+                   "rank0_ready_seconds": float(got["ready_seconds"]),
+                   "rank0_work_seconds": float(got["work_seconds"])}
+            for name, want in one.items():
+                g, p = got[f"{name}:grad"], got[f"{name}:after"]
+                r = {"loss_rel_err": abs(float(got[f"{name}:loss"]) - want["loss"])
+                     / abs(want["loss"]),
+                     "grad_rel_err": float(np.linalg.norm(g - want["grad"])
+                                           / np.linalg.norm(want["grad"])),
+                     "param_rel_err": float(np.linalg.norm(p - want["after"])
+                                            / np.linalg.norm(want["after"]))}
+                for key, value in r.items():
+                    check(value <= TOL_DP, f"data-parallel {name} update, world {world} "
+                                           f"({backend}) against one process: {r}")
+                row[name] = r
+            row["pretrain"]["updates_per_s"] = float(got["pretrain:updates_per_s"])
+            row["pretrain"]["one_process_updates_per_s"] = one["pretrain"]["updates_per_s"]
+            run = root / "runs" / "pretrain"
+            files = sorted(p.name for p in run.iterdir())
+            with open(run / "train_log.csv") as fh:
+                log = [float(r["loss"]) for r in csv.DictReader(fh)]
+            with open(run / "eval.json") as fh:
+                metrics = json.load(fh)
+            check(files == one_files and len(log) == len(one_log) and one_log,
+                  f"data-parallel pretrain, world {world}: files {files}, {len(log)} logged rows "
+                  f"against one process's {one_files}, {len(one_log)}")
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f"data-parallel pretrain, world {world}: eval.json {metrics}")
+            row["run"] = {"files": files, "logged_rows": len(log),
+                          "logged_loss_rel_err": max(abs(a - b) / abs(b)
+                                                     for a, b in zip(log, one_log)),
+                          "mean_abs_error": metrics["mean_abs_error"]}
+            res[f"world_{world}"] = row
+    res["one_process_run_seconds"] = one_s
+    res["tolerance"] = TOL_DP
+    return res
+
+
+def parallel_phase(ff, vacuum, gbis, dev, ranks):
+    """Several devices on one card: ``simulate_ensemble(mesh=)`` through two
+    shards on ``dev`` in vacuum and under GBIS (``sharded_campaign``), the
+    data-parallel path (``dp_phase``, with the two ranks ``ranks`` started
+    ahead), and ``cli simulate | train --devices 2`` raising on a one-card
+    machine. Returns the result and the launches by path."""
+    from molecular_dynamics_tpu_torch.parallel import Mesh
+
+    mesh = Mesh((dev, dev))
+    res, by_path = {}, {}
+    for tag, (ens, cfg, bias) in (("vacuum", vacuum), ("gbis", gbis)):
+        res[tag], launches = sharded_campaign(ff, ens, cfg, bias, hydrogen_bond_constraints(ff),
+                                              mesh, f"parallel {tag}")
+        for label, count in launches.items():
+            by_path[f"parallel: simulate_ensemble({tag}, {label}, "
+                    f"{'2 shards on ' + str(dev) if label.startswith('sharded') else 'no mesh'}) "
+                    f"{N_REPLICAS} x {N_STEPS}"] = count
+    res["data_parallel"] = dp_phase(dev, ranks)
+    visible = torch.cuda.device_count()
+    raised = {}
+    for argv in (["simulate", "--devices", str(visible + 1)],
+                 ["train", "pretrain", "--devices", str(visible + 1), "--data",
+                  str(TRAIN_DATA / "raw-traj_rep-*.npy")]):
+        try:
+            cli.main(argv)
+            raised[argv[0]] = None
+        except ValueError as err:
+            raised[argv[0]] = str(err)
+        check(raised[argv[0]] is not None
+              and f"only {visible} CUDA devices are visible" in raised[argv[0]],
+              f"cli {' '.join(argv)} on {visible} card(s): {raised[argv[0]]}")
+    res["cli_raises"] = raised
+    return res, by_path
 
 
 def bench_phase():
@@ -2835,16 +3162,17 @@ def dynamics_census(runs, data, dev, steps=5):
 
 def dynamics_phase(tmp, dev):
     """The Hamiltonian dynamics line on the card: ``cli train node`` at its
-    live-quality budget, ``hnn``, ``hnn-schnet`` and ``hnn-latent`` at
-    DYNAMICS_EPOCHS under the sanity bound, on the in-repo 40-atom data;
+    live-quality budget, ``hnn`` and ``hnn-latent`` at DYNAMICS_EPOCHS and
+    ``hnn-schnet`` at SCHNET_EPOCHS under the sanity bound, on the in-repo
+    40-atom data;
     every step kind against float64 from the trained weights; update rates;
     the census of an HNN informed step and a node unroll update."""
     res, launches = {}, {}
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
     runs = tmp / "dynamics"
     budgets = {"node": TRAIN_BUDGET["node"],
-               **{f: (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-schnet",
-                                                                    "hnn-latent")}}
+               **{f: (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-latent")},
+               "hnn-schnet": (SCHNET_EPOCHS, DYNAMICS_SANITY_A)}
     for family, (epochs, ceiling) in budgets.items():
         reset_launches()
         run, _ = train_run([family, "--data", pattern, "--epochs", str(epochs),
@@ -3313,6 +3641,10 @@ def main():
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+    # the parallel phase's two data-parallel ranks start now: a fresh
+    # process's start (its imports, its CUDA context) runs beside the build
+    dp_ranks = start_dp_ranks(dev)
 
     # -- build -------------------------------------------------------------
     libs = _build.build_all(verbose=True)
@@ -4267,6 +4599,13 @@ def main():
          seconds=round(time.perf_counter() - t_phase, 1),
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
+    t_phase = time.perf_counter()
+    par_res, par_launches = parallel_phase(
+        ff, (ens, cfg, bias), (ens_g, finals_g[1][0], bias_g), dev, dp_ranks)
+    emit("parallel", **par_res, launches_by_path=par_launches,
+         seconds=round(time.perf_counter() - t_phase, 1),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
     bench_record, bench_launches, bench_s = bench_phase()
     emit("bench", record=bench_record, campaign_kernel_launches=bench_launches,
          seconds=round(bench_s, 1), device=torch.cuda.get_device_name(0), nvidia_smi=smi,
@@ -4333,6 +4672,10 @@ def main():
     host_vacuum, host_gbis, host_cmap = host_launches
     kernels["campaign_advance"]["launches_by_path"][host_vacuum] = host_launches[host_vacuum]
     kernels["campaign_advance[gbis]"]["launches_by_path"][host_gbis] = host_launches[host_gbis]
+    kernels["campaign_advance"]["sharded_rate"] = {
+        tag: {"aggregate_steps_per_s": par_res[tag]["aggregate_steps_per_s"],
+              "unsharded_aggregate_steps_per_s": par_res[tag]["unsharded_aggregate_steps_per_s"],
+              "shards": par_res[tag]["shards"]} for tag in ("vacuum", "gbis")}
     for name in ("nonbonded_rows", "pair_tiles"):
         kernels[name]["launches_by_path"] = {
             f"tiers, {TIER_STEPS} steps at each size": kernels[name]["launches"],
@@ -4359,6 +4702,14 @@ def main():
         by_path[gen_path] = gen_total["campaign_advance" if counter is None else counter]
         by_path[host_cmap] = host_launches[host_cmap]["campaign_advance" if counter is None
                                                        else counter]
+        for path, counts in par_launches.items():
+            # the phase's vacuum runs are the vacuum row's, its GBIS runs the solvent row's
+            solvent_path = "(gbis," in path
+            if counter is None or row == "campaign_advance[gbis]":
+                mine = solvent_path == (row == "campaign_advance[gbis]")
+                by_path[path] = counts["campaign_advance"] if mine else 0
+            else:
+                by_path[path] = counts[counter]
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

@@ -6,7 +6,7 @@ dataclasses of tensors, plain functions on ``(..., N, 3)`` tensors, an
 explicit ``device``/``dtype``, and hand-written CUDA kernels (``csrc/``,
 bound in ``ops/``) where the reference used Pallas.
 
-Ported: every module of the JAX package but its multi-device sharding:
+Ported: every module of the JAX package:
 
 - ``units``, ``topology`` (``Topology``), ``build`` (angles and dihedrals
   from bonds), ``io`` (PSF, PDB, XYZ, DCD, AMBER prmtop plain and chamber,
@@ -36,9 +36,11 @@ Ported: every module of the JAX package but its multi-device sharding:
   ``regenerate_smd``, the SMD training-data campaign;
   ``utils.write_vmd_loader``
 - ``convert`` — numpy arrays into the port's objects
-
-Not ported yet (ROADMAP.md §A): sharding over several devices
-(``parallel``).
+- ``parallel`` — several devices: ``get_mesh``, ``shard_ensemble``,
+  ``shard_campaign_advance`` (``sim.simulate_ensemble(mesh=)``, ``cli
+  simulate --devices N``), data-parallel training over
+  ``torch.distributed`` ranks (``run_training(devices=N)``, ``cli train
+  --devices N``) and ``dryrun_multichip``
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``--device cpu`` on the command line).

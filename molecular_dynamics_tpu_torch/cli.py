@@ -15,10 +15,10 @@ turns ``.dcd``, ``.xyz``, ``.xtc``, ``.mdxtc`` or ``.npy`` trajectories into
 the packaged examples, a PSF with a YAML force field, or an AMBER
 ``.prmtop`` (plain or chamber).
 One option more, ``--device`` (default ``cuda``): the commands run on the
-card unless the caller asks for the CPU.
-
-Not ported yet, and raising with the ROADMAP item that brings it:
-``--devices`` above 1 (A14).
+card unless the caller asks for the CPU. ``--devices N`` shards a
+campaign's replicas over N devices (``parallel``) or trains ``pretrain``,
+``cgan``, ``lstm`` or ``lstm-nll`` on N data-parallel ranks; with
+``--device cpu`` the shards or ranks run on the CPU.
 """
 
 from __future__ import annotations
@@ -190,11 +190,12 @@ def cmd_simulate(args) -> int:
     cfg = load_config(args.config, CampaignConfig) if args.config else CampaignConfig()
     cfg = apply_overrides(cfg, args.override or [])
     devices = getattr(args, "devices", 0) or cfg.devices
+    mesh = None
     if devices and devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: sharding the replicas over several devices "
-            "is not ported yet (ROADMAP A14)"
-        )
+        from molecular_dynamics_tpu_torch.parallel import get_mesh
+
+        # raises before any work where fewer devices are visible
+        mesh = get_mesh(devices, device=torch.device(args.device).type)
     device = _device(args.device)
     os.makedirs(cfg.out_dir, exist_ok=True)
 
@@ -204,15 +205,21 @@ def cmd_simulate(args) -> int:
               file=sys.stderr)
         return 2
     ff, names, bias, ens = start
+    if mesh is not None:
+        from molecular_dynamics_tpu_torch.parallel import shard_ensemble
+
+        ens = shard_ensemble(ens, mesh)
 
     def synchronize():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for dev in {device} if mesh is None else set(mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     synchronize()
     t0 = time.perf_counter()
     _, frames, log = simulate_ensemble(
-        ens, ff, cfg.n_steps, cfg.save_every, cfg.sim, bias, obs_every=cfg.obs_every,
+        ens, ff, cfg.n_steps, cfg.save_every, cfg.sim, bias, mesh=mesh,
+        obs_every=cfg.obs_every,
     )
     synchronize()
     elapsed = time.perf_counter() - t0
@@ -394,7 +401,8 @@ def main(argv=None) -> int:
     )
     p_sim.add_argument(
         "--devices", type=int, default=0,
-        help="shard the replica axis over N devices (not ported yet above 1)",
+        help="shard the replica axis over N devices (N CUDA devices; with --device cpu, "
+        "N shards on the CPU)",
     )
     device_option(p_sim)
     p_sim.set_defaults(fn=cmd_simulate)
@@ -424,7 +432,9 @@ def main(argv=None) -> int:
     p_tr.add_argument("--out-dir", default="runs")
     p_tr.add_argument("--seed", type=int, default=0)
     p_tr.add_argument("--devices", type=int, default=0,
-                      help="data-parallel training over N devices (not ported yet above 1)")
+                      help="data-parallel training over N devices: N ranks of "
+                      "torch.distributed, NCCL on N CUDA devices, gloo with --device cpu "
+                      "(pretrain, cgan, lstm, lstm-nll)")
     device_option(p_tr)
     p_tr.set_defaults(fn=cmd_train)
 

@@ -413,6 +413,8 @@ def simulate_ensemble(
     save_every: int = 50,
     config: SimulationConfig = SimulationConfig(),
     bias=None,
+    mesh=None,
+    axis_name: str = "replica",
     obs_every: int = 1,
     save_forces: bool = False,
 ):
@@ -437,6 +439,19 @@ def simulate_ensemble(
     ``save_forces=True`` additionally records the per-atom total forces of
     every saved frame.
 
+    ``mesh`` (``parallel.get_mesh``) shards the replicas over its devices:
+    ``states`` is the whole ensemble or the list of its shards that
+    ``parallel.shard_ensemble`` made. Each shard advances on its own
+    device. The campaign op runs through ``parallel.shard_campaign_advance``,
+    whose per-shard seed offset gives every shard its own noise streams (at
+    zero temperature the run equals the unsharded one). The composed path
+    keeps the unsharded run's one noise stream: each step draws the whole
+    ensemble's normals on the first device and hands each shard its rows,
+    so it equals the unsharded run at any temperature. The outputs come
+    back on the first device in replica order, shaped as without a mesh.
+    Without a mesh the ensemble runs as the one shard of a mesh of its own
+    device.
+
     Returns (final_states, frames (n_saves, R, N, 3), log of
     (n_saves // obs_every, R)); with ``save_forces``, (final_states, frames,
     log, forces (n_saves, R, N, 3)).
@@ -448,50 +463,89 @@ def simulate_ensemble(
             f"n_steps // save_every = {n_saves} must be divisible by "
             f"obs_every = {obs_every}"
         )
+    from molecular_dynamics_tpu_torch.parallel.mesh import (
+        Mesh,
+        gather,
+        shard_campaign_advance,
+        shard_ensemble,
+        to_device,
+    )
 
-    use_campaign = config.fused_campaign
+    # without a mesh the ensemble is one shard on its own device
+    if mesh is None:
+        mesh = Mesh((states.pos.device,), axis_name)
+    shards = (list(states) if isinstance(states, (list, tuple))
+              else shard_ensemble(states, mesh, axis_name))
+    if len(shards) != mesh.size:
+        raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size} devices")
+    devices = mesh.devices
+    first = devices[0]
 
     # one read-back for the whole run: the seed and step of replica 0
-    key0 = int(states.key.reshape(-1)[0])
-    step0 = int(states.step.reshape(-1)[0])
-    shape = (n_saves,) + tuple(states.pos.shape)
-    frames = torch.empty(shape, dtype=states.pos.dtype, device=states.pos.device)
+    key0 = int(shards[0].key.reshape(-1)[0])
+    step0 = int(shards[0].step.reshape(-1)[0])
+    n_rows = [s.pos.shape[0] for s in shards]
+    shape = (n_saves, sum(n_rows)) + tuple(shards[0].pos.shape[1:])
+    frames = torch.empty(shape, dtype=shards[0].pos.dtype, device=first)
     frc_frames = torch.empty_like(frames) if save_forces else None
+    # each device's force field and bias
+    on = {}
+    for dev in devices:
+        if dev not in on:
+            on[dev] = (to_device(ff, dev), to_device(bias, dev))
     n_cons = _n_constraints(ff, config)
     logs = []
 
-    if use_campaign:
-        advance = _campaign_advance_fn(ff, save_every, config, bias)
+    if config.fused_campaign:
+        advance = shard_campaign_advance(
+            {dev: _campaign_advance_fn(ff_d, save_every, config, bias_d)
+             for dev, (ff_d, bias_d) in on.items()}, mesh, axis_name)
 
-        def segment(states: MDState, step_now: int) -> MDState:
+        def segment(shards, step_now: int):
             pos, vel, frc = advance(
-                states.pos.contiguous(), states.vel.contiguous(),
-                states.forces.contiguous(), step_now, mix_seed(key0, step_now),
-            )
-            return states.replace(
-                pos=pos, vel=vel, forces=frc, step=states.step + save_every
-            )
+                [s.pos.contiguous() for s in shards], [s.vel.contiguous() for s in shards],
+                [s.forces.contiguous() for s in shards], step_now, mix_seed(key0, step_now))
+            return [s.replace(pos=p, vel=v, forces=f, step=s.step + save_every)
+                    for s, p, v, f in zip(shards, pos, vel, frc)]
 
     else:
-        step_fn = make_ensemble_step_fn(ff, config, bias)
-        generator = torch.Generator(device=states.pos.device)
+        step_fns = {dev: make_ensemble_step_fn(ff_d, config, bias_d)
+                    for dev, (ff_d, bias_d) in on.items()}
+        # one noise stream for the whole ensemble, drawn on the first device
+        generator = torch.Generator(device=first)
         generator.manual_seed(mix_seed(key0, step0))
+        draws = config.integrator != "nve"
+        noise_shape = shape[1:]
+        dtype = shards[0].vel.dtype
 
-        def segment(states: MDState, step_now: int) -> MDState:
+        def segment(shards, step_now: int):
             for _ in range(save_every):
-                states = step_fn(states, generator=generator)
-            return states
+                noise = (torch.randn(noise_shape, generator=generator, dtype=dtype, device=first)
+                         if draws else None)
+                lo = 0
+                stepped = []
+                for dev, s, r in zip(devices, shards, n_rows):
+                    part = None if noise is None else noise[lo:lo + r].to(dev)
+                    stepped.append(step_fns[dev](s, noise=part))
+                    lo += r
+                shards = stepped
+            return shards
 
     with torch.no_grad():
         for s in range(n_saves):
-            states = segment(states, step0 + s * save_every)
-            frames[s] = states.pos
-            if save_forces:
-                frc_frames[s] = states.forces
+            shards = segment(shards, step0 + s * save_every)
+            lo = 0
+            for x, r in zip(shards, n_rows):
+                frames[s, lo:lo + r] = x.pos
+                if save_forces:
+                    frc_frames[s, lo:lo + r] = x.forces
+                lo += r
             if (s + 1) % obs_every == 0:
-                logs.append(_observables(states, ff, config, bias, n_cons))
+                logs.append(gather([
+                    _observables(x, on[dev][0], config, on[dev][1], n_cons)
+                    for dev, x in zip(devices, shards)], first))
 
-    log = _stack_logs(logs)
+    states, log = gather(shards, first), _stack_logs(logs)
     if save_forces:
         return states, frames, log, frc_frames
     return states, frames, log

@@ -17,6 +17,13 @@ D's carries that pass into D's own update. The G and informed phases keep
 two separate Adam states over the same generator parameters. The latent
 ``z`` is an argument of every step: the caller draws it from an explicit
 ``torch.Generator`` (or passes the reference's own draws).
+
+In a data-parallel run (``parallel.data``) the trainers take the modules'
+``DistributedDataParallel`` wrappers: each phase then descends through
+``loss.backward()``, which all-reduces the stepped module's gradients. The
+G phase runs the discriminator's own module, not its wrapper, so that no
+reduction of D waits on a phase that does not step D; the gradients that
+pass leaves on D's parameters are cleared after it.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from torch.nn import functional as F
 
 from molecular_dynamics_tpu_torch.ff.params import FFParams
 from molecular_dynamics_tpu_torch.models.cgan import Discriminator, Generator
-from molecular_dynamics_tpu_torch.train.common import ClippedAdam, descend
+from molecular_dynamics_tpu_torch.train.common import ClippedAdam, descend, is_data_parallel
 from molecular_dynamics_tpu_torch.train.losses import (
     bias_energy_loss,
     distance_matrix_loss,
@@ -60,6 +67,17 @@ def bce_logits(logits: Tensor, labels: Tensor) -> Tensor:
     return F.binary_cross_entropy_with_logits(logits, labels)
 
 
+def generated_coords(generator, z: Tensor, t: Tensor) -> Tensor:
+    """``Generator.coords`` through ``generator``'s forward, so that a
+    ``DistributedDataParallel`` wrapper of it sees the call."""
+    flat = generator(z, t)
+    return flat.reshape(flat.shape[:-1] + (flat.shape[-1] // 3, 3))
+
+
+def _module(m):
+    return m.module if is_data_parallel(m) else m
+
+
 #: the bias schedule's steps at t = 1: normalized times t in [0, 1] become
 #: bias step counts as in the reference's trainer
 BIAS_TOTAL_STEPS = 10000.0
@@ -71,7 +89,8 @@ class CGANTrainer:
     positions; the informed loss is the potential under
     ``REFERENCE_CONFIG``. Each step updates its module in place and returns
     its loss (a 0-dim tensor on the device: reading it is a host
-    synchronisation, left to the caller).
+    synchronisation, left to the caller). ``generator`` and
+    ``discriminator`` may both be ``DistributedDataParallel`` wrappers.
     """
 
     def __init__(
@@ -87,24 +106,29 @@ class CGANTrainer:
         self.ff = ff
         self.bias = bias
         self.config = config
-        self.opt_d = ClippedAdam(discriminator.parameters(), config.lr_d, CLIP_NORM)
+        self.opt_d = ClippedAdam(discriminator.parameters(), config.lr_d, CLIP_NORM,
+                                 backward=is_data_parallel(discriminator))
         self.reset_generator_optimizers()
 
     def reset_generator_optimizers(self) -> None:
         """Fresh Adam states for the G and informed phases."""
         cfg = self.config
-        self.opt_g = ClippedAdam(self.generator.parameters(), cfg.lr_g, CLIP_NORM)
-        self.opt_i = ClippedAdam(self.generator.parameters(), cfg.lr_informed, CLIP_NORM)
+        reduced = is_data_parallel(self.generator)
+        self.opt_g = ClippedAdam(self.generator.parameters(), cfg.lr_g, CLIP_NORM,
+                                 backward=reduced)
+        self.opt_i = ClippedAdam(self.generator.parameters(), cfg.lr_informed, CLIP_NORM,
+                                 backward=reduced)
 
     def generate(self, z: Tensor, t: Tensor) -> Tensor:
-        return self.generator.coords(z, t)
+        return generated_coords(self.generator, z, t)
 
-    def critic(self, coords: Tensor, t: Tensor) -> Tensor:
+    def critic(self, coords: Tensor, t: Tensor, discriminator=None) -> Tensor:
         """The discriminator's logits on a coordinate batch (B, N, 3)."""
-        return self.discriminator(coords.reshape(coords.shape[0], -1), t)
+        d = self.discriminator if discriminator is None else discriminator
+        return d(coords.reshape(coords.shape[0], -1), t)
 
     def g_loss(self, z: Tensor, t: Tensor) -> Tensor:
-        logits = self.critic(self.generate(z, t), t)
+        logits = self.critic(self.generate(z, t), t, _module(self.discriminator))
         return bce_logits(logits, torch.ones_like(logits))
 
     def d_loss(self, z: Tensor, real_coords: Tensor, t: Tensor) -> Tensor:
@@ -127,6 +151,9 @@ class CGANTrainer:
         """Adversarial generator update."""
         loss = self.g_loss(z, t)
         descend(self.opt_g, loss)
+        if self.opt_g.backward:
+            for p in self.discriminator.parameters():
+                p.grad = None
         return loss.detach()
 
     def d_step(self, z: Tensor, real_coords: Tensor, t: Tensor) -> Tensor:
@@ -147,16 +174,18 @@ class PretrainStep:
     """Decoder pretraining update (the reference's ``make_pretrain_step``):
     ``alpha * mean potential + distance-matrix MSE + Kabsch RMSD``, Adam at
     ``lr`` clipped at global norm ``CLIP_NORM``. ``alpha`` is an argument, so the
-    caller ramps it per epoch."""
+    caller ramps it per epoch. ``generator`` may be a
+    ``DistributedDataParallel`` wrapper."""
 
     def __init__(self, generator: Generator, ff: FFParams, lr: float = 1e-4):
         self.generator = generator
         self.ff = ff
-        self.opt = ClippedAdam(generator.parameters(), lr, CLIP_NORM)
+        self.opt = ClippedAdam(generator.parameters(), lr, CLIP_NORM,
+                               backward=is_data_parallel(generator))
 
     def loss(self, z: Tensor, real_coords: Tensor, t: Tensor, alpha: float):
         """(loss, (potential, distance-matrix MSE, RMSD))."""
-        coords = self.generator.coords(z, t)
+        coords = generated_coords(self.generator, z, t)
         l_pot = potential_loss(coords, self.ff)
         l_dist = distance_matrix_loss(coords, real_coords)
         l_rmsd = rmsd_loss(coords, real_coords)

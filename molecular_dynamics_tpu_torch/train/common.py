@@ -12,6 +12,7 @@ a ``max_norm`` of 0 zeroes every update, as in optax.
 
 from __future__ import annotations
 
+import sys
 from typing import List, Optional, Sequence
 
 import torch
@@ -30,11 +31,16 @@ class ClippedAdam:
     alone, the SDE-GAN trainer's ``adam=True``). ``step(grads)`` takes the
     gradients explicitly (as ``torch.autograd.grad`` returns them), so two
     optimizers over the same parameters keep separate moments and never read
-    each other's ``.grad``."""
+    each other's ``.grad``. ``backward=True`` is for the parameters of a
+    ``DistributedDataParallel`` module, whose gradients only
+    ``loss.backward()`` all-reduces: ``descend`` then takes them from
+    ``.grad``."""
 
-    def __init__(self, params, lr: float = 1e-4, clip_norm: Optional[float] = 1.0):
+    def __init__(self, params, lr: float = 1e-4, clip_norm: Optional[float] = 1.0,
+                 backward: bool = False):
         self.params = list(params)
         self.clip_norm = clip_norm
+        self.backward = backward
         self.adam = torch.optim.Adam(self.params, lr=lr)
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -82,8 +88,21 @@ def descend(opt: ClippedAdam, loss: torch.Tensor) -> None:
     """One update of ``opt``'s parameters down the gradient of ``loss``. A
     parameter the loss does not reach gets a zero gradient, as in JAX (an
     HNN's loss reads the input gradient of its fields, which the last
-    layer's bias does not move)."""
+    layer's bias does not move). An optimizer built with ``backward=True``
+    takes the gradients ``loss.backward()`` leaves, all-reduced over the
+    ranks of a data-parallel run, and clips them after the reduction."""
+    if getattr(opt, "backward", False):
+        loss.backward()
+        opt.step([torch.zeros_like(p) if p.grad is None else p.grad for p in opt.params])
+        return
     opt.step(torch.autograd.grad(loss, opt.params, materialize_grads=True))
+
+
+def is_data_parallel(module) -> bool:
+    """Whether ``module`` is a ``DistributedDataParallel`` wrapper (without
+    importing that module, which takes seconds, where nothing has)."""
+    ddp = sys.modules.get("torch.nn.parallel.distributed")
+    return ddp is not None and isinstance(module, ddp.DistributedDataParallel)
 
 
 def stepper(opt: ClippedAdam, loss_fn):

@@ -24,9 +24,12 @@ whitened frames, one decode a bucket), ``aae`` (an adversarial autoencoder
 with a time-conditioned decoder and evaluator-probed snapshots) and ``sde``
 (a neural SDE-GAN on 8-frame path windows: a gradient-penalised CDE critic,
 moment matching, potential injection, weight averaging and marginal-TV
-probed snapshots). These are all the reference's families; ``--devices``
-above 1 raises ``NotImplementedError`` naming the ROADMAP item that brings
-it.
+probed snapshots). These are all the reference's families.
+``devices=N`` (``--devices N``) trains ``pretrain``, ``cgan``, ``lstm`` or
+``lstm-nll`` data-parallel on N ranks (``parallel.data``): every rank
+draws the global batch and keeps its rows, the models are wrapped in
+``DistributedDataParallel``, the logged loss is the global batch's mean,
+and rank 0 alone writes the run's files.
 
 When no ``--data`` glob is given the driver first generates a small SMD
 dataset on the device (``_bootstrap_dataset``).
@@ -116,6 +119,10 @@ def _bootstrap_dataset(ff, coords, out_dir, n_replicas=8, n_steps=8000, device=N
     return frames
 
 
+#: the families ``devices`` above 1 trains data-parallel (the JAX package's)
+_DP_FAMILIES = {"pretrain", "cgan", "lstm", "lstm-nll"}
+
+
 def run_training(
     family: str,
     data: str = "",
@@ -133,23 +140,83 @@ def run_training(
     ``out_dir/family``. ``device`` defaults to the CUDA device; the numpy
     batches are shuffled by ``np.random.default_rng(seed)`` and the model
     initialised and its latents drawn from a ``torch.Generator`` on the
-    device seeded with ``seed``."""
-    from molecular_dynamics_tpu_torch.cli import _device, _load_system
+    device seeded with ``seed``.
+
+    ``devices`` above 1 runs that many data-parallel ranks (``spawn``): NCCL
+    on ``cuda:0 ... cuda:N-1``, or gloo on the CPU with ``device="cpu"``. It
+    raises ``ValueError`` for a batch size it does not divide (lstm: nor
+    its fine-tune batch, ``_finetune_batch``), a family outside
+    ``_DP_FAMILIES`` or fewer visible CUDA devices, before any rank starts;
+    a rank's exception raises here."""
     from molecular_dynamics_tpu_torch.convert import resolve_device
+
+    if family not in _FAMILIES:
+        raise ValueError(f"unknown family {family!r}")
+    kwargs = dict(family=family, data=data, data_stride=data_stride, topology=topology,
+                  parameters=parameters, epochs=epochs, batch_size=batch_size,
+                  out_dir=out_dir, seed=seed)
+    if devices and devices > 1:
+        from molecular_dynamics_tpu_torch.parallel.data import rank_devices, spawn
+
+        if batch_size % devices:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the device count {devices}")
+        if family not in _DP_FAMILIES:
+            raise ValueError(
+                f"family {family!r} trains on one device; --devices shards batches for "
+                f"{', '.join(sorted(_DP_FAMILIES))} only")
+        if family == "lstm" and _finetune_batch(batch_size) % devices:
+            raise ValueError(
+                f"the lstm fine-tune's batch of max(4, batch_size // 2) = "
+                f"{_finetune_batch(batch_size)} rows must be divisible by the device count "
+                f"{devices}")
+        ranks = rank_devices(devices, device)
+        if not data:
+            # one dataset for every rank, made once, here
+            from molecular_dynamics_tpu_torch.cli import _load_system
+
+            ff, coords, _, _ = _load_system(topology, parameters, device=ranks[0])
+            root = os.path.join(out_dir, family, "data")
+            _bootstrap_dataset(ff, coords, root, device=ranks[0])
+            kwargs.update(data=os.path.join(root, "raw-traj_rep-*.npy"), data_stride=1)
+        spawn(_train_rank, devices, devices=ranks, args=(kwargs,))
+        return 0
+    return _train(device=resolve_device(device), **kwargs)
+
+
+def _train_rank(dp, kwargs):
+    """One rank of a data-parallel ``run_training``."""
+    _train(device=dp.device, dp=dp, **kwargs)
+
+
+class _Quiet:
+    """The logger and the best-checkpoint keeper of a data-parallel rank
+    other than 0: it writes nothing."""
+
+    best = float("inf")
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def _writes(dp) -> bool:
+    """Whether this process writes the run's files (rank 0 of a
+    data-parallel run, or a run of one process)."""
+    return dp is None or dp.writer
+
+
+def _train(family, data, data_stride, topology, parameters, epochs, batch_size, out_dir,
+           seed, device, dp=None) -> int:
+    from molecular_dynamics_tpu_torch.cli import _device, _load_system
     from molecular_dynamics_tpu_torch.log import CSVLogger, plot_losses
     from molecular_dynamics_tpu_torch.train.checkpoint import BestKeeper
     from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData
 
-    if family not in _FAMILIES:
-        raise ValueError(f"unknown family {family!r}")
-    if devices and devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: data-parallel training over several devices is "
-            "not ported yet (ROADMAP A14)")
-    device = _device(resolve_device(device))
-
+    device = _device(device)
     out_dir = os.path.join(out_dir, family)
-    os.makedirs(out_dir, exist_ok=True)
+    writes = _writes(dp)
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -161,19 +228,26 @@ def run_training(
         frames = _bootstrap_dataset(ff, coords, os.path.join(out_dir, "data"), device=device)
         traj = TrajectoryData.from_array(frames)
 
-    logger = CSVLogger(os.path.join(out_dir, "train_log.csv"), ["epoch", "step", "loss", "wall_s"])
-    keeper = BestKeeper(os.path.join(out_dir, "best.ckpt"))
+    if writes:
+        logger = CSVLogger(os.path.join(out_dir, "train_log.csv"),
+                           ["epoch", "step", "loss", "wall_s"])
+        keeper = BestKeeper(os.path.join(out_dir, "best.ckpt"))
+    else:
+        logger = keeper = _Quiet()
     curves = {"loss": []}
     t_start = time.time()
     _FAMILIES[family](
         ff=ff, traj=traj, epochs=epochs, batch_size=batch_size, rng=rng, gen=gen,
         logger=logger, keeper=keeper, curves=curves, out_dir=out_dir, names=names,
-        top=top, device=device,
+        top=top, device=device, **({} if dp is None else {"dp": dp}),
     )
+    if not writes:
+        return 0
     plot_losses(os.path.join(out_dir, "loss.png"), curves, title=family)
     logger.close()
+    ranks = "" if dp is None else f" on {dp.world} data-parallel ranks"
     print(
-        f"{family}: {epochs} epochs in {time.time() - t_start:.1f}s, "
+        f"{family}: {epochs} epochs in {time.time() - t_start:.1f}s{ranks}, "
         f"best loss {keeper.best:.4f}, artifacts in {out_dir}"
     )
     return 0
@@ -304,9 +378,21 @@ def _sweep(model, gen):
 # --- family runners ---------------------------------------------------------
 
 
+def _rows(dp, *arrays):
+    """This rank's rows of each array (all of them without ``dp``)."""
+    return arrays if dp is None else tuple(dp.rows(a) for a in arrays)
+
+
+def _global(dp, loss):
+    """The global batch's loss from this rank's (a collective: every rank
+    calls it at the same step)."""
+    return loss if dp is None else dp.mean(loss)
+
+
 def _pretrain_generator(model, ff, traj, epochs, batch_size, rng, gen, logger, keeper,
-                        curves, t0=None):
-    """The shared decoder-pretrain loop, in place on ``model``.
+                        curves, t0=None, dp=None, forward=None):
+    """The shared decoder-pretrain loop, in place on ``model`` (through
+    ``forward``, its data-parallel wrapper, where one is given).
 
     lr 1e-3: at the reference's 1e-4 + clip 1.0 the decoder needs about
     10k steps to reach the data's coordinate scale. The potential
@@ -316,29 +402,32 @@ def _pretrain_generator(model, ff, traj, epochs, batch_size, rng, gen, logger, k
     from molecular_dynamics_tpu_torch.train.cgan import PretrainStep
     from molecular_dynamics_tpu_torch.train.datasets import frame_time_batches
 
-    step = PretrainStep(model, ff, lr=1e-3)
+    step = PretrainStep(model if forward is None else forward, ff, lr=1e-3)
     device = gen.device
     t0 = time.time() if t0 is None else t0
     i = 0
     for epoch in range(epochs):
         alpha = 0.01 * min(1.0, epoch / max(epochs - 1, 1))
         for frames, times in frame_time_batches(traj, batch_size, rng):
-            loss, _ = step(
-                _latents(gen, len(times), model.latent_dim),
-                torch.as_tensor(frames, device=device),
-                torch.as_tensor(times, device=device), alpha)
+            z = _latents(gen, len(times), model.latent_dim)
+            frames, times, z = _rows(dp, frames, times, z)
+            loss, _ = step(z, torch.as_tensor(frames, device=device),
+                           torch.as_tensor(times, device=device), alpha)
             i += 1
             if i % 10 == 0:
-                _log(logger, curves, keeper, model, epoch, i, loss, t0)
+                _log(logger, curves, keeper, model, epoch, i, _global(dp, loss), t0)
     return i
 
 
 def _run_pretrain(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir,
-                  names, top, device):
+                  names, top, device, dp=None):
     from molecular_dynamics_tpu_torch.models.cgan import Generator
 
     model = Generator(n_atoms=ff.n_atoms, generator=gen, device=device)
-    _pretrain_generator(model, ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves)
+    _pretrain_generator(model, ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves,
+                        dp=dp, forward=None if dp is None else dp.wrap(model))
+    if not _writes(dp):
+        return model
     coords = _sweep(model, gen)
     _export_xyz(os.path.join(out_dir, GENERATED["pretrain"] + ".xyz"), coords, names, top=top)
     _eval_generated(out_dir, "pretrain", coords, traj)
@@ -370,7 +459,7 @@ def _data_bias(traj, n_atoms, device, dtype=torch.float32):
 
 
 def _run_cgan(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir,
-              names, top, device):
+              names, top, device, dp=None):
     from molecular_dynamics_tpu_torch.models.cgan import Discriminator, Generator
     from molecular_dynamics_tpu_torch.train.cgan import CGANConfig, CGANTrainer
     from molecular_dynamics_tpu_torch.train.datasets import frame_time_batches
@@ -385,29 +474,33 @@ def _run_cgan(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, ou
     # keeps all three losses bounded; the physics-best generator below is
     # the reference's best-checkpoint rollback.
     cfg = CGANConfig(lr_g=1e-5, lr_d=1e-5, lr_informed=1e-5)
-    trainer = CGANTrainer(g_model, d_model, ff, bias=bias, config=cfg)
+    # one data-parallel wrapper a module, shared by every phase that steps it
+    g_fwd, d_fwd = (g_model, d_model) if dp is None else (dp.wrap(g_model), dp.wrap(d_model))
+    trainer = CGANTrainer(g_fwd, d_fwd, ff, bias=bias, config=cfg)
     t0 = time.time()
     # phase 1: decoder pretrain (a GAN from a random decoder collapses: the
     # informed phase sees astronomic LJ). The keeper is not rebased after
     # it, as in the reference driver.
     i = _pretrain_generator(g_model, ff, traj, max(epochs, 4), batch_size, rng, gen, logger,
-                            keeper, curves, t0=t0)
+                            keeper, curves, t0=t0, dp=dp, forward=g_fwd)
     # phase 2: the three-phase adversarial + informed loop (the trainer's
     # optimizers have taken no step yet), the final generator the
     # physics-best (lowest informed loss) probe, not the last iterate
     best_i, best_state = float("inf"), _clone_state(g_model)
     for epoch in range(epochs):
         for frames, times in frame_time_batches(traj, batch_size, rng):
-            fr_b = torch.as_tensor(frames, device=device)
-            t_b = torch.as_tensor(times, device=device)
             n_b = len(times)
-            trainer.g_step(_latents(gen, n_b, g_model.latent_dim), t_b)
-            trainer.d_step(_latents(gen, n_b, g_model.latent_dim), fr_b, t_b)
-            i_loss = trainer.informed_step(_latents(gen, n_b, g_model.latent_dim), t_b)
+            fr_b, t_b = (torch.as_tensor(a, device=device) for a in _rows(dp, frames, times))
+            trainer.g_step(*_rows(dp, _latents(gen, n_b, g_model.latent_dim)), t_b)
+            trainer.d_step(*_rows(dp, _latents(gen, n_b, g_model.latent_dim)), fr_b, t_b)
+            i_loss = trainer.informed_step(
+                *_rows(dp, _latents(gen, n_b, g_model.latent_dim)), t_b)
             i += 1
             if i % 10 == 0:
                 # a host synchronisation, so the best-generator probe shares
-                # the logging cadence instead of blocking every batch
+                # the logging cadence instead of blocking every batch; the
+                # global loss, so that every rank takes the same rollback
+                i_loss = _global(dp, i_loss)
                 il = float(i_loss)
                 if il < best_i:
                     best_i, best_state = il, _clone_state(g_model)
@@ -423,6 +516,8 @@ def _run_cgan(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, ou
                     trainer.reset_generator_optimizers()
                 _log(logger, curves, keeper, g_model, epoch, i, i_loss, t0)
     g_model.load_state_dict(best_state)
+    if not _writes(dp):
+        return g_model
     coords = _sweep(g_model, gen)
     _export_xyz(os.path.join(out_dir, GENERATED["cgan"] + ".xyz"), coords, names, top=top)
     _eval_generated(out_dir, "cgan", coords, traj)
@@ -882,16 +977,17 @@ def _uniform(gen, shape):
 
 
 def _epochs(epochs, batches, update, logger, curves, keeper, model, t0, i=0, epoch0=0,
-            epoch_end=None):
+            epoch_end=None, dp=None):
     """The shared update loop: ``update(*batch)`` for each batch of
-    ``batches()``, a log row every 10 updates at epoch ``epoch0 + epoch``,
-    then ``epoch_end(epoch)``. Returns the update count."""
+    ``batches()``, a log row every 10 updates at epoch ``epoch0 + epoch``
+    (the global batch's loss under ``dp``), then ``epoch_end(epoch)``.
+    Returns the update count."""
     for epoch in range(epochs):
         for batch in batches():
             loss = update(*batch)
             i += 1
             if i % 10 == 0:
-                _log(logger, curves, keeper, model, epoch0 + epoch, i, loss, t0)
+                _log(logger, curves, keeper, model, epoch0 + epoch, i, _global(dp, loss), t0)
         if epoch_end is not None:
             epoch_end(epoch)
     return i
@@ -905,20 +1001,27 @@ def _shuffled(rng, n, batch_size, device):
 
 
 def _finetune(model, keeper, rng, arrays, loss_fn, batch_size, ft_epochs, epochs, i, t0, logger,
-              curves, lr=2e-5):
+              curves, lr=2e-5, dp=None):
     """An unrolled fine-tune: a new loss regime (``keeper.rebase()``), a
     fresh ``ClippedAdam`` (``lr``, clip 1.0), shuffled batches of ``max(4,
     batch_size // 2)`` rows of ``arrays`` (tensors on the device) into
     ``loss_fn``, ``ft_epochs`` epochs logged after the ``epochs`` base ones.
-    Returns the update count."""
+    Under ``dp`` each rank takes its block of every batch (``loss_fn`` then
+    runs the model's data-parallel wrapper). Returns the update count."""
     from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
 
     keeper.rebase()
-    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=1.0)
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=1.0, backward=dp is not None)
     update = stepper(opt, lambda sel: loss_fn(*(a[sel] for a in arrays)))
-    ft_bs = max(4, batch_size // 2)
-    return _epochs(ft_epochs, lambda: _shuffled(rng, len(arrays[0]), ft_bs, arrays[0].device),
-                   update, logger, curves, keeper, model, t0, i=i, epoch0=epochs)
+    ft_bs = _finetune_batch(batch_size)
+    return _epochs(ft_epochs, lambda: (
+        _rows(dp, *sel) for sel in _shuffled(rng, len(arrays[0]), ft_bs, arrays[0].device)),
+                   update, logger, curves, keeper, model, t0, i=i, epoch0=epochs, dp=dp)
+
+
+def _finetune_batch(batch_size):
+    """The unrolled fine-tune's batch rows."""
+    return max(4, batch_size // 2)
 
 
 def _window_unroll_loss(model, w0, tgt):
@@ -948,11 +1051,12 @@ def _windows_ahead(arrays, history, ahead, transpose=False):
 
 def _window_rollout_finetune(model, traj, history, feat, rng, i, t0, epochs, batch_size,
                              logger, curves, keeper, env_prefix, ft_w_default=8,
-                             ft_epochs_default=4):
+                             ft_epochs_default=4, dp=None, forward=None):
     """Unrolled fine-tune through the exact window-shift rollout map (lstm,
     transformer): ``<PREFIX>_FT_W``-frame rollouts against the true future
     frames, ``<PREFIX>_FT_EPOCHS`` epochs at lr 2e-5, so that compounding
-    drift is penalised directly. Returns the update count."""
+    drift is penalised directly (data-parallel under ``dp``, through
+    ``forward``). Returns the update count."""
     ft_w = int(os.environ.get(env_prefix + "_FT_W", ft_w_default))
     ft_epochs = int(os.environ.get(env_prefix + "_FT_EPOCHS", ft_epochs_default))
     if ft_epochs <= 0 or ft_w <= 1:
@@ -962,8 +1066,9 @@ def _window_rollout_finetune(model, traj, history, feat, rng, i, t0, epochs, bat
         return i
     device = next(model.parameters()).device
     arrays = [torch.as_tensor(np.stack(a).astype(np.float32), device=device) for a in (fw0, ftg)]
-    return _finetune(model, keeper, rng, arrays, lambda w, t: _window_unroll_loss(model, w, t),
-                     batch_size, ft_epochs, epochs, i, t0, logger, curves)
+    fwd = model if forward is None else forward
+    return _finetune(model, keeper, rng, arrays, lambda w, t: _window_unroll_loss(fwd, w, t),
+                     batch_size, ft_epochs, epochs, i, t0, logger, curves, dp=dp)
 
 
 def _start_windows(traj, history, device, n=8, flat=True):
@@ -1003,7 +1108,7 @@ def _torsion_tables(ff, top):
 
 
 def _run_lstm(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, out_dir, names,
-              top, device, nll=False):
+              top, device, nll=False, dp=None):
     """Windowed LSTM (history 15): the composite next-frame loss at lead 2,
     then the unrolled fine-tune (``MDX_LSTM_FT_*``); or, for ``lstm-nll``,
     the Gaussian NLL at lead 1 (each sample is fed back as the immediate
@@ -1026,11 +1131,13 @@ def _run_lstm(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, ou
     traj, w_mean, w_std = _whitened(traj)
     if nll:
         model = LSTMNLLPredictor(feat, feat, generator=gen, device=device)
-        _, step = make_nll_trainer(model)
+        fwd = model if dp is None else dp.wrap(model)
+        _, step = make_nll_trainer(fwd)
     else:
         model = LSTMPredictor(feat, feat, generator=gen, device=device)
+        fwd = model if dp is None else dp.wrap(model)
         phi_idx, psi_idx = _torsion_tables(ff, top)
-        _, step = make_window_trainer(model, phi_idx, psi_idx, SeqTrainConfig(n_atoms=n))
+        _, step = make_window_trainer(fwd, phi_idx, psi_idx, SeqTrainConfig(n_atoms=n))
     probe_every_ep = int(os.environ.get("MDX_LSTM_PROBE", 0))
     if probe_every_ep and nll:
         warnings.warn("MDX_LSTM_PROBE is ignored by lstm-nll: it keeps its final weights "
@@ -1040,6 +1147,7 @@ def _run_lstm(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, ou
 
     def batches():
         for window, target in window_batches(traj, history, lead, batch_size, rng):
+            window, target = _rows(dp, window, target)
             yield torch.as_tensor(window, device=device), torch.as_tensor(target, device=device)
 
     def epoch_end(epoch):
@@ -1047,10 +1155,14 @@ def _run_lstm(ff, traj, epochs, batch_size, rng, gen, logger, keeper, curves, ou
             _snapshot(snapshots, model)
 
     t0 = time.time()
-    i = _epochs(epochs, batches, step, logger, curves, keeper, model, t0, epoch_end=epoch_end)
+    i = _epochs(epochs, batches, step, logger, curves, keeper, model, t0, epoch_end=epoch_end,
+                dp=dp)
     if not nll:
         i = _window_rollout_finetune(model, traj, history, feat, rng, i, t0, epochs, batch_size,
-                                     logger, curves, keeper, env_prefix="MDX_LSTM")
+                                     logger, curves, keeper, env_prefix="MDX_LSTM", dp=dp,
+                                     forward=fwd)
+    if not _writes(dp):
+        return model
     roll_len = _roll_len(traj)
     correct = corrector_from_env(ff, w_mean, w_std)
     starts = _start_windows(traj, history, device)

@@ -47,7 +47,7 @@ from molecular_dynamics_tpu_torch.energy import REFERENCE_CONFIG, _neg_grad, tot
 from molecular_dynamics_tpu_torch.features import knn_mask
 from molecular_dynamics_tpu_torch.integrate import minimize_fire, mix_seed
 from molecular_dynamics_tpu_torch.models.seq import gaussian_nll
-from molecular_dynamics_tpu_torch.train.common import ClippedAdam, stepper
+from molecular_dynamics_tpu_torch.train.common import ClippedAdam, is_data_parallel, stepper
 from molecular_dynamics_tpu_torch.train.losses import window_composite_loss
 
 Tensor = torch.Tensor
@@ -80,8 +80,11 @@ def window_loss(model, window: Tensor, target: Tensor, phi_idx: Tensor, psi_idx:
 
 
 def make_window_trainer(model, phi_idx, psi_idx, config: SeqTrainConfig = SeqTrainConfig()):
-    """Composite-loss next-frame trainer: ``(opt, step(window, target))``."""
-    opt = ClippedAdam(model.parameters(), lr=config.lr, clip_norm=config.clip_norm)
+    """Composite-loss next-frame trainer: ``(opt, step(window, target))``.
+    ``model`` may be a ``DistributedDataParallel`` wrapper (as may the NLL
+    trainer's)."""
+    opt = ClippedAdam(model.parameters(), lr=config.lr, clip_norm=config.clip_norm,
+                      backward=is_data_parallel(model))
     device = next(model.parameters()).device
     knn = knn_mask(config.n_atoms, config.knn_k, device=device)
     phi = torch.as_tensor(np.asarray(phi_idx), device=device)
@@ -96,7 +99,8 @@ def nll_loss(model, window: Tensor, target: Tensor) -> Tensor:
 
 def make_nll_trainer(model, lr: float = 1e-4, clip_norm: float = 1.0):
     """Gaussian-NLL next-frame trainer: ``(opt, step(window, target))``."""
-    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=clip_norm)
+    opt = ClippedAdam(model.parameters(), lr=lr, clip_norm=clip_norm,
+                      backward=is_data_parallel(model))
     return opt, stepper(opt, lambda w, t: nll_loss(model, w, t))
 
 

@@ -211,8 +211,10 @@ def test_unported_options_raise(tmp_path, capsys):
                       str(data / "raw-traj_rep-1.npy"), "--stride", "10", "--epochs", "1",
                       "--batch-size", "8", "--out-dir", str(tmp_path)]) == 0
     assert "vae eval:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A14"):
-        tcli.main(["simulate", "--device", "cpu", "--devices", "2"])
+    # --devices runs since the multi-device layer was ported (it raised
+    # NotImplementedError before); more devices than are visible raise
+    with pytest.raises(ValueError, match=r"requested a 64-device mesh but only \d+ CUDA"):
+        tcli.main(["simulate", "--devices", "64"])
     # xtc, mdxtc and prmtop run since the host I/O was ported (they raised before)
     from molecular_dynamics_tpu_torch.io import native
 

@@ -7,6 +7,7 @@ arrays, through the port's ``convert`` module.
 
 import dataclasses
 import functools
+import pathlib
 
 import numpy as np
 import jax
@@ -53,11 +54,16 @@ def torch_system(name: str, f64: bool = True):
     return tff, coords
 
 
-@functools.lru_cache(maxsize=None)
-def minimized_full_da() -> np.ndarray:
+#: ``fire_full_da()``'s result, kept so that the test workers read it
+#: instead of each minimising again (seconds each); ``JAX_PLATFORMS=cpu
+#: PYTHONPATH=. python tests/torch_parity.py`` writes it anew
+MINIMIZED_FULL_DA = pathlib.Path(__file__).parent / "goldens" / "full_da_fire500.npy"
+
+
+def fire_full_da() -> np.ndarray:
     """FIRE-minimised float32 coordinates of the 104-atom system (500 steps,
-    the campaign's settings), made once per process with the port's own
-    minimiser; its parity with the JAX minimiser has a test of its own."""
+    the campaign's settings) from the port's own minimiser; its parity with
+    the JAX minimiser has a test of its own."""
     from molecular_dynamics_tpu_torch.energy import force_fn
     from molecular_dynamics_tpu_torch.integrate import minimize_fire
 
@@ -68,6 +74,13 @@ def minimized_full_da() -> np.ndarray:
         lambda p: force(p, tff), n_steps=500, dt_start=1e-3, dt_max=1e-2,
     )
     return pos.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def minimized_full_da() -> np.ndarray:
+    """``fire_full_da()``, as kept in ``MINIMIZED_FULL_DA``: the start of
+    the 104-atom parity tests (both packages start from it)."""
+    return np.load(MINIMIZED_FULL_DA)
 
 
 def thermal_velocities(masses: np.ndarray, n_replicas: int, seed: int = 0) -> np.ndarray:
@@ -98,3 +111,7 @@ def float64_lstm_carries(monkeypatch):
         return jax.tree.map(lambda c: c.astype(jnp.float64), initialize(self, rng, input_shape))
 
     monkeypatch.setattr(nn.OptimizedLSTMCell, "initialize_carry", carry64)
+
+
+if __name__ == "__main__":
+    np.save(MINIMIZED_FULL_DA, fire_full_da())
