@@ -54,10 +54,32 @@ Phases, one JSON line each on standard output:
    and ``sasa_every=5``; then the GB and SASA kernels' own path (the same
    entry point on its composed per-step path, ``fused_campaign=False``,
    whose GB and LCPO forces are one ``gb_forces`` and one ``sasa_forces``
-   launch a step); then the same entry point with no kernel flag on states
-   the GB and SASA kernels do not hold (104 atoms in float64, 416 atoms in
-   float32), where those forces come from autograd, against 104 atoms in
-   float32, where both kernels launch (``solvent_dispatch``).
+   launch a step); then the same entry point with no kernel flag on a state
+   the GB and SASA kernels do not hold (104 atoms in float64), where those
+   forces come from autograd, against 104 and 416 atoms in float32, where
+   both kernels launch (``solvent_dispatch``; the GB kernel at 416 atoms
+   runs without its dI cache, and is held there against its plain version
+   at 192 replicas and timed).
+   ``gbis_tiers``: the GBIS campaign through the campaign kernel at 208
+   atoms x 384 replicas and 416 x 192 (``tiled_decaalanine(m)``, m = 2, 4,
+   copies of the GBIS-minimised structure; SMD bias on copy 0's ends, atom
+   0 against atom 103; rigid X-H bonds, 2 fs, 300 K): the kernel (its
+   512-thread instantiation without GB's dI cache) against its plain
+   version, 5 steps in float32 and 50 against float64, on the same normals;
+   its time a launch beside its bound; ``simulate_ensemble(fused_campaign)``
+   for 2000 steps with the campaign gates and 40 launches, at 416 atoms
+   under ``GBIS_CONFIG`` at ``sasa_every`` 1 and 5 and under
+   ``GBIS_POLAR_CONFIG`` at ``gb_every=5``, at 208 atoms at ``sasa_every=1``;
+   ``cli simulate`` under ``GBIS_CONFIG`` on the 416-atom system written as
+   a chamber prmtop; and both solvent instantiations and both GB kernels
+   (with and without the cache) at 104 and 208 atoms, timed in turns: the
+   measurement the switch point ``gb.GB_CACHE_MAX_ATOMS`` rests on.
+   ``cadence``: the cadences' long-run soundness: NVE traces (gamma = 0, 1
+   fs, no constraints, 10,000 steps, E_tot once a launch) through the
+   campaign kernel at 104 atoms x 1024 replicas under ``GBIS_POLAR_CONFIG``
+   at ``gb_every`` 1, 2, 5 and ``GBIS_CONFIG`` at ``sasa_every`` 1, 5, and at
+   416 x 128 at ``gb_every`` 1 and 5: the fitted drift of E_tot over the
+   run at k > 1 within 1.0 kcal/mol (a 104-atom copy) of k = 1's.
    ``tiers``: the composed, differentiable pair-op path at the system sizes
    of the tier table: ``tiled_decaalanine(m)`` for m = 1, 4, 8, 10 at 768, 192,
    96 and 96 replicas, FIRE, then 500 steps of 1 fs at 300 K, unconstrained,
@@ -147,7 +169,7 @@ Phases, one JSON line each on standard output:
    it does.
    ``dynamics``: the Hamiltonian dynamics line on the same data: ``cli
    train node --epochs 8`` under the JAX package's live-quality ceiling
-   (mean_abs_error 1.10 A), ``hnn`` and ``hnn-latent`` at 2 epochs and
+   (mean_abs_error 1.10 A), ``hnn`` and ``hnn-latent`` at 1 epoch and
    ``hnn-schnet`` at 1 under the 100 A sanity bound (eval.json finite, the generated
    rollouts finite); from the four runs' trained weights, every step kind
    (HNN and SchNet HNN L2, informed and 10-step unroll; node's RK4 step and
@@ -161,7 +183,7 @@ Phases, one JSON line each on standard output:
    lstm --epochs 8`` and ``lstm-gat --epochs 6`` under the JAX package's
    live-quality ceilings (mean_abs_error 3.20 / 3.00 A), ``lstm-nll``,
    ``seq2seq``, ``seq2seq-gan``, ``transformer``, ``gat`` and
-   ``seq2seq-graph`` at 2 epochs under the 100 A sanity bound; from the
+   ``seq2seq-graph`` at 1 epoch under the 100 A sanity bound; from the
    runs' trained weights, every step kind (the lstm window step and its
    8-window fine-tune, the lstm-nll step, the seq2seq step, seq2seq-gan's
    generator and critic steps, the transformer's step and fine-tune, the
@@ -220,6 +242,7 @@ import contextlib
 import csv
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import io
@@ -247,6 +270,7 @@ from molecular_dynamics_tpu_torch.constraints import hydrogen_bond_constraints
 from molecular_dynamics_tpu_torch.energy import (
     DEFAULT_TERMS,
     GBIS_CONFIG,
+    GBIS_POLAR_CONFIG,
     REFERENCE_CONFIG,
     EnergyConfig,
     _neg_grad,
@@ -304,6 +328,40 @@ N_INNER = 50
 N_STEPS = 2000
 PAIR_PATH_STEPS = 4  # steps of the fused_nonbonded path, one pair_tiles launch each
 SOLVENT_PATH_STEPS = 4  # steps of the composed GBIS path, one gb_forces + one sasa_forces launch each
+#: the GBIS campaign at the tier sizes: tiled_decaalanine(m) at the tier
+#: table's replica count (416 x 192; 208 x 384 between it and 104 x 768)
+GBIS_TIERS = ((2, 384), (4, 192))
+#: the runs of simulate_ensemble(fused_campaign) at a GBIS tier: (label,
+#: energy, sasa_every, gb_every); the 208-atom tier runs the first only
+GBIS_TIER_RUNS = (("sasa_every=1", GBIS_CONFIG, 1, 1), ("sasa_every=5", GBIS_CONFIG, 5, 1),
+                  ("polar,gb_every=5", GBIS_POLAR_CONFIG, 1, 5))
+#: the cadence phase: NVE traces (gamma = 0, 1 fs, no constraints) through
+#: the campaign kernel, the total energy once a launch; (label, energy,
+#: sasa_every, gb_every, the every-step arm it is held against). A replica's
+#: E_tot swings by about 5 kcal/mol (104 atoms) from save to save, so its
+#: fitted drift over the run scatters by about 4 kcal/mol from replica to
+#: replica (with 8 replicas the k = 5 and k = 1 means parted by 1.2 kcal/mol
+#: of that noise alone; with 256, by 0.42 +- 0.35; H100 80GB HBM3 at 700 W):
+#: the arms run the main path's 1024 replicas, so that the gap between two
+#: arms' means is known to about a sixth of the bound
+CADENCE_STEPS = 10_000
+CADENCE_REPLICAS = 1024
+CADENCE_ARMS = (
+    ("polar,gb_every=1", GBIS_POLAR_CONFIG, 1, 1, None),
+    ("polar,gb_every=2", GBIS_POLAR_CONFIG, 1, 2, "polar,gb_every=1"),
+    ("polar,gb_every=5", GBIS_POLAR_CONFIG, 1, 5, "polar,gb_every=1"),
+    ("gbis,sasa_every=1", GBIS_CONFIG, 1, 1, None),
+    ("gbis,sasa_every=5", GBIS_CONFIG, 5, 1, "gbis,sasa_every=1"),
+)
+#: the arms run at 416 atoms too, at fewer replicas
+CADENCE_ARMS_416 = ("polar,gb_every=1", "polar,gb_every=5")
+CADENCE_REPLICAS_416 = 128  # one wave of CTAs at one an SM
+#: the fitted drift of E_tot over a run at k > 1 against k = 1's: the JAX
+#: package's bound on the k = 5 NVE trace of the 104-atom system
+#: (tests/test_fused_gb.py, TestGBMultipleTimestepping.
+#: test_nve_energy_trace_matches_every_step); the drift is extensive, so the
+#: tiled system is held to it per 104-atom copy
+CADENCE_DRIFT_BOUND = 1.0  # kcal/mol a copy
 SEED = 20240914
 # the composed pair-op path at the system sizes of the JAX package's tier
 # table (scripts/bench_tiers.py): m tiled copies of the 104-atom system and
@@ -337,16 +395,24 @@ TRAIN_BUDGET = {"pretrain": (4, 2.20), "cgan": (3, 2.60), "node": (8, 1.10), "ls
                 "lstm-gat": (6, 3.00)}
 TRAIN_BATCH = 32
 #: the dynamics phase: ``node`` at its live budget above; the three HNN
-#: families at this depth, held to the sanity bound of the JAX package's
-#: driver test (tests/test_train.py: generated e2e within 100 A of the data)
+#: families below, and the generative families at this depth, held to the
+#: sanity bound of the JAX package's driver test (tests/test_train.py:
+#: generated e2e within 100 A of the data)
 DYNAMICS_EPOCHS = 2
 DYNAMICS_SANITY_A = 100.0
 #: ``hnn-schnet``'s sanity run at one epoch: its (32, 40, 40, 64) filters,
 #: differentiated twice, took 48.8 s of a two-epoch run against 5.6 s at
 #: one (H100 80GB HBM3 at 700 W); the same gate
 SCHNET_EPOCHS = 1
+#: ``hnn`` and ``hnn-latent`` at one epoch too, under the same gate (at two
+#: they took 7.4 and 4.9 s, H100 80GB HBM3 at 700 W): room for the GBIS
+#: tiers and the cadence phase, after the sequence families' cut
+HNN_SANITY_EPOCHS = 1
 #: the sequence phase: ``lstm`` and ``lstm-gat`` at their live budgets
-#: above, the other six at DYNAMICS_EPOCHS under the sanity bound
+#: above, the other six at SEQUENCE_SANITY_EPOCHS under the sanity bound (at
+#: two epochs they took 127 s of the phase's 268, H100 80GB HBM3 at 700 W:
+#: one epoch makes room for the GBIS tiers and the cadence phase)
+SEQUENCE_SANITY_EPOCHS = 1
 SEQUENCE_FAMILIES = ("lstm", "lstm-gat", "lstm-nll", "seq2seq", "seq2seq-gan", "transformer",
                      "gat", "seq2seq-graph")
 #: each sequence step kind on the card against float64: the loss, the
@@ -1048,25 +1114,6 @@ __device__ __forceinline__ float gb_still_pass(
   return e_thread;
 }
 """
-_CHAIN_RECOMPUTE = """        const float dx = xi - sx[j], dy = yi - sy[j], dz = zi - sz[j];
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        const float dinv = 1.0f / sqrtf(d2);
-        float unused, di_f, di_r;
-        hct_pair(d2 * dinv, dinv, __ldg(&atom[kGbColumns * i + kGbRho]),
-                 __ldg(&atom[kGbColumns * i + kGbRhoInv]),
-                 __ldg(&atom[kGbColumns * j + kGbS]), unused, di_f);
-        hct_pair(d2 * dinv, dinv, __ldg(&atom[kGbColumns * j + kGbRho]),
-                 __ldg(&atom[kGbColumns * j + kGbRhoInv]),
-                 __ldg(&atom[kGbColumns * i + kGbS]), unused, di_r);
-        const float coeff = (ce_i * di_f + w.ce[j] * di_r) * dinv;
-        fx -= coeff * dx;
-        fy -= coeff * dy;
-        fz -= coeff * dz;"""
-_CHAIN_CACHED = """        const float coeff = ce_i * w.cache[gb_cache_index(i, j, stride)] +
-                            w.ce[j] * w.cache[gb_cache_index(j, i, stride)];
-        fx -= coeff * (xi - sx[j]);
-        fy -= coeff * (yi - sy[j]);
-        fz -= coeff * (zi - sz[j]);"""
 _D_AND_WALK = """    float gsum = 0.f;
     for (int wd = 0; wd < words; ++wd) {
       const unsigned mp = w.bits[p * words + wd];
@@ -1089,19 +1136,11 @@ _D_BIT_PER_I = """    float gsum = 0.f;
     }"""
 #: (what is taken out, its substitutions, the runs it is measured in)
 LEVERS = (
-    ("dI/dd evaluated again in the chain pass (no cache reads)", [
-        (_CHAIN_CACHED, _CHAIN_RECOMPUTE),
-        ("                                              float* ty, float* tz) {\n  const int stride",
-         "                                              float* ty, float* tz,\n"
-         "                                              const float* __restrict__ atom) {\n  const int stride"),
-        ("  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz);",
-         "  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz, atom);")],
-     ("gb_forces", "campaign_advance[gbis]")),
     ("Still term once per unordered pair, on a ring (partner halves through shared memory)", [
         (("template <int kThreads, bool kEnergy>\n__device__ __forceinline__ float gb_still_pass(",
           "// Chain pass:"), _STILL_RING + "\n"),
-        ("  return 3 * static_cast<size_t>(n) +\n         static_cast<size_t>(n) * gb_cache_stride(n);",
-         "  return 3 * static_cast<size_t>(n) +\n         static_cast<size_t>(n) * gb_cache_stride(n) + 9 * static_cast<size_t>(n);")],
+        ("         (cached ? static_cast<size_t>(n) * gb_cache_stride(n) : 0);",
+         "         (cached ? static_cast<size_t>(n) * gb_cache_stride(n) : 0) + 9 * static_cast<size_t>(n);")],
      ("gb_forces", "campaign_advance[gbis]")),
     ("a thread per atom in every GB pass (no lane groups)", [
         ("constexpr int kGbLanes = 16;", "constexpr int kGbLanes = 1;")],
@@ -1431,12 +1470,13 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
     takes the GB and LCPO forces from K3 and K4 only where they hold the
     state (``gb_forces_holds``, ``sasa_forces_holds``: float32 within their
     shared memory), else from autograd of the energy, as the JAX package
-    does. 104 atoms in float64 (both from autograd), 416 atoms in float32 (GB
-    from autograd; K4 holds the 204 heavy atoms) and 104 atoms in float32
-    (both kernels), a few steps at T = 0 from the packaged coordinates: the
-    force each step carries equals autograd of the whole energy at its
-    positions, and the launch counters show the route. A direct call of a
-    wrapper on a state its kernel does not hold still raises."""
+    does. 104 atoms in float64 (both from autograd), 416 atoms in float32 (K3
+    without its dI cache, K4 with the 204 heavy atoms) and 104 atoms in
+    float32 (both kernels), a few steps at T = 0 from the packaged
+    coordinates: the force each step carries equals autograd of the whole
+    energy at its positions, and the launch counters show the route. K3 at
+    416 atoms x 192 replicas against its plain version, timed. A direct
+    call of a wrapper on a state its kernel does not hold still raises."""
     res = {}
     cases = (("104_atoms_f64", 1, torch.float64, TOL_AUTOGRAD_F64),
              ("416_atoms_f32", 4, torch.float32, TOL_F32_VS_F64),
@@ -1467,20 +1507,46 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
               f"solvent dispatch {label}: launches against the predicates: {res[label]}")
         check(res[label]["force_err_vs_autograd"] <= tol, f"solvent dispatch {label}: {res[label]}")
     skipped = {"gb_forces": 0, "sasa_forces": 0}
+    launched = {k: n_steps for k in skipped}
     check(res["104_atoms_f64"]["launches"] == skipped
-          and res["416_atoms_f32"]["launches"]["gb_forces"] == 0
-          and res["104_atoms_f32"]["launches"] == {k: n_steps for k in skipped},
-          f"solvent dispatch: K3 and K4 skipped at float64, K3 at 416 atoms, both launched "
-          f"at 104 atoms in float32: {res}")
-    # the wrappers themselves launch or raise
+          and res["416_atoms_f32"]["launches"] == launched
+          and res["104_atoms_f32"]["launches"] == launched,
+          f"solvent dispatch: K3 and K4 skipped at float64, both launched at 416 and at "
+          f"104 atoms in float32: {res}")
+    # K3 at 416 atoms without its dI cache, 192 replicas, against its plain version
     ff4, coords4, _ = tiled_decaalanine(4)
-    pos4 = torch.as_tensor(coords4, dtype=torch.float32, device="cuda")[None].contiguous()
+    consts = gb.gb_constants(GBIS_CONFIG.solvent_dielectric, GBIS_CONFIG.ion_concentration)
+    n4 = ff4.n_atoms
+    pos4 = jittered(coords4, GBIS_TIERS[-1][1], np.random.default_rng(SEED + 4))
+    tab4 = gb.build_gb_tables(ff4)
+    f_k, e_k, _ = gb.gb_forces(pos4, tab4, consts)
+    f_p, e_p, _ = gb.gb_forces_reference(pos4, tab4, consts)
+    torch.cuda.synchronize()
+    tol_e = 4 * TOL_GB_ENERGY  # four copies' energy, summed in another order
+    k3 = {"shape": list(pos4.shape), "gb_cached": gb.gb_cached(n4),
+          "force_err_kernel_vs_plain": max_err(f_k, f_p),
+          "energy_err_kernel_vs_plain": max_err(e_k, e_p),
+          "tolerances": (TOL_GB_FORCE, tol_e)}
+    check(not k3["gb_cached"] and k3["force_err_kernel_vs_plain"] <= TOL_GB_FORCE
+          and k3["energy_err_kernel_vs_plain"] <= tol_e, f"gb_forces at 416 atoms: {k3}")
+    call = lambda: gb.gb_forces(pos4, tab4, consts)
+    bound, by, _, _ = gb_bound_ms(pos4.shape[0], n4)
+    k3.update(ms=time_ms(call, repeats=10),
+              plain_ms=time_ms(lambda: gb.gb_forces_reference(pos4, tab4, consts), repeats=2),
+              bound_ms=bound, bound_by=by, sfu_bound_ms=sfu_ms(gb_sfu_ops(pos4.shape[0], n4)),
+              **build_facts(gb_forces_facts(n4), n_ctas=pos4.shape[0]))
+    res["gb_forces_416_atoms"] = k3
+    # the wrappers themselves launch or raise: past what K3 holds without
+    # its cache (6,456 atoms), and on float64
+    n_past = 6457
+    tab_past = gb.GBTables(atom=torch.zeros((n_past, 5), device="cuda"),
+                           atom64=torch.zeros((n_past, 5), dtype=torch.float64, device="cuda"))
+    pos_past = torch.zeros((1, n_past, 3), device="cuda")
     ff1, coords1, _ = decaalanine_full()
     pos64 = torch.as_tensor(coords1, dtype=torch.float64, device="cuda")[None].contiguous()
-    consts = gb.gb_constants(GBIS_CONFIG.solvent_dielectric, GBIS_CONFIG.ion_concentration)
     raised = {}
     for label, call in (
-        ("gb_forces_416_atoms_f32", lambda: gb.gb_forces(pos4, gb.build_gb_tables(ff4), consts)),
+        (f"gb_forces_{n_past}_atoms_f32", lambda: gb.gb_forces(pos_past, tab_past, consts)),
         ("gb_forces_104_atoms_f64", lambda: gb.gb_forces(pos64, gb.build_gb_tables(ff1), consts)),
         ("sasa_forces_104_atoms_f64", lambda: sasa.sasa_forces(pos64, sasa.build_sasa_tables(ff1))),
     ):
@@ -1491,6 +1557,405 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
             raised[label] = True
     res["wrappers_raise"] = raised
     check(all(raised.values()), f"solvent dispatch: a wrapper ran on a state it does not hold: {raised}")
+    return res
+
+
+def tiled_start(pos, m, spacing=50.0):
+    """``m`` copies of the 104-atom positions ``pos`` placed as
+    ``tiled_decaalanine`` places its copies (``spacing`` A apart along x)."""
+    shift = torch.zeros((m, 1, 3), dtype=pos.dtype, device=pos.device)
+    shift[:, 0, 0] = spacing * torch.arange(m, dtype=pos.dtype, device=pos.device)
+    return (pos[None] + shift).reshape(-1, 3)
+
+
+def with_forces(ens, ff_m, ecfg, bias_m=None):
+    """The ensemble with its carried forces those of ``ecfg`` (and the bias
+    at each replica's step) at its positions."""
+    step = int(ens.step.reshape(-1)[0])
+
+    def energy(q):
+        e = total_energy(q, ff_m, config=ecfg)
+        return e if bias_m is None else e + bias_m.energy(q, step)
+
+    return ens.replace(forces=_neg_grad(energy, ens.pos).detach().contiguous())
+
+
+def gbis_op(ff_m, n_inner, temperature, ecfg=GBIS_CONFIG, bias=None, constraints=None,
+            dt_fs=2.0, gamma_ps=1.0, **kw):
+    """The campaign op under ``ecfg`` (GB, and LCPO where its terms have
+    ``sasa``)."""
+    return fused_step.make_fused_campaign_op(
+        ff_m, n_inner=n_inner, dt_fs=dt_fs, temperature=temperature, gamma_ps=gamma_ps,
+        cutoff=ecfg.cutoff, switch_dist=ecfg.switch_dist, rfa=ecfg.rfa,
+        solvent_dielectric=ecfg.solvent_dielectric, ion_concentration=ecfg.ion_concentration,
+        surface_tension=ecfg.surface_tension, bias=bias, constraints=constraints,
+        gb=True, sasa="sasa" in ecfg.terms, **kw)
+
+
+def gbis_launch_bound(op, pos, sasa_tab):
+    """A GBIS launch's bound and SFU bound at ``pos``: the fast part's
+    (``campaign_bound``) and the GB and LCPO work at their cadences,
+    counted as the cached design does it (each ordered pair's HCT integral
+    and derivative once: ``gb_bound_ms``), so that recomputing them is part
+    of the gap, not of the bound."""
+    s, tab = op.settings, op.tables
+    n_rep, n = pos.shape[:2]
+    live = live_pair_count(pos, tab.pair, s["pair_consts"])
+    fast = campaign_bound(pos, tab, live, s["n_inner"], s["shake_iters"], s["rattle_iters"],
+                          s["pair_consts"][0])
+    gb_evals = s["n_inner"] // s["gb_every"]
+    flops = fast["flops"] + gb_evals * gb_bound_ms(n_rep, n, with_energy=False)[2]
+    sfu = campaign_sfu_ops(n_rep, tab, live, s["n_inner"], s["shake_iters"],
+                           s["rattle_iters"]) + gb_evals * gb_sfu_ops(n_rep, n)
+    nbytes = fast["bytes"] + n * 5 * 4
+    if s["surface_tension"] is not None:
+        nc = sasa_tab.n_compact
+        sasa_evals = s["n_inner"] // s["sasa_every"]
+        flops += sasa_evals * sasa_flops(n_rep, nc, sasa_work(pos, sasa_tab))
+        sfu += sasa_evals * sasa_sfu_ops(n_rep, nc)
+        nbytes += nc * 24
+    bound, by = bound_of(flops, nbytes)
+    return {"bound_ms": bound, "bound_by": by, "sfu_bound_ms": sfu_ms(sfu), "flops": flops,
+            "bytes": nbytes, "live_unordered_pairs_at_entry": live}
+
+
+def both_variants(make, patch, error, repeats=3):
+    """A kernel as built and with ``patch`` (module, name, value) set, which
+    makes the other instantiation run: ``make()`` returns the call and its
+    build facts, under the patch where it applies. Timed in turns (built,
+    other, other, built), each with its error against the plain version."""
+    calls = {}
+    for label, patches in (("as_built", ()), ("other", (patch,))):
+        with patched(patches):
+            calls[label] = make()
+    rows = {label: {"ms_each": []} for label in calls}
+    for label in ("as_built", "other", "other", "as_built"):
+        with patched(() if label == "as_built" else (patch,)):
+            rows[label]["ms_each"].append(time_ms(calls[label][0], repeats=repeats))
+    for label, (call, facts) in calls.items():
+        with patched(() if label == "as_built" else (patch,)):
+            rows[label].update(ms=sum(rows[label]["ms_each"]) / 2,
+                               error_vs_plain=error(call()), **facts())
+    return rows
+
+
+def gbis_tier_checks(ff_m, pos0, bias_m, cons_m, n_rep, m, runs):
+    """The campaign kernel under GBIS at a tier against its plain version on
+    the same normals, with the tolerances of the 104-atom checks, every
+    replica from the minimum jittered by 0.01 A at rest, as the tier checks
+    start: 5 steps at T = 0 (the first run) and at 300 K against the plain
+    version in float32; 50 steps at 300 K against it in float64 (and, not
+    held, in float32). Two float32 trajectories part faster than one does
+    from float64: at 416 x 192 after 50 steps the plain float32 version
+    itself sits 0.137-0.158 kcal/mol/A from float64 in force, against
+    TOL_FRC = 0.15 (from 300 K velocities its positions sit 2.3e-4 A from
+    float64 after 5 steps, past TOL_POS). Each run of ``runs`` is (label,
+    energy, sasa_every, gb_every). Then each run's ms a launch of 50 steps
+    at 300 K beside its bound and SFU bound, and the instantiation's build
+    facts."""
+    n = ff_m.n_atoms
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + m)
+    pos_b = (pos0[None] + 0.01 * torch.randn((n_rep, n, 3), generator=gen, device="cuda")
+             ).contiguous()
+    vel_b = torch.zeros_like(pos_b)
+    sasa_tab = sasa.build_sasa_tables(ff_m)
+    checks, times, ops = {}, {}, {}
+    for label, ecfg, sasa_every, gb_every in runs:
+        kw = dict(ecfg=ecfg, bias=bias_m, constraints=cons_m, sasa_every=sasa_every,
+                  gb_every=gb_every)
+        op50 = gbis_op(ff_m, N_INNER, 300.0, **kw)
+        s = op50.settings
+        # the start's forces in float64, rounded once: the same float32
+        # input every run (float32 sums on the card differ run to run)
+        frc = fused_step.campaign_forces_reference(
+            pos_b.double(), op50.tables, s["pair_consts"], s["bias_consts"], 0,
+            s["gb_consts"], s["surface_tension"]).float().contiguous()
+        cases = [(5, 0.0)] if label == runs[0][0] else []
+        for n_inner, temperature in cases + [(5, 300.0), (N_INNER, 300.0)]:
+            op = op50 if (n_inner, temperature) == (N_INNER, 300.0) else gbis_op(
+                ff_m, n_inner, temperature, **kw)
+            noise = (fused_step.campaign_noise(13, 40, n_inner, n_rep, n) if temperature
+                     else None)
+            t0, seed = (40, 13) if noise is not None else (0, 1)
+            out_k = op(pos_b, vel_b, frc, t0, seed)
+            torch.cuda.synchronize()
+            out_p = fused_step.campaign_advance_reference(
+                pos_b, vel_b, frc, t0, seed, op.tables, noise=noise, **op.settings)
+            errs = [max_err(x, y) for x, y in zip(out_k, out_p)]
+            name = f"{label},T={temperature:g},n_inner={n_inner}" + (",same noise" if noise is not None else "")
+            tols = (TOL_POS if n_inner <= 5 else TOL_POS_50, TOL_VEL, TOL_FRC)
+            checks[name] = {**dict(zip(("pos", "vel", "frc"), errs)), "tolerances": tols,
+                            "held_against": "plain float32"}
+            if n_inner == N_INNER:
+                # both float32 trajectories against float64 from the same start
+                out_d = fused_step.campaign_advance_reference(
+                    pos_b.double(), vel_b.double(), frc.double(), t0, seed, op.tables,
+                    noise=noise.double(), **op.settings)
+                errs = [max_err(x, y) for x, y in zip(out_k, out_d)]
+                checks[name].update(
+                    held_against="plain float64", kernel_vs_float64=errs,
+                    plain_float32_vs_float64=[max_err(x, y) for x, y in zip(out_p, out_d)])
+                del out_d
+            check(all(bool(torch.isfinite(x).all()) for x in out_k),
+                  f"GBIS campaign_advance at {n} atoms {name}: non-finite")
+            check(all(e <= tol for e, tol in zip(errs, tols)),
+                  f"GBIS campaign_advance at {n} atoms {name} vs the "
+                  f"{checks[name]['held_against']}: {errs} (bounds {tols})")
+            del out_p
+        times[label] = {
+            "ms": time_ms(lambda: op50(pos_b, vel_b, frc, 0, 3), repeats=3),
+            "n_inner": N_INNER, "shared_bytes": op50.shared_bytes,
+            **gbis_launch_bound(op50, pos_b, sasa_tab),
+            **build_facts(op50.kernel_info(), n_ctas=n_rep),
+        }
+        ops[label] = (functools.partial(gbis_op, ff_m, N_INNER, 300.0, **kw), frc)
+    return checks, times, (pos_b, vel_b, ops)
+
+
+def gbis_tier_run(ff_m, ens, bias_m, cons_m, ecfg, sasa_every, gb_every, tag):
+    """``simulate_ensemble(fused_campaign=True)`` at a GBIS tier for
+    N_STEPS: the campaign gates of the 104-atom path (frames finite, X-H
+    within 1e-5 A, T in 150-350 K, colvar lag under 2 A, replicas apart)
+    and one kernel launch a save, counted from 0 just before the call."""
+    n_rep, n = ens.pos.shape[:2]
+    n_saves = N_STEPS // N_INNER
+    cfg = SimulationConfig(dt_fs=2.0, temperature=300.0, energy=ecfg, fused_campaign=True,
+                           constrain_h_bonds=True, sasa_every=sasa_every, gb_every=gb_every)
+    ens = with_forces(ens, ff_m, ecfg, bias_m)
+    reset_launches()
+    t0 = time.perf_counter()
+    final, frames, log = simulate_ensemble(ens, ff_m, n_steps=N_STEPS, save_every=N_INNER,
+                                           config=cfg, bias=bias_m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    check(tuple(frames.shape) == (n_saves, n_rep, n, 3), f"{tag}: frames {tuple(frames.shape)}")
+    check(bool(torch.isfinite(frames).all()), f"{tag}: non-finite frames")
+    check(launches["campaign_advance"] == n_saves,
+          f"{tag}: campaign kernel launched {launches['campaign_advance']} times, expected {n_saves}")
+    last = frames[-1]
+    pairs = cons_m.pairs
+    bond = torch.linalg.norm(last[:, pairs[:, 0]] - last[:, pairs[:, 1]], dim=-1)
+    violation = float((bond - cons_m.lengths[None]).abs().max())
+    check(violation < 1e-5, f"{tag}: max X-H constraint violation {violation} A")
+    t_last = float(log["T"][-1].mean())
+    check(150.0 < t_last < 350.0, f"{tag}: ensemble-mean T of the last save {t_last} K")
+    lag = float((log["colvar_value"][-1] - log["colvar_center"][-1]).abs().mean())
+    check(lag < 2.0, f"{tag}: mean |colvar - centre| {lag} A")
+    flat = last.reshape(n_rep, -1)
+    spread = float((flat[1:] - flat[:-1]).abs().amax(dim=1).min())
+    check(spread > 1e-3, f"{tag}: neighbouring replicas coincide ({spread})")
+    return {
+        "replicas": n_rep, "atoms": n, "steps": N_STEPS, "launches": launches,
+        "max_constraint_violation_A": violation, "T_last_mean_K": t_last, "colvar_lag_A": lag,
+        "min_neighbour_spread_A": spread, "epot_last_mean": float(log["epot"][-1].mean()),
+        "seconds": seconds, "aggregate_steps_per_s": N_STEPS * n_rep / seconds,
+    }
+
+
+def write_tiled_prmtop(files, tmp, ff_m, meta_m, pos0):
+    """``ff_m`` (tiled copies of the packaged tables) as a chamber prmtop
+    and ``pos0`` as a PDB, by the numpy writer of the CPU tests."""
+    with np.load(FULL_DA_NPZ) as raw:
+        names = [k[3:] for k in raw.files if k.startswith("ff_")]
+    tables = {k: getattr(ff_m, k).detach().cpu().numpy() for k in names}
+    m = meta_m["tiled_copies"]
+    prmtop, pdb = tmp / f"full_da_x{m}.prmtop", tmp / f"full_da_x{m}.pdb"
+    files.write_prmtop(prmtop, tables, meta_m["atom_names"], meta_m["atom_types"],
+                       meta_m["res_ids"], meta_m["res_names"])
+    write_pdb(str(pdb), pos0.cpu().numpy(), meta_m["atom_names"], resnames=meta_m["res_names"],
+              resids=meta_m["res_ids"])
+    return str(prmtop), str(pdb)
+
+
+def gbis_tiers_phase(pos_g, switch_inputs):
+    """The GBIS campaign through the campaign kernel at the tier sizes
+    (GBIS_TIERS): m copies of the GBIS-minimised 104-atom structure, the SMD
+    bias on copy 0's ends (atom 0 against atom 103, from the measured
+    distance), Maxwell-Boltzmann velocities at 300 K. At each tier the
+    kernel against its plain version and its time a launch, then
+    ``simulate_ensemble(fused_campaign=True)`` for N_STEPS at each run of
+    GBIS_TIER_RUNS (the 208-atom tier at the first); at 416 atoms also
+    ``cli simulate`` on the system written as a chamber prmtop. Then both
+    solvent instantiations (and both GB kernels) at 104 and 208 atoms, the
+    measurement the switch points rest on (``switch_inputs``: the 104-atom
+    checks' states and plain outputs)."""
+    res, by_tier, launches = {}, {}, {}
+    starts = {}
+    for m, n_rep in GBIS_TIERS:
+        ff_m, _, meta_m = tiled_decaalanine(m)
+        n_m = ff_m.n_atoms
+        pos0 = tiled_start(pos_g, m)
+        d0 = float(torch.linalg.norm(pos0[103] - pos0[0]))
+        bias_m = HarmonicSMDBias.create(n_atoms=n_m, group1=[0], group2=[103], fk=1.0,
+                                        cent_0=d0, cent_1=d0 + 22.0, T=500_000.0)
+        cons_m = hydrogen_bond_constraints(ff_m)
+        check(cons_m.n_constraints == 53 * m, f"{n_m} atoms: {cons_m.n_constraints} X-H constraints")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(m)
+        ens = replicate(system_init(pos0, vel=maxwell_boltzmann(gen, ff_m.masses, 300.0), key=m),
+                        n_rep, seed=1)
+        runs = GBIS_TIER_RUNS if m == 4 else GBIS_TIER_RUNS[:1]
+        shape = f"{n_m}x{n_rep}"
+        checks, times, tier_inputs = gbis_tier_checks(ff_m, pos0, bias_m, cons_m, n_rep, m, runs)
+        starts[m] = (ff_m, pos0, tier_inputs)
+        row = {"campaign_advance_vs_plain": checks, "shared_bytes": times[runs[0][0]]["shared_bytes"]}
+        for label, ecfg, sasa_every, gb_every in runs:
+            tag = f"GBIS tier {shape} {label}"
+            row[label] = gbis_tier_run(ff_m, ens, bias_m, cons_m, ecfg, sasa_every, gb_every, tag)
+            times[label]["launches"] = row[label]["launches"]["campaign_advance"]
+            launches[f"gbis_tiers: simulate_ensemble(fused_campaign, {label}) {shape} x {N_STEPS}"] = (
+                row[label]["launches"])
+        if m == 4:
+            row["cli_prmtop"], cli_launches = gbis_tier_cli(ff_m, meta_m, pos0, n_rep)
+            launches[f"gbis_tiers: cli simulate prmtop GBIS_CONFIG {shape} x {N_STEPS}"] = cli_launches
+        by_tier[shape] = times
+        res[shape] = row
+    make_104, pos_b, vel_b, frc_g, pos_pert, gb_tab, gb_consts = switch_inputs
+    ff2, _, (pos2, vel2, ops2) = starts[2]
+    make_208, frc2 = ops2[GBIS_TIER_RUNS[0][0]]
+    shape_208 = f"{ff2.n_atoms}x{pos2.shape[0]}"
+    res["switch"] = gbis_switch(
+        {f"104x{N_REPLICAS}": (make_104, (pos_b, vel_b, frc_g)),
+         shape_208: (make_208, (pos2, vel2, frc2))},
+        {f"104x{N_REPLICAS}": (pos_pert, gb_tab, gb_consts),
+         shape_208: (pos2, gb.build_gb_tables(ff2), gb_consts)})
+    return res, by_tier, launches, starts
+
+
+def gbis_tier_cli(ff_m, meta_m, pos0, n_rep):
+    """``cli simulate`` with implicit solvent on the tier system written as
+    a chamber prmtop and PDB (the minimised copies; FIRE 50 steps from
+    there), n_rep x N_STEPS, with the cli campaigns' gates."""
+    files = load_test_files()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        prmtop, pdb = write_tiled_prmtop(files, tmp, ff_m, meta_m, pos0)
+        gbis_cfg = {**dataclasses.asdict(GBIS_CONFIG), "terms": list(GBIS_CONFIG.terms)}
+        cfg_path = tmp / "gbis.json"
+        cfg_path.write_text(json.dumps({"sim": {"energy": gbis_cfg, "sasa_every": 1}}))
+        run = [f"topology={prmtop}", f"coordinates={pdb}", "colvar.group2=[103]",
+               "colvar.T=500000", "sim.dt_fs=2.0", "sim.constrain_h_bonds=true",
+               "minimize_steps=50"]
+        out, _ = cli_campaign_run(ff_m.n_atoms, run, config=str(cfg_path), n_rep=n_rep)
+    return out, {"campaign_advance": out["campaign_kernel_launches"]}
+
+
+def gbis_switch(k1_cases, k3_cases):
+    """Both solvent instantiations of the campaign kernel (256 threads with
+    GB's dI cache, 512 without) and both GB kernels (with and without the
+    cache) at 104 and 208 atoms, each against its plain version: the times
+    the switch point ``gb.GB_CACHE_MAX_ATOMS`` rests on (the campaign kernel
+    runs its 256-thread instantiation, with the cache, where the GB kernel
+    keeps the cache). ``k1_cases``: shape -> (a function
+    that builds the 50-step GBIS op at 300 K, its pos, vel and forces);
+    ``k3_cases``: shape -> (pos, tables, consts)."""
+    res = {}
+    for shape, (make_op, args) in k1_cases.items():
+        n_rep, n = args[0].shape[:2]
+        op = make_op()
+        noise = fused_step.campaign_noise(3, 0, N_INNER, n_rep, n)
+        plain = fused_step.campaign_advance_reference(
+            *args, 0, 3, op.tables, noise=noise, **op.settings)[0]
+
+        def make(make_op=make_op, args=args):
+            op = make_op()
+            return (lambda: op(*args, 0, 3)), op.kernel_info
+
+        # the other instantiation: 512 threads where 256 run, and back
+        other = 0 if op.gb_cached else n
+        res[f"campaign_advance[gbis,{shape}]"] = both_variants(
+            make, (gb, "GB_CACHE_MAX_ATOMS", other),
+            lambda out, plain=plain: max_err(out[0], plain))
+    for shape, (pos, tab, consts) in k3_cases.items():
+        n = pos.shape[1]
+        plain = gb.gb_forces_reference(pos, tab, consts)[0]
+
+        def make(pos=pos, tab=tab, consts=consts, n=n):
+            return (lambda: gb.gb_forces(pos, tab, consts)), lambda: gb_forces_facts(n)
+
+        other = 0 if gb.gb_cached(n) else n
+        res[f"gb_forces[{shape}]"] = both_variants(
+            make, (gb, "GB_CACHE_MAX_ATOMS", other),
+            lambda out, plain=plain: max_err(out[0], plain), repeats=20)
+    return res
+
+
+def gb_forces_facts(n):
+    """The GB kernel's build facts for ``n`` atoms, with the variant
+    ``gb.gb_cached`` picks."""
+    cached = gb.gb_cached(n)
+    return {"gb_cached": cached, **_build.kernel_info(
+        "gb_forces", "mdx_gb_forces_info", [ctypes.c_int] * 2, n, int(cached))}
+
+
+def cadence_arm(ff_m, pos0, ecfg, sasa_every, gb_every, n_rep, seed):
+    """One NVE trace through the campaign kernel: ``n_rep`` replicas from
+    ``pos0`` with their own Maxwell-Boltzmann velocities at 300 K (the same
+    draw for every arm), gamma = 0, 1 fs, no constraints, CADENCE_STEPS
+    steps, E_tot logged once a launch. The drift: each replica's
+    least-squares slope of E_tot against the step, times the run's length,
+    averaged over the replicas."""
+    n = ff_m.n_atoms
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    std = torch.sqrt(mdx.units.BOLTZMANN * 300.0 / ff_m.masses)[None, :, None]
+    vel = std * torch.randn((n_rep, n, 3), generator=gen, device="cuda")
+    ens = with_forces(replicate(system_init(pos0, key=seed), n_rep, seed=1).replace(vel=vel),
+                      ff_m, ecfg)
+    cfg = SimulationConfig(dt_fs=1.0, temperature=0.0, gamma_ps=0.0, energy=ecfg,
+                           fused_campaign=True, sasa_every=sasa_every, gb_every=gb_every)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, frames, log = simulate_ensemble(ens, ff_m, n_steps=CADENCE_STEPS, save_every=N_INNER,
+                                       config=cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_step.campaign_advance.launches
+    tag = f"cadence {n} atoms sasa_every={sasa_every} gb_every={gb_every}"
+    check(launches == CADENCE_STEPS // N_INNER,
+          f"{tag}: campaign kernel launched {launches} times, expected {CADENCE_STEPS // N_INNER}")
+    check(bool(torch.isfinite(frames).all()), f"{tag}: non-finite frames")
+    e = log["etot"].double().cpu()  # (saves, R)
+    step = N_INNER * torch.arange(1, e.shape[0] + 1, dtype=torch.float64)[:, None]
+    dt = step - step.mean()
+    slope = (dt * (e - e.mean(0))).sum(0) / (dt * dt).sum()
+    drift = slope * CADENCE_STEPS
+    return {
+        "atoms": n, "replicas": n_rep, "steps": CADENCE_STEPS, "launches": launches,
+        "drift_kcal_mol": float(drift.mean()), "drift_by_replica": drift.tolist(),
+        "etot_first_mean": float(e[0].mean()), "etot_std_mean": float(e.std(0).mean()),
+        "T_mean_K": float(log["T"].mean()), "seconds": seconds,
+    }
+
+
+def cadence_phase(ff, pos_g, ff4, pos4):
+    """The cadences' long-run soundness: NVE traces of the 104-atom system
+    at every arm of CADENCE_ARMS, and of the 416-atom one at
+    CADENCE_ARMS_416; at k > 1 the fitted drift of E_tot over the run
+    within CADENCE_DRIFT_BOUND a 104-atom copy of the every-step arm's."""
+    arms = {label: (ecfg, sasa_every, gb_every, ref)
+            for label, ecfg, sasa_every, gb_every, ref in CADENCE_ARMS}
+    res = {}
+    for prefix, ff_m, pos0, labels, n_rep in (
+        ("", ff, pos_g, list(arms), CADENCE_REPLICAS),
+        (f"{ff4.n_atoms}_atoms,", ff4, pos4, CADENCE_ARMS_416, CADENCE_REPLICAS_416),
+    ):
+        copies = ff_m.n_atoms // ff.n_atoms
+        for label in labels:
+            ecfg, sasa_every, gb_every, _ = arms[label]
+            res[prefix + label] = cadence_arm(ff_m, pos0, ecfg, sasa_every, gb_every, n_rep, SEED)
+        for label in labels:
+            ref = arms[label][3]
+            if ref is None:
+                continue
+            gap = abs(res[prefix + label]["drift_kcal_mol"] - res[prefix + ref]["drift_kcal_mol"])
+            res[prefix + label]["drift_minus_every_step_kcal_mol"] = gap
+            res[prefix + label]["drift_minus_every_step_a_copy_kcal_mol"] = gap / copies
+            check(gap / copies < CADENCE_DRIFT_BOUND,
+                  f"cadence {prefix}{label}: its drift is {gap} kcal/mol from {ref}'s over "
+                  f"{copies} copies (bound {CADENCE_DRIFT_BOUND} a copy): {res}")
     return res
 
 
@@ -1852,8 +2317,8 @@ COLLAPSE_T_K = 1000.0
 COLLAPSE_SHARE_BACKBONE = 0.25
 
 
-def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
-    """One ``cli simulate`` campaign of N_REPLICAS x N_STEPS through the
+def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0, n_rep=N_REPLICAS):
+    """One ``cli simulate`` campaign of ``n_rep`` x N_STEPS through the
     campaign kernel into a temporary directory: the kernel's launches, the
     printed rate, the seconds outside ``simulate_ensemble`` (loading, FIRE,
     the files; the start, ``cli.prepare_campaign``, timed inside the run, so
@@ -1866,7 +2331,7 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
         out = pathlib.Path(tmp) / "out"
         reset_launches()
         argv = ["simulate", *(["--config", config] if config else [])]
-        for ov in (*campaign_overrides(overrides), f"out_dir={out}"):
+        for ov in (*campaign_overrides(overrides, n_rep), f"out_dir={out}"):
             argv += ["-o", ov]
         prepare = cli.prepare_campaign
         prepare_s = []
@@ -1885,12 +2350,12 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
         launches = fused_step.campaign_advance.launches
         line = json.loads(lines[-1])
         tag = f"cli simulate {' '.join(overrides)}"
-        check(line["frames"] == [n_saves, N_REPLICAS, n_atoms, 3], f"{tag}: {line}")
+        check(line["frames"] == [n_saves, n_rep, n_atoms, 3], f"{tag}: {line}")
         check(launches == n_saves,
               f"{tag}: campaign kernel launched {launches} times, expected {n_saves}")
-        frames = np.stack([np.load(out / f"raw-traj_rep-{r}.npy") for r in range(N_REPLICAS)],
+        frames = np.stack([np.load(out / f"raw-traj_rep-{r}.npy") for r in range(n_rep)],
                           axis=1)
-        check(frames.shape == (n_saves, N_REPLICAS, n_atoms, 3),
+        check(frames.shape == (n_saves, n_rep, n_atoms, 3),
               f"{tag}: replica files {frames.shape}")
         dcd, cells = read_dcd(str(out / "rep0.dcd"))
         check(cells is None and np.array_equal(dcd, frames[:, 0]),
@@ -1899,15 +2364,15 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
         check(xyz.shape == frames[:, 0].shape, f"{tag}: rep0.xyz {xyz.shape}")
         with open(out / "sim_log.csv") as fh:
             rows = list(csv.DictReader(fh))
-    check(len(rows) == n_saves * N_REPLICAS, f"{tag}: {len(rows)} log rows")
+    check(len(rows) == n_saves * n_rep, f"{tag}: {len(rows)} log rows")
 
     def column(key):
-        return np.array([float(r[key]) for r in rows]).reshape(n_saves, N_REPLICAS)
+        return np.array([float(r[key]) for r in rows]).reshape(n_saves, n_rep)
 
     temps = column("T")
     collapsed = ~(temps < COLLAPSE_T_K).all(axis=0) | ~np.isfinite(frames).all(axis=(0, 2, 3))
     kept = ~collapsed
-    check(collapsed.sum() <= collapse_share * N_REPLICAS,
+    check(collapsed.sum() <= collapse_share * n_rep,
           f"{tag}: {int(collapsed.sum())} replicas collapsed (T above {COLLAPSE_T_K} K), "
           f"at most {collapse_share:.0%} may: {np.flatnonzero(collapsed)[:20].tolist()}")
     check(np.abs(xyz - frames[:, 0]).max() < 1e-5 or collapsed[0], f"{tag}: rep0.xyz differs")
@@ -1935,9 +2400,9 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0):
     }, frames[:, 0]
 
 
-def campaign_overrides(overrides):
-    """The overrides of a 1024 x 2000 campaign through the campaign kernel."""
-    return [*overrides, f"n_replicas={N_REPLICAS}", f"n_steps={N_STEPS}",
+def campaign_overrides(overrides, n_rep=N_REPLICAS):
+    """The overrides of an ``n_rep`` x 2000 campaign through the campaign kernel."""
+    return [*overrides, f"n_replicas={n_rep}", f"n_steps={N_STEPS}",
             f"save_every={N_INNER}", "sim.fused_campaign=true"]
 
 
@@ -3162,7 +3627,7 @@ def dynamics_census(runs, data, dev, steps=5):
 
 def dynamics_phase(tmp, dev):
     """The Hamiltonian dynamics line on the card: ``cli train node`` at its
-    live-quality budget, ``hnn`` and ``hnn-latent`` at DYNAMICS_EPOCHS and
+    live-quality budget, ``hnn`` and ``hnn-latent`` at HNN_SANITY_EPOCHS and
     ``hnn-schnet`` at SCHNET_EPOCHS under the sanity bound, on the in-repo
     40-atom data;
     every step kind against float64 from the trained weights; update rates;
@@ -3171,7 +3636,7 @@ def dynamics_phase(tmp, dev):
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
     runs = tmp / "dynamics"
     budgets = {"node": TRAIN_BUDGET["node"],
-               **{f: (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-latent")},
+               **{f: (HNN_SANITY_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-latent")},
                "hnn-schnet": (SCHNET_EPOCHS, DYNAMICS_SANITY_A)}
     for family, (epochs, ceiling) in budgets.items():
         reset_launches()
@@ -3384,14 +3849,14 @@ def sequence_census(runs, data, dev, steps=5):
 def sequence_phase(tmp, dev):
     """The sequence and graph line on the card: ``cli train lstm`` and
     ``lstm-gat`` at their live-quality budgets, the other six at
-    DYNAMICS_EPOCHS under the sanity bound, on the in-repo 40-atom data;
+    SEQUENCE_SANITY_EPOCHS under the sanity bound, on the in-repo 40-atom data;
     every step kind against float64 from the trained weights; update rates;
     the census of an lstm and a seq2seq-graph fine-tune update."""
     res, launches = {}, {}
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
     runs = tmp / "sequence"
     for family in SEQUENCE_FAMILIES:
-        epochs, ceiling = TRAIN_BUDGET.get(family, (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A))
+        epochs, ceiling = TRAIN_BUDGET.get(family, (SEQUENCE_SANITY_EPOCHS, DYNAMICS_SANITY_A))
         reset_launches()
         run, _ = train_run([family, "--data", pattern, "--epochs", str(epochs),
                             "--batch-size", str(TRAIN_BATCH), "--seed", "0",
@@ -3985,7 +4450,7 @@ def main():
         "max_abs_err": res["force_err_kernel_vs_plain"], "tolerance": TOL_GB_FORCE,
         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
         "library_ms": None, "sfu_bound_ms": sfu_ms(gb_sfu_ops(N_REPLICAS, n)),
-        **build_facts(_build.kernel_info("gb_forces", "mdx_gb_forces_info", [ctypes.c_int], n)),
+        **build_facts(gb_forces_facts(n)),
         "library_note": "no single PyTorch call computes GB-OBC II forces",
         "shape": [N_REPLICAS, n, 3], "flops": k3_flops, "bytes": k3_bytes,
     }
@@ -4050,13 +4515,15 @@ def main():
     check(res["tiled_2_squeezed_max_degree"] > sasa.sasa_capacity(tab_t2.n_compact)
           and res["tiled_2_squeezed_raised"],
           f"sasa_forces: an overflowing neighbour list did not raise: {res}")
-    # the GB kernel on the same pair: 208 atoms, its dI cache alone 172 KB
+    # the GB kernel on the same pair: 208 atoms, without its dI cache (which
+    # alone would take 172 KB)
     gb_t2 = gb.build_gb_tables(ff_t2)
     fb_k, eb_k, _ = gb.gb_forces(pos_t2, gb_t2, gb_consts)
     fb_p, eb_p, _ = gb.gb_forces_reference(pos_t2, gb_t2, gb_consts)
     torch.cuda.synchronize()
     checks["gb_forces[208 atoms]"] = {
-        "shared_bytes": gb.gb_shared_bytes(ff_t2.n_atoms) + 24 * ff_t2.n_atoms,
+        "shared_bytes": gb.gb_shared_bytes(ff_t2.n_atoms, gb.gb_cached(ff_t2.n_atoms))
+        + 24 * ff_t2.n_atoms, "gb_cached": gb.gb_cached(ff_t2.n_atoms),
         "force_err_kernel_vs_plain": max_err(fb_k, fb_p),
         "energy_err_kernel_vs_plain": max_err(eb_k, eb_p)}
     check(checks["gb_forces[208 atoms]"]["force_err_kernel_vs_plain"] <= TOL_GB_FORCE
@@ -4546,6 +5013,25 @@ def main():
          composed_path_force_vs_autograd=solvent_path_err, solvent_dispatch=dispatch_res,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
+    kernels["gb_forces"]["at_416_atoms"] = dispatch_res["gb_forces_416_atoms"]
+
+    # -- the GBIS campaign at 208 and 416 atoms, and the cadences over a long run
+    t_phase = time.perf_counter()
+    tier_g_res, tier_g_times, tier_g_launches, tier_g_starts = gbis_tiers_phase(
+        pos_g, (lambda: make_gbis_op(N_INNER, 300.0), pos_b, vel_b, frc_g, pos_pert, gb_tab,
+                gb_consts))
+    emit("gbis_tiers", **tier_g_res, seconds=round(time.perf_counter() - t_phase, 1),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+    kernels["campaign_advance[gbis]"]["by_tier"] = tier_g_times
+    kernels["campaign_advance[gbis]"]["switch"] = tier_g_res["switch"]
+    t_phase = time.perf_counter()
+    ff4g, pos4g, _ = tier_g_starts[4]
+    cad_res = cadence_phase(ff, pos_g, ff4g, pos4g)
+    emit("cadence", **cad_res, drift_bound_kcal_mol=CADENCE_DRIFT_BOUND,
+         seconds=round(time.perf_counter() - t_phase, 1),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
 
     # -- the composed pair-op path at the tier sizes ---------------------------
     tier_rows, tier_times, starts, k1_checks, tier_levers = tiers_phase(lever_libs)
@@ -4710,6 +5196,16 @@ def main():
                 by_path[path] = counts["campaign_advance"] if mine else 0
             else:
                 by_path[path] = counts[counter]
+
+    gbis_paths = kernels["campaign_advance[gbis]"]["launches_by_path"]
+    for path, counts in tier_g_launches.items():
+        gbis_paths[path] = counts["campaign_advance"]
+    for label, arm in cad_res.items():
+        gbis_paths[f"cadence: simulate_ensemble(fused_campaign, NVE, {label}) "
+                   f"{arm['replicas']} x {arm['steps']}"] = arm["launches"]
+    kernels["gb_forces"]["launches_by_path"][
+        "gbis_campaign: solvent_dispatch, the unflagged GBIS step, 416 atoms x 4, 3 steps"] = (
+        dispatch_res["416_atoms_f32"]["launches"]["gb_forces"])
 
     # -- where the device's time goes in one campaign call ------------------
     profile_res = {}

@@ -11,8 +11,9 @@
 // L1/L2, while each of the n_inner steps needs N*(N-1)/2 pair tests and ~70
 // flops for each pair inside the cutoff, plus the bonded terms and 21
 // constraint sweeps (2 SHAKE of 6, 3 RATTLE of 3).
-// Design: one CTA per replica (128, 512 or 1024 threads by size, 256 with
-// GB or LCPO). Per step, in the order of the reference's step_body:
+// Design: one CTA per replica (128, 512 or 1024 threads by size; with GB or
+// LCPO 256 threads with GB's dI cache, or 512 without it above the size the
+// wrapper sets). Per step, in the order of the reference's step_body:
 // half kick -> RATTLE -> half drift -> SHAKE -> O-step -> RATTLE -> half
 // drift -> SHAKE -> forces at t0 + i -> half kick -> RATTLE. Forces: the
 // pair loop of pair_loop.cuh (each unordered pair once, 32-atom chunks met
@@ -45,7 +46,9 @@
 // (its dI cache is most of it) and the LCPO scratch are never live at the
 // same time, so they share one region, as large as the largest of them. At
 // N = 104 under GBIS that keeps a CTA at 46.8 KB (48.0 with a cadence), so
-// that 4 CTAs fit an SM: 1024 replicas fill 528 slots in 1.94 waves.
+// that 4 CTAs fit an SM: 1024 replicas fill 528 slots in 1.94 waves. The
+// cache grows as N^2 (185 KB at 208 atoms); without it the LCPO lists set
+// the region, and 416 atoms take 221 KB, one CTA an SM.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -67,11 +70,17 @@ namespace {
 // threads 64, and the spills (loop-invariant addresses, loaded outside the
 // inner loops) cost less than the extra warps give (at 128 threads it takes
 // 128 registers and 12 % longer; at 256 threads uncapped, 128 registers
-// and 2 CTAs an SM, 43 % longer).
+// and 2 CTAs an SM, 43 % longer). The large solvent instantiation runs
+// without the dI cache, at 512 threads (the medium pair-loop shape, 512
+// atoms) and one CTA an SM, which its shared memory allows at 416 atoms:
+// up to 128 registers (it takes 128 and spills 128 bytes, against the
+// small one's 960).
 constexpr int kVacuumCtasPerSm = 8;  // 64 registers
 constexpr int kMediumCtasPerSm = 2;  // 64 registers
 constexpr int kSolventThreads = 256;
 constexpr int kSolventCtasPerSm = 4;
+constexpr int kSolventLargeThreads = kMediumThreads;
+constexpr int kSolventLargeCtasPerSm = 1;
 
 constexpr float kEps = 1e-12f;
 constexpr float kTwoPi = 6.283185307179586f;
@@ -117,6 +126,8 @@ struct Dims {
   int sasa_every;  // LCPO cadence (1 = every step)
   int gb_every;    // GB cadence (1 = every step)
   int n_lj_types;  // LJ types of the pair layout
+  int solvent_large;  // with GB or LCPO: 1 = the 512-thread instantiation
+                      // without the dI cache, 0 = 256 threads with it
 };
 
 __host__ __device__ inline bool has_slow_buffer(const Dims& d) {
@@ -341,11 +352,12 @@ __device__ __forceinline__ void torsion_forces(const Shared& s,
 // centre is evaluated at t_step. Expects a barrier before (positions
 // complete) and leaves one behind (forces complete). kSolvent = false
 // compiles the implicit-solvent calls out, so the vacuum kernels keep the
-// registers (and the CTAs an SM) they have without them. The plain pairs'
+// registers (and the CTAs an SM) they have without them; kGbCached picks the
+// GB passes with or without the dI cache. The plain pairs'
 // column sums go to (fx, fy, fz) round by round (pair_loop.cuh); a thread's
 // atoms are those whose pair-loop rows it holds, so one per-atom pass adds
 // the rows, the special pairs, the bonded gathers and the bias.
-template <bool kSolvent, int kThreads>
+template <bool kSolvent, int kThreads, bool kGbCached>
 __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
                        const Consts& k, float t_step, bool with_gb,
                        bool with_sasa, bool add_held, int* overflow) {
@@ -399,8 +411,9 @@ __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
   __syncthreads();
   if (!kSolvent) return;
   if (with_gb)
-    gb_forces_add<kThreads, false>(d.n_atoms, s.x, s.y, s.z, t.gb_atom, k.gb,
-                                   s.gb, s.fx, s.fy, s.fz);
+    gb_forces_add<kThreads, false, kGbCached>(d.n_atoms, s.x, s.y, s.z,
+                                              t.gb_atom, k.gb, s.gb, s.fx,
+                                              s.fy, s.fz);
   if (with_sasa)
     sasa_forces_add<kThreads, false>(d.n_sasa, t.sasa_idx, t.sasa_atom,
                                      k.sasa_gamma, s.x, s.y, s.z, s.sasa, s.fx,
@@ -410,15 +423,16 @@ __device__ void forces(const Shared& s, const Tables& t, const Dims& d,
 // The slow force of a cadence block at the positions in shared memory, into
 // (slx, sly, slz): GB when its cadence is > 1, LCPO when its cadence is > 1.
 // Expects a barrier before and leaves one behind.
-template <int kThreads>
+template <int kThreads, bool kGbCached>
 __device__ void slow_force(const Shared& s, const Tables& t, const Dims& d,
                            const Consts& k, int* overflow) {
   for (int a = threadIdx.x; a < d.n_atoms; a += kThreads)
     s.slx[a] = s.sly[a] = s.slz[a] = 0.f;
   __syncthreads();
   if (d.use_gb && d.gb_every > 1)
-    gb_forces_add<kThreads, false>(d.n_atoms, s.x, s.y, s.z, t.gb_atom, k.gb,
-                                   s.gb, s.slx, s.sly, s.slz);
+    gb_forces_add<kThreads, false, kGbCached>(d.n_atoms, s.x, s.y, s.z,
+                                              t.gb_atom, k.gb, s.gb, s.slx,
+                                              s.sly, s.slz);
   if (d.n_sasa && d.sasa_every > 1)
     sasa_forces_add<kThreads, false>(d.n_sasa, t.sasa_idx, t.sasa_atom,
                                      k.sasa_gamma, s.x, s.y, s.z, s.sasa,
@@ -467,8 +481,9 @@ __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
 __host__ __device__ inline size_t shared_floats(const Dims& d) {
   size_t region = 6 * static_cast<size_t>(d.n_angles) + 9 * d.n_tors +
                   9 * d.n_cons;
-  if (d.use_gb && gb_shared_floats(d.n_atoms) > region)
-    region = gb_shared_floats(d.n_atoms);
+  const bool cached = !d.solvent_large;
+  if (d.use_gb && gb_shared_floats(d.n_atoms, cached) > region)
+    region = gb_shared_floats(d.n_atoms, cached);
   if (d.n_sasa && sasa_shared_words(d.n_sasa) > region)
     region = sasa_shared_words(d.n_sasa);
   return 9 * static_cast<size_t>(d.n_atoms) +
@@ -477,7 +492,7 @@ __host__ __device__ inline size_t shared_floats(const Dims& d) {
 }
 
 // One BAOAB step; the SMD centre of its force evaluation is that of t_abs.
-template <bool kSolvent, int kThreads>
+template <bool kSolvent, int kThreads, bool kGbCached>
 __device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
                            const Consts& k, int rep, long long t_abs,
                            unsigned long long seed, bool with_gb,
@@ -519,8 +534,8 @@ __device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
   if (cons) shake<kThreads>(s, t, d);
   __syncthreads();
   // B: half kick with the new forces, SMD centre at the step's start index
-  forces<kSolvent, kThreads>(s, t, d, k, static_cast<float>(t_abs), with_gb,
-                             with_sasa, add_held, overflow);
+  forces<kSolvent, kThreads, kGbCached>(s, t, d, k, static_cast<float>(t_abs),
+                                        with_gb, with_sasa, add_held, overflow);
   for (int a = tid; a < n; a += kThreads) {
     const float h = k.half_dt * t.minv[a];
     s.vx[a] += h * s.fx[a];
@@ -530,9 +545,10 @@ __device__ void baoab_step(const Shared& s, const Tables& t, const Dims& d,
   if (cons) rattle<kThreads>(s, t, d, false);
 }
 
-// The launch: kSolvent carries GB / LCPO and their cadences. overflow: set
-// to 1 when an LCPO neighbour list overflows (sasa_terms.cuh).
-template <bool kSolvent, int kThreads>
+// The launch: kSolvent carries GB / LCPO and their cadences, kGbCached the
+// GB passes' dI cache. overflow: set to 1 when an LCPO neighbour list
+// overflows (sasa_terms.cuh).
+template <bool kSolvent, int kThreads, bool kGbCached = true>
 __device__ __forceinline__ void campaign_body(
     const float* __restrict__ pos, const float* __restrict__ vel,
     const float* __restrict__ frc, float* __restrict__ opos,
@@ -566,7 +582,7 @@ __device__ __forceinline__ void campaign_body(
   const bool sasa_each = d.n_sasa && d.sasa_every == 1;
   if (impulse) {
     // the carried force is the fast one inside this mode
-    slow_force<kThreads>(s, t, d, k, overflow);
+    slow_force<kThreads, kGbCached>(s, t, d, k, overflow);
     for (int a = tid; a < n; a += kThreads) {
       s.fx[a] -= s.slx[a];
       s.fy[a] -= s.sly[a];
@@ -575,10 +591,11 @@ __device__ __forceinline__ void campaign_body(
     for (int j = 0; j < d.n_inner / d.gb_every; ++j) {
       slow_kick<kThreads>(s, t, d, k);
       for (int i = 0; i < d.gb_every; ++i)
-        baoab_step<kSolvent, kThreads>(s, t, d, k, rep, t0 + j * d.gb_every + i, seed,
-                                       false, sasa_each, false, overflow);
+        baoab_step<kSolvent, kThreads, kGbCached>(
+            s, t, d, k, rep, t0 + j * d.gb_every + i, seed, false, sasa_each,
+            false, overflow);
       __syncthreads();
-      slow_force<kThreads>(s, t, d, k, overflow);
+      slow_force<kThreads, kGbCached>(s, t, d, k, overflow);
       slow_kick<kThreads>(s, t, d, k);
     }
     for (int a = tid; a < n; a += kThreads) {
@@ -589,15 +606,17 @@ __device__ __forceinline__ void campaign_body(
   } else if (held) {
     for (int j = 0; j < d.n_inner / d.sasa_every; ++j) {
       __syncthreads();
-      slow_force<kThreads>(s, t, d, k, overflow);
+      slow_force<kThreads, kGbCached>(s, t, d, k, overflow);
       for (int i = 0; i < d.sasa_every; ++i)
-        baoab_step<kSolvent, kThreads>(s, t, d, k, rep, t0 + j * d.sasa_every + i, seed,
-                                       gb_each, false, true, overflow);
+        baoab_step<kSolvent, kThreads, kGbCached>(
+            s, t, d, k, rep, t0 + j * d.sasa_every + i, seed, gb_each, false,
+            true, overflow);
     }
   } else {
     for (int step = 0; step < d.n_inner; ++step)
-      baoab_step<kSolvent, kThreads>(s, t, d, k, rep, t0 + step, seed,
-                                     gb_each, sasa_each, false, overflow);
+      baoab_step<kSolvent, kThreads, kGbCached>(s, t, d, k, rep, t0 + step,
+                                                seed, gb_each, sasa_each, false,
+                                                overflow);
   }
   __syncthreads();
 
@@ -614,8 +633,8 @@ __device__ __forceinline__ void campaign_body(
   }
 }
 
-// The four instantiations; the wrapper picks the solvent one when dims ask
-// for GB or LCPO, else the vacuum one for the system's size.
+// The five instantiations; with GB or LCPO the solvent one dims name (the
+// wrapper picks it by size), else the vacuum one for the system's size.
 __global__ void __launch_bounds__(kSmallThreads, kVacuumCtasPerSm)
 campaign_vacuum(const float* __restrict__ pos, const float* __restrict__ vel,
                 const float* __restrict__ frc, float* __restrict__ opos,
@@ -656,6 +675,17 @@ campaign_solvent(const float* __restrict__ pos, const float* __restrict__ vel,
                                        k, t0, seed, overflow);
 }
 
+__global__ void __launch_bounds__(kSolventLargeThreads, kSolventLargeCtasPerSm)
+campaign_solvent_large(const float* __restrict__ pos,
+                       const float* __restrict__ vel,
+                       const float* __restrict__ frc, float* __restrict__ opos,
+                       float* __restrict__ ovel, float* __restrict__ ofrc,
+                       Tables t, Dims d, Consts k, long long t0,
+                       unsigned long long seed, int* overflow) {
+  campaign_body<true, kSolventLargeThreads, false>(
+      pos, vel, frc, opos, ovel, ofrc, t, d, k, t0, seed, overflow);
+}
+
 // The normals the campaign kernel draws: out[(r, i, a, 0..2)] for replica r,
 // step t0 + i, atom a. One thread per (r, i, a).
 __global__ void noise_kernel(float* __restrict__ out, int n_replicas,
@@ -681,9 +711,9 @@ __global__ void noise_kernel(float* __restrict__ out, int n_replicas,
 namespace {
 
 Dims dims_of(const int* dims) {
-  return Dims{dims[0],  dims[1],  dims[2],  dims[3],  dims[4],
-              dims[5],  dims[6],  dims[7],  dims[8],  dims[9],
-              dims[10], dims[11], dims[12], dims[13], dims[14]};
+  return Dims{dims[0],  dims[1],  dims[2],  dims[3],  dims[4],  dims[5],
+              dims[6],  dims[7],  dims[8],  dims[9],  dims[10], dims[11],
+              dims[12], dims[13], dims[14], dims[15]};
 }
 
 using CampaignKernel = void (*)(const float*, const float*, const float*,
@@ -691,11 +721,16 @@ using CampaignKernel = void (*)(const float*, const float*, const float*,
                                 long long, unsigned long long, int*);
 
 // The instantiation dims ask for, and its threads a CTA; nullptr past what
-// the vacuum instantiations hold (the wrapper checks first).
+// the instantiations hold (the wrapper checks first).
 CampaignKernel pick_kernel(const Dims& d, int& threads) {
   if (d.use_gb || d.n_sasa) {
-    threads = kSolventThreads;
-    return campaign_solvent;
+    const bool large = d.solvent_large != 0;
+    threads = large ? kSolventLargeThreads : kSolventThreads;
+    if (d.n_atoms > threads / 32 * kChunk) {
+      threads = 0;
+      return nullptr;
+    }
+    return large ? campaign_solvent_large : campaign_solvent;
   }
   switch (pair_loop_shape(d.n_atoms)) {
     case kSmallCta:

@@ -15,8 +15,10 @@
 // derivative, which a shared cache of N(N-1) floats keeps for the chain pass
 // (as the TPU kernel caches it); 16 lanes share an atom in every pass.
 // Coordinates, forces and the scratch in shared memory; no atomics, so a
-// launch gives the same bits every run. The cache bounds N: 236 atoms in
-// 227 KB.
+// launch gives the same bits every run. The cache holds 236 atoms in 227 KB;
+// the second instantiation evaluates the derivatives again in the chain pass
+// instead, in 36 bytes an atom (6,456 atoms). The wrapper picks one by size
+// (ops/gb.py gb_cached).
 #include <cuda_runtime.h>
 
 #include "gb_terms.cuh"
@@ -29,6 +31,7 @@ namespace {
 // chip_smoke.py's levers).
 constexpr int kThreads = 256;
 
+template <bool kCached>
 __global__ void __launch_bounds__(kThreads)
 gb_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
                  float* __restrict__ energy, float* __restrict__ born_out,
@@ -54,7 +57,7 @@ gb_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
   __syncthreads();
 
   float e_thread =
-      gb_forces_add<kThreads, true>(n, sx, sy, sz, atom, c, w, fx, fy, fz);
+      gb_forces_add<kThreads, true, kCached>(n, sx, sy, sz, atom, c, w, fx, fy, fz);
   for (int a = tid; a < n; a += kThreads) {
     frc[base + 3 * a + 0] = fx[a];
     frc[base + 3 * a + 1] = fy[a];
@@ -73,35 +76,45 @@ gb_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
   }
 }
 
-size_t shared_bytes(int n_atoms) {
-  return (6 * static_cast<size_t>(n_atoms) + gb_shared_floats(n_atoms)) *
+size_t shared_bytes(int n_atoms, bool cached) {
+  return (6 * static_cast<size_t>(n_atoms) + gb_shared_floats(n_atoms, cached)) *
          sizeof(float);
+}
+
+template <typename Launch>
+int with_kernel(bool cached, Launch launch) {
+  return cached ? launch(gb_forces_kernel<true>) : launch(gb_forces_kernel<false>);
 }
 
 }  // namespace
 
 // pos (R, N, 3) -> frc (R, N, 3), energy (R,), born (R, N); atom (N, 5) in
-// GbColumn order. Returns cudaGetLastError(), or the error that refused the
-// shared memory (the wrapper checks it against SHARED_OPT_IN_BYTES first).
+// GbColumn order; cached: 1 keeps the dI cache, 0 evaluates the derivatives
+// again. Returns cudaGetLastError(), or the error that refused the shared
+// memory (the wrapper checks it against SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_gb_forces(const void* pos, void* frc, void* energy,
                              void* born, const void* atom, int n_replicas,
-                             int n_atoms, float inv_eps_s, float kappa,
-                             float obc_a, float obc_b, float obc_g,
-                             void* stream) {
+                             int n_atoms, int cached, float inv_eps_s,
+                             float kappa, float obc_a, float obc_b,
+                             float obc_g, void* stream) {
   GbConsts c{inv_eps_s, kappa, obc_a, obc_b, obc_g};
-  const size_t shmem = shared_bytes(n_atoms);
-  const int err = allow_dynamic_shared(gb_forces_kernel, shmem);
-  if (err != 0) return err;
-  gb_forces_kernel<<<n_replicas, kThreads, shmem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), static_cast<float*>(frc),
-      static_cast<float*>(energy), static_cast<float*>(born),
-      static_cast<const float*>(atom), n_atoms, c);
-  return static_cast<int>(cudaGetLastError());
+  const size_t shmem = shared_bytes(n_atoms, cached != 0);
+  return with_kernel(cached != 0, [&](auto kernel) {
+    const int err = allow_dynamic_shared(kernel, shmem);
+    if (err != 0) return err;
+    kernel<<<n_replicas, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(pos), static_cast<float*>(frc),
+        static_cast<float*>(energy), static_cast<float*>(born),
+        static_cast<const float*>(atom), n_atoms, c);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-// Build facts of the kernel at n_atoms, into out[0..4] (kernel_occupancy).
-extern "C" int mdx_gb_forces_info(int n_atoms, int* out) {
-  return kernel_occupancy(gb_forces_kernel, kThreads, shared_bytes(n_atoms),
-                          out);
+// Build facts of the kernel at n_atoms with or without the cache, into
+// out[0..4] (kernel_occupancy).
+extern "C" int mdx_gb_forces_info(int n_atoms, int cached, int* out) {
+  return with_kernel(cached != 0, [&](auto kernel) {
+    return kernel_occupancy(kernel, kThreads, shared_bytes(n_atoms, cached != 0),
+                            out);
+  });
 }

@@ -12,14 +12,21 @@
 // Passes, a barrier after each (no atomics: every sum is taken in a fixed
 // order, so a launch gives the same bits every run):
 //   Born   every ordered pair once: the HCT integral I_ij and its derivative
-//          in one evaluation; psi_i from the integrals, and dI_ij/dd / d
-//          kept in a shared cache of N(N-1) floats for the chain pass.
+//          in one evaluation; psi_i from the integrals, and (kCached) dI_ij/dd
+//          / d kept in a shared cache of N(N-1) floats for the chain pass.
 //   Still  every ordered pair: the Still force on i and dE/dR_i, each pair
 //          seen from both ends, then the Born self term and the chain
 //          cotangent of i. (Once per unordered pair, on a ring whose
 //          partner halves cross through shared memory, it took the same
 //          time: chip_smoke.py's levers.)
-//   chain  every ordered pair from the cache: a multiply-add per direction.
+//   chain  every ordered pair: with the cache a multiply-add per direction;
+//          without it (kCached = false) hct_pair evaluated again for both
+//          directions, the same numbers in the same grouping.
+// The cache grows as N^2 and holds a CTA to 236 atoms in 227 KB; without it
+// the scratch is 3 N floats, for two more evaluations of hct_pair per
+// ordered pair (a logarithm and three divisions each). The caller picks the
+// variant by size (ops/gb.py gb_cached, ops/fused_step.py
+// campaign_solvent_shape).
 // In every pass kGbLanes lanes share atom i's partners and meet in a
 // butterfly.
 // IEEE 1/sqrtf, accurate expf/logf/tanhf: far pairs cancel to a small
@@ -52,17 +59,19 @@ constexpr int kGbLanes = 16;
 __host__ __device__ inline int gb_cache_stride(int n) { return (n - 1) | 1; }
 
 // Floats of shared memory the GB passes need beside the coordinates and
-// forces (ops/gb.py gb_shared_bytes says the same).
-__host__ __device__ inline size_t gb_shared_floats(int n) {
+// forces, with or without the dI cache (ops/gb.py gb_shared_bytes says the
+// same).
+__host__ __device__ inline size_t gb_shared_floats(int n, bool cached) {
   return 3 * static_cast<size_t>(n) +
-         static_cast<size_t>(n) * gb_cache_stride(n);
+         (cached ? static_cast<size_t>(n) * gb_cache_stride(n) : 0);
 }
 
 struct GbShared {
   float* born;   // R_i
   float* binv;   // 1 / R_i
   float* ce;     // dR_i/dpsi_i, then the chain cotangent
-  float* cache;  // dI_ij/dd / d: row i, column j (j > i one to the left)
+  float* cache;  // dI_ij/dd / d: row i, column j (j > i one to the left);
+                 // not carved without the cache
 };
 
 __device__ __forceinline__ GbShared gb_carve(float* p, int n) {
@@ -125,8 +134,8 @@ __device__ __forceinline__ int gb_cache_index(int i, int j, int stride) {
   return i * stride + j - (j > i);
 }
 
-// Born pass: R_i, 1/R_i, dR_i/dpsi_i, and the dI cache.
-template <int kThreads>
+// Born pass: R_i, 1/R_i, dR_i/dpsi_i, and (kCached) the dI cache.
+template <int kThreads, bool kCached>
 __device__ __forceinline__ void gb_born_pass(int n, const float* sx,
                                              const float* sy, const float* sz,
                                              const float* __restrict__ atom,
@@ -150,7 +159,7 @@ __device__ __forceinline__ void gb_born_pass(int n, const float* sx,
         hct_pair(d2 * dinv, dinv, rho_i, rho_inv_i,
                  __ldg(&atom[kGbColumns * j + kGbS]), integral, deriv);
         sum += integral;
-        w.cache[gb_cache_index(i, j, stride)] = deriv * dinv;
+        if (kCached) w.cache[gb_cache_index(i, j, stride)] = deriv * dinv;
       }
     }
     sum = group_sum<kGbLanes>(sum);
@@ -229,11 +238,13 @@ __device__ __forceinline__ float gb_still_pass(
   return e_thread;
 }
 
-// Chain pass: the descreening chain-rule force of every ordered pair from
-// the cache, added to (tx, ty, tz).
-template <int kThreads>
+// Chain pass: the descreening chain-rule force of every ordered pair, added
+// to (tx, ty, tz). kCached reads dI/dd / d of both directions from the
+// cache; otherwise hct_pair gives them again from the same d and 1/d.
+template <int kThreads, bool kCached>
 __device__ __forceinline__ void gb_chain_pass(int n, const float* sx,
                                               const float* sy, const float* sz,
+                                              const float* __restrict__ atom,
                                               const GbShared& w, float* tx,
                                               float* ty, float* tz) {
   const int stride = gb_cache_stride(n);
@@ -244,13 +255,35 @@ __device__ __forceinline__ void gb_chain_pass(int n, const float* sx,
     if (i < n) {
       const float xi = sx[i], yi = sy[i], zi = sz[i];
       const float ce_i = w.ce[i];
+      float rho_i = 0.f, rho_inv_i = 0.f, s_i = 0.f;
+      if (!kCached) {
+        rho_i = __ldg(&atom[kGbColumns * i + kGbRho]);
+        rho_inv_i = __ldg(&atom[kGbColumns * i + kGbRhoInv]);
+        s_i = __ldg(&atom[kGbColumns * i + kGbS]);
+      }
       for (int j = g; j < n; j += kGbLanes) {
         if (j == i) continue;
-        const float coeff = ce_i * w.cache[gb_cache_index(i, j, stride)] +
-                            w.ce[j] * w.cache[gb_cache_index(j, i, stride)];
-        fx -= coeff * (xi - sx[j]);
-        fy -= coeff * (yi - sy[j]);
-        fz -= coeff * (zi - sz[j]);
+        const float dx = xi - sx[j], dy = yi - sy[j], dz = zi - sz[j];
+        float c_ij, c_ji;
+        if (kCached) {
+          c_ij = w.cache[gb_cache_index(i, j, stride)];
+          c_ji = w.cache[gb_cache_index(j, i, stride)];
+        } else {
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          const float dinv = 1.0f / sqrtf(d2);
+          const float d = d2 * dinv;
+          float unused, deriv;
+          hct_pair(d, dinv, rho_i, rho_inv_i, __ldg(&atom[kGbColumns * j + kGbS]),
+                   unused, deriv);
+          c_ij = deriv * dinv;
+          hct_pair(d, dinv, __ldg(&atom[kGbColumns * j + kGbRho]),
+                   __ldg(&atom[kGbColumns * j + kGbRhoInv]), s_i, unused, deriv);
+          c_ji = deriv * dinv;
+        }
+        const float coeff = ce_i * c_ij + w.ce[j] * c_ji;
+        fx -= coeff * dx;
+        fy -= coeff * dy;
+        fz -= coeff * dz;
       }
     }
     fx = group_sum<kGbLanes>(fx);
@@ -265,20 +298,20 @@ __device__ __forceinline__ void gb_chain_pass(int n, const float* sx,
 }
 
 // The whole GB force of the replica in shared memory, added to (tx, ty, tz);
-// w is gb_shared_floats(n) floats of scratch (gb_carve). Expects a barrier
-// before (coordinates complete) and leaves one behind. With kEnergy returns
-// this thread's share of the GB energy.
-template <int kThreads, bool kEnergy>
+// w is gb_shared_floats(n, kCached) floats of scratch (gb_carve). Expects a
+// barrier before (coordinates complete) and leaves one behind. With kEnergy
+// returns this thread's share of the GB energy.
+template <int kThreads, bool kEnergy, bool kCached>
 __device__ __forceinline__ float gb_forces_add(
     int n, const float* sx, const float* sy, const float* sz,
     const float* __restrict__ atom, const GbConsts& c, const GbShared& w,
     float* tx, float* ty, float* tz) {
-  gb_born_pass<kThreads>(n, sx, sy, sz, atom, c, w);
+  gb_born_pass<kThreads, kCached>(n, sx, sy, sz, atom, c, w);
   __syncthreads();
   const float e =
       gb_still_pass<kThreads, kEnergy>(n, sx, sy, sz, atom, c, w, tx, ty, tz);
   __syncthreads();
-  gb_chain_pass<kThreads>(n, sx, sy, sz, w, tx, ty, tz);
+  gb_chain_pass<kThreads, kCached>(n, sx, sy, sz, atom, w, tx, ty, tz);
   __syncthreads();
   return e;
 }

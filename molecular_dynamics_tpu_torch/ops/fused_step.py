@@ -22,8 +22,9 @@ tables. On an H100 the work is bound by float32 arithmetic, not memory:
 global memory sees the state once per launch while every step needs
 N*(N-1)/2 pair tests, the pairs inside the cutoff and the bonded terms. The
 design keeps one replica per CTA with its state in shared memory for all
-``n_inner`` steps (128, 512 or 1024 threads by size, 256 with GB or LCPO:
-``csrc/pair_loop.cuh``), evaluates each unordered pair once from
+``n_inner`` steps (128, 512 or 1024 threads by size: ``csrc/pair_loop.cuh``;
+with GB or LCPO 256 threads, or 512 where the GB passes do without their
+cache: ``campaign_solvent_shape``), evaluates each unordered pair once from
 per-atom parameters (``nonbonded.pair_layout``, ``csrc/pair_loop.cuh``),
 turns every scatter into a per-atom gather
 in a fixed order (no atomics: a launch is bit-reproducible, and cutting a
@@ -33,10 +34,15 @@ The bonded and constraint buffers, the GB scratch and the LCPO scratch are
 never live at once and share one region of shared memory; under GBIS at 104
 atoms the GB scratch (its dI cache) sets the region, and a CTA takes 46.8 KB
 (48.0 with a cadence), so that 4 CTAs of 256 threads fit an SM and 1024
-replicas run in 1.94 waves. Its limit is the 227 KB of shared memory a CTA
-may opt in to (the 416-atom unconstrained vacuum system needs 70.5 KB, the
-1,040-atom one 176.2 KB, 12 copies 211.4 KB; with GB, whose cache grows as
-N^2, about 230 atoms); ``campaign_shared_bytes`` says what a system needs.
+replicas run in 1.94 waves. The cache grows as N^2 (185 KB at 208 atoms), so
+the 512-thread solvent instantiation evaluates the GB derivatives again
+instead of caching them, and the LCPO lists set its region: the 416-atom
+GBIS system with rigid X-H bonds and a cadence takes 221 KB, one CTA an SM.
+Its limit is the 227 KB of shared memory a CTA may opt in to (the 416-atom
+unconstrained vacuum system needs 70.5 KB, the 1,040-atom one 176.2 KB, 12
+copies 211.4 KB; under GBIS_CONFIG an LCPO set of about 210 heavy atoms);
+``campaign_shared_bytes`` says what a system needs, ``campaign_misfit``
+whether the kernel holds it.
 
 ``campaign_advance_reference`` is the plain PyTorch version (any device, any
 float dtype): it runs for CPU tensors and is what the kernel is held against
@@ -61,6 +67,7 @@ from molecular_dynamics_tpu_torch.ops._build import SHARED_OPT_IN_BYTES, kernel_
 from molecular_dynamics_tpu_torch.ops.gb import (
     GBTables,
     build_gb_tables,
+    gb_cached,
     gb_constants,
     gb_forces_reference,
     gb_shared_bytes,
@@ -107,6 +114,23 @@ TABLE_SLOTS = (
 )
 
 
+#: threads a CTA of the two solvent instantiations (kSolventThreads,
+#: kSolventLargeThreads in csrc/campaign_advance.cu): a chunk of 32 atoms a warp
+SOLVENT_THREADS = (256, 512)
+
+
+def campaign_solvent_shape(n_atoms: int) -> Tuple[int, bool]:
+    """The solvent instantiation of the campaign kernel for ``n_atoms``:
+    its threads a CTA and whether its GB passes keep the dI cache. It keeps
+    the cache where the GB kernel does (``gb.gb_cached``): at 104 atoms x
+    1024 replicas the 256-thread instantiation with the cache takes 20.6 ms
+    a launch against the 512-thread one's 40.0, at 208 x 384 46.0 ms against
+    34.8 (H100 80GB HBM3 at 700 W, ``chip_smoke.py``'s ``gbis_tiers``)."""
+    if gb_cached(n_atoms):
+        return SOLVENT_THREADS[0], True
+    return SOLVENT_THREADS[1], False
+
+
 def campaign_shared_bytes(
     n_atoms: int, n_angles: int, n_tors: int, n_cons: int,
     gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
@@ -116,10 +140,11 @@ def campaign_shared_bytes(
     pair loop's chunk bounding boxes (6 floats a chunk); and one region for
     what is never live at once, as large as the largest of the angle (2
     vectors a term), torsion (3) and constraint (3) buffers, the GB scratch
-    (``gb``) and the LCPO scratch (``n_sasa`` heavy atoms)."""
+    (``gb``; with the dI cache where ``campaign_solvent_shape`` keeps it) and
+    the LCPO scratch (``n_sasa`` heavy atoms)."""
     region = 4 * (6 * n_angles + 9 * n_tors + 9 * n_cons)
     if gb:
-        region = max(region, gb_shared_bytes(n_atoms))
+        region = max(region, gb_shared_bytes(n_atoms, campaign_solvent_shape(n_atoms)[1]))
     if n_sasa:
         region = max(region, sasa_shared_bytes(n_sasa))
     return (4 * 9 * n_atoms + (4 * 3 * n_atoms if slow_buffer else 0)
@@ -127,11 +152,45 @@ def campaign_shared_bytes(
 
 
 def campaign_max_atoms(solvent: bool) -> int:
-    """Atoms the campaign kernel's instantiation for a system holds: 256
-    with GB or LCPO, else ``PAIR_LOOP_MAX_ATOMS``. Its CTA shape follows the
-    system's size (``csrc/pair_loop.cuh`` ``pair_loop_shape``); the op's
-    ``kernel_info()`` reads it back."""
-    return 256 if solvent else PAIR_LOOP_MAX_ATOMS
+    """Atoms the campaign kernel's instantiations for a system hold: 512
+    with GB or LCPO (the 512-thread solvent instantiation, a chunk of 32
+    atoms a warp), else ``PAIR_LOOP_MAX_ATOMS``. The CTA shape follows the
+    system's size (``csrc/pair_loop.cuh`` ``pair_loop_shape``,
+    ``campaign_solvent_shape``); the op's ``kernel_info()`` reads it back."""
+    return SOLVENT_THREADS[1] if solvent else PAIR_LOOP_MAX_ATOMS
+
+
+def _instantiation(n_atoms: int, solvent: bool) -> str:
+    """The kernel of ``csrc/campaign_advance.cu`` that runs a system: the
+    solvent one ``campaign_solvent_shape`` picks, else the vacuum one of the
+    pair loop's shape (``pair_loop_shape``: 128 and 512 atoms)."""
+    if solvent:
+        return "campaign_solvent" if campaign_solvent_shape(n_atoms)[1] else "campaign_solvent_large"
+    return ("campaign_vacuum" if n_atoms <= 128
+            else "campaign_medium" if n_atoms <= 512 else "campaign_large")
+
+
+def campaign_misfit(
+    n_atoms: int, n_angles: int, n_tors: int, n_cons: int,
+    gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
+) -> Optional[str]:
+    """Why the campaign kernel cannot hold a system of these sizes, or None
+    where it holds it: its shared memory (``campaign_shared_bytes``) within
+    what a CTA may opt in to, and its atoms within what the instantiation
+    holds (``campaign_max_atoms``). ``make_fused_campaign_op`` raises with
+    the reason."""
+    need = campaign_shared_bytes(n_atoms, n_angles, n_tors, n_cons, gb, n_sasa, slow_buffer)
+    if need > SHARED_LIMIT_BYTES:
+        return (
+            f"this system needs {need} bytes of shared memory a replica ({n_atoms} "
+            f"atoms, {n_angles} angles, {n_tors} torsions, {n_cons} constraints, "
+            f"gb={gb}, {n_sasa} LCPO atoms); the kernel holds {SHARED_LIMIT_BYTES}"
+        )
+    solvent = gb or n_sasa > 0
+    most = campaign_max_atoms(solvent)
+    if n_atoms > most:
+        return f"{n_atoms} atoms; the kernel holds {most}{' with GB or LCPO' if solvent else ''}"
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -775,22 +834,13 @@ def make_fused_campaign_op(
     )
     n_sasa = tab.sasa.n_compact if use_sasa else 0
     slow_buffer = gb_every > 1 or sasa_every > 1
-    need = campaign_shared_bytes(
-        tab.n_atoms, tab.n_angles, tab.n_tors, tab.n_cons,
-        gb=use_gb, n_sasa=n_sasa, slow_buffer=slow_buffer,
-    )
-    if need > SHARED_LIMIT_BYTES:
-        raise ValueError(
-            f"campaign op: this system needs {need} bytes of shared memory a "
-            f"replica ({tab.n_atoms} atoms, {tab.n_angles} angles, "
-            f"{tab.n_tors} torsions, {tab.n_cons} constraints, gb={use_gb}, "
-            f"{n_sasa} LCPO atoms); the kernel holds {SHARED_LIMIT_BYTES}"
-        )
-    most = campaign_max_atoms(use_gb or use_sasa)
-    if tab.n_atoms > most:
-        raise ValueError(
-            f"campaign op: {tab.n_atoms} atoms; the kernel holds {most}"
-            f"{' with GB or LCPO' if use_gb or use_sasa else ''}")
+    sizes = (tab.n_atoms, tab.n_angles, tab.n_tors, tab.n_cons, use_gb, n_sasa, slow_buffer)
+    misfit = campaign_misfit(*sizes)
+    if misfit is not None:
+        raise ValueError(f"campaign op: {misfit}")
+    need = campaign_shared_bytes(*sizes)
+    solvent = use_gb or use_sasa
+    gb_cache = solvent and campaign_solvent_shape(tab.n_atoms)[1]
     pair_consts = pair_constants(cutoff, switch_dist, rfa, solvent_dielectric)
     dt = dt_fs / units.TIMEFACTOR
     gamma = gamma_ps * (units.TIMEFACTOR / 1000.0)
@@ -811,10 +861,11 @@ def make_fused_campaign_op(
     def dims():
         # built at the first launch: n_lj_types builds the pair layout,
         # which only the kernel reads
-        return (ctypes.c_int * 15)(
+        return (ctypes.c_int * 16)(
             tab.n_atoms, tab.n_angles, tab.n_tors, tab.max_t, tab.n_cons,
             tab.n_bias, n_inner, shake_iters, rattle_iters, int(use_noise),
             int(use_gb), n_sasa, sasa_every, gb_every, tab.pair.n_lj_types,
+            int(solvent and not gb_cache),
         )
 
     consts = (ctypes.c_float * 17)(
@@ -849,10 +900,16 @@ def make_fused_campaign_op(
 
     advance.n_inner = n_inner
     advance.shared_bytes = need
-    #: build facts of the kernel instantiation this op launches, on the
-    #: current CUDA device (``_build.kernel_info``)
-    advance.kernel_info = lambda: kernel_info(
-        "campaign_advance", "mdx_campaign_kernel_info", [ctypes.c_void_p], dims())
+    #: the kernel instantiation this op launches (csrc/campaign_advance.cu)
+    advance.instantiation = _instantiation(tab.n_atoms, solvent)
+    #: whether its GB passes keep the dI cache (False without GB)
+    advance.gb_cached = use_gb and gb_cache
+    #: build facts of that instantiation on the current CUDA device
+    #: (``_build.kernel_info``): registers, shared bytes, threads and CTAs an SM
+    advance.kernel_info = lambda: {
+        "instantiation": advance.instantiation, "gb_cached": advance.gb_cached,
+        **kernel_info("campaign_advance", "mdx_campaign_kernel_info",
+                      [ctypes.c_void_p], dims())}
     advance.tables = tab
     #: keyword arguments that make campaign_advance_reference this op
     advance.settings = settings

@@ -21,6 +21,10 @@ shifts over lanes and their halved halfway row); what it saved stays: each
 ordered pair's HCT integral is evaluated once with its derivative, and
 ``dI/dd / d`` waits in a shared-memory cache of N(N-1) floats (42.8 KB at 104
 atoms) for the chain pass, which is then a multiply-add a direction. The
+cache grows as N^2 and fits 236 atoms, but past a few CTAs an SM it costs
+more than it saves; the kernel's second instantiation evaluates the
+derivatives again in the chain pass instead, in 36 bytes of shared memory
+an atom (6,456 atoms). ``gb_cached`` picks one by size. The
 work is bound by arithmetic, much of it on the SFU: a replica moves 28 N
 bytes and needs N(N-1) HCT integrals and derivatives (a logarithm and three
 divisions each, beside the pair's square root), N(N-1)/2 Still terms with an
@@ -33,8 +37,8 @@ it measured the same. No atomics: bit-reproducible.
 ones: far pairs cancel to a small remainder in the HCT integral, and a 2-ulp
 ``rsqrtf`` shows there; the HCT integral's two other reciprocals are the
 SFU's (``__fdividef``, within 2e-5 kcal/mol/A of the plain float32 forces).
-The cache bounds the kernel to 236 atoms (``gb_forces_holds``); above, the
-wrapper raises.
+Above what either instantiation holds (``gb_forces_holds``) the wrapper
+raises.
 
 ``gb_forces_reference`` is the plain PyTorch version (any device, any float
 dtype): the same formulas as one dense ``(R, N, N)`` pass. It runs for a CPU
@@ -61,26 +65,42 @@ Tensor = torch.Tensor
 GB_ATOM_COLUMNS = ("rho", "rho_inv", "s", "radius_inv", "q_scaled")
 
 
-def gb_shared_bytes(n_atoms: int) -> int:
+#: the most atoms the GB passes run with their dI cache (the cache holds 236);
+#: above, the instantiation that evaluates the derivatives again. Measured
+#: (H100 80GB HBM3 at 700 W, ``chip_smoke.py``'s ``gbis_tiers``): K3 takes
+#: 0.161 ms with the cache and 0.212 without at 104 atoms x 1024 replicas,
+#: 0.385 and 0.296 at 208 x 384 (one CTA an SM with the cache, five
+#: without); between the two sizes the switch is not measured
+GB_CACHE_MAX_ATOMS = 128
+
+
+def gb_cached(n_atoms: int) -> bool:
+    """Whether the GB kernel runs a system of ``n_atoms`` with its dI cache."""
+    return n_atoms <= GB_CACHE_MAX_ATOMS
+
+
+def gb_shared_bytes(n_atoms: int, cached: bool = True) -> int:
     """Shared memory the GB passes need a replica beside the coordinates and
     forces (``gb_shared_floats`` in ``csrc/gb_terms.cuh``): three per-atom
     vectors (Born radius, its reciprocal, dR/dpsi then the chain cotangent)
-    and the dI cache, N rows of an odd stride >= N - 1."""
-    return 4 * (3 * n_atoms + n_atoms * ((n_atoms - 1) | 1))
+    and, ``cached``, the dI cache, N rows of an odd stride >= N - 1."""
+    return 4 * (3 * n_atoms + (n_atoms * ((n_atoms - 1) | 1) if cached else 0))
 
 
 def gb_forces_holds(device_type: str, dtype: torch.dtype, n_atoms: int) -> bool:
     """Whether :func:`gb_forces` answers an input of this device type, dtype
     and size: off CUDA its plain version answers any; on CUDA the kernel
-    takes float32 only, and a replica's dI cache, coordinates and forces
-    (``gb_shared_bytes(n) + 24 n``) must fit the shared memory a CTA may opt
-    in to (236 atoms). The wrapper raises where this is false."""
+    takes float32 only, and a replica's GB scratch, coordinates and forces
+    (``gb_shared_bytes(n, gb_cached(n)) + 24 n``) must fit the shared memory
+    a CTA may opt in to (6,456 atoms; the dI cache up to
+    ``GB_CACHE_MAX_ATOMS``). The wrapper raises where this is false."""
     if device_type != "cuda":
         return True
-    return (
-        dtype == torch.float32
-        and gb_shared_bytes(n_atoms) + 4 * 6 * n_atoms <= SHARED_OPT_IN_BYTES
-    )
+    return dtype == torch.float32 and _kernel_bytes(n_atoms) <= SHARED_OPT_IN_BYTES
+
+
+def _kernel_bytes(n_atoms: int) -> int:
+    return gb_shared_bytes(n_atoms, gb_cached(n_atoms)) + 4 * 6 * n_atoms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +269,7 @@ def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Te
     ``consts`` from :func:`gb_constants`.
 
     A CUDA tensor goes through the kernel (float32, contiguous, or it raises;
+    with the dI cache up to ``GB_CACHE_MAX_ATOMS`` atoms, without it above;
     the launch is counted in ``gb_forces.launches``); a CPU tensor takes
     :func:`gb_forces_reference`. Not differentiable.
     """
@@ -263,13 +284,12 @@ def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Te
         raise ValueError("tables and pos live on different devices")
     if not gb_forces_holds(pos.device.type, pos.dtype, n):
         raise ValueError(
-            f"gb_forces: {n} atoms need {gb_shared_bytes(n) + 4 * 6 * n} bytes of "
-            f"shared memory a replica (the dI cache is N(N-1) floats); the kernel "
-            f"holds {SHARED_OPT_IN_BYTES}"
+            f"gb_forces: {n} atoms need {_kernel_bytes(n)} bytes of shared memory a "
+            f"replica; the kernel holds {SHARED_OPT_IN_BYTES}"
         )
     fn = kernel_function(
         "gb_forces", "mdx_gb_forces",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p],
     )
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=pos.device)
@@ -277,7 +297,7 @@ def gb_forces(pos: Tensor, tables: GBTables, consts) -> Tuple[Tensor, Tensor, Te
     with torch.cuda.device(pos.device):
         err = fn(
             pos.data_ptr(), forces.data_ptr(), energy.data_ptr(), born.data_ptr(),
-            tables.atom.data_ptr(), n_rep, n, *consts,
+            tables.atom.data_ptr(), n_rep, n, int(gb_cached(n)), *consts,
             torch.cuda.current_stream().cuda_stream,
         )
     gb_forces.launches += 1

@@ -14,6 +14,7 @@ per-frame energy/temperature logs and colvar centre/value traces.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -373,16 +374,50 @@ def simulate(
     return state, torch.stack(frames), _stack_logs(logs)
 
 
+def _campaign_constraints(ff: FFParams, config: SimulationConfig):
+    """The constraint set the campaign kernel runs, or None."""
+    if not config.constrain_h_bonds:
+        return None
+    hb = hydrogen_bond_constraints(ff)
+    return hb if hb.n_constraints else None
+
+
+def _campaign_misfit(ff: FFParams, config: SimulationConfig) -> Optional[str]:
+    """Why the campaign kernel cannot hold this system under ``config``
+    (``ops.fused_step.campaign_misfit``), or None, from sizes alone: the
+    atoms, the angle, torsion and constraint counts and the LCPO atoms."""
+    from molecular_dynamics_tpu_torch.ops.fused_step import campaign_misfit
+
+    terms = set(config.energy.terms)
+    gb, sasa = "gb" in terms, "sasa" in terms
+    cons = _campaign_constraints(ff, config)
+    n_sasa = int((ff.sasa_radii > 0).sum()) if sasa else 0
+    slow_buffer = (gb and config.gb_every > 1) or (sasa and config.sasa_every > 1)
+    return campaign_misfit(
+        ff.n_atoms, int(ff.angles.shape[0]),
+        int(ff.dihedrals.shape[0]) + int(ff.impropers.shape[0]),
+        0 if cons is None else cons.n_constraints, gb, n_sasa, slow_buffer,
+    )
+
+
+def campaign_holds(ff: FFParams, config: SimulationConfig) -> bool:
+    """Whether the campaign kernel holds this system under ``config``,
+    answered from sizes alone before any table is built or kernel launched:
+    the atoms, the angle, torsion and constraint counts, the LCPO atoms
+    under ``sasa``, and the shared memory of the instantiation that would
+    run them. The same on every device: on the CPU the op runs the kernel's
+    plain version, but ``simulate_ensemble`` dispatches as it would on the
+    card."""
+    return _campaign_misfit(ff, config) is None
+
+
 def _campaign_advance_fn(ff: FFParams, save_every: int, config: SimulationConfig, bias):
     """The campaign op for this config, or raise where the kernel does not
-    cover it (there is no second path to fall to)."""
+    cover it."""
     from molecular_dynamics_tpu_torch.ops.fused_step import make_fused_campaign_op
 
     _require_kernel_coverage("fused_campaign", config, langevin_only=True, ff=ff)
-    cons = None
-    if config.constrain_h_bonds:
-        hb = hydrogen_bond_constraints(ff)
-        cons = hb if hb.n_constraints else None
+    cons = _campaign_constraints(ff, config)
     term_set = set(config.energy.terms)
     return make_fused_campaign_op(
         ff,
@@ -425,9 +460,14 @@ def simulate_ensemble(
     the default term set, alone or with ``gb`` or ``gb`` + ``sasa``
     (``GBIS_POLAR_CONFIG``, ``GBIS_CONFIG``; ``config.sasa_every`` and
     ``config.gb_every`` set their cadences and must divide ``save_every``);
-    any other integrator, PBC, another term set, a force field without GB
-    tables or a system the kernel cannot hold raises. The composed per-step
-    path runs only when the flag is off. Each segment's thermostat seed
+    any other integrator, PBC, another term set or a force field without GB
+    tables raises. A system the kernel cannot hold (``campaign_holds``:
+    decided by size before anything is built) warns and runs the composed
+    per-step path on the same device, as the JAX package does past its
+    kernel's design point; there the GB and LCPO forces come from their
+    kernels where those hold the state, else from autograd, and the
+    cadences do not apply. An error of the campaign kernel itself still
+    raises. Each segment's thermostat seed
     is derived from the first replica's ``(key, step)``, so two segments
     never reuse a noise stream.
 
@@ -496,6 +536,18 @@ def simulate_ensemble(
     n_cons = _n_constraints(ff, config)
     logs = []
 
+    if config.fused_campaign:
+        _require_kernel_coverage("fused_campaign", config, langevin_only=True, ff=ff)
+        misfit = _campaign_misfit(ff, config)
+        if misfit is not None:
+            warnings.warn(
+                f"fused_campaign requested, but the campaign kernel does not hold "
+                f"this system ({ff.n_atoms} atoms under the terms "
+                f"{sorted(config.energy.terms)}: {misfit}); dispatching to the "
+                "composed per-step path",
+                stacklevel=2,
+            )
+            config = dataclasses.replace(config, fused_campaign=False)
     if config.fused_campaign:
         advance = shard_campaign_advance(
             {dev: _campaign_advance_fn(ff_d, save_every, config, bias_d)

@@ -224,23 +224,42 @@ def test_sasa_overflow_flag_raises(n_compact, flag):
         tsasa.raise_on_overflow(overflow, n_compact, "sasa_forces")
 
 
-@pytest.mark.parametrize("m", [1, 4, 8, 10])
+#: m -> (the solvent instantiation, its shared bytes with rigid X-H bonds
+#: and a cadence under GBIS_CONFIG), or None where the kernel does not hold it
+GBIS_TIER_SHAPES = {1: ("campaign_solvent", 49184), 2: ("campaign_solvent_large", 108080),
+                    4: ("campaign_solvent_large", 221024), 5: None, 8: None, 10: None}
+
+
+@pytest.mark.parametrize("m", sorted(GBIS_TIER_SHAPES))
 def test_gbis_campaign_shared_memory_at_the_tier_sizes(m):
-    """With the dI cache (N(N-1) floats) the GBIS campaign kernel holds the
-    104-atom system; at the other sizes the tier phase runs through the
-    campaign kernel the op raises, naming the limit."""
+    """The GBIS campaign op holds the tiled systems up to the 416-atom tier:
+    104 atoms in the 256-thread instantiation with GB's dI cache, 208 and
+    416 in the 512-thread one without it, where the LCPO lists set the
+    shared memory (221 KB at 416 atoms). At 520 atoms and above the op
+    raises, naming the limit, and ``campaign_holds`` says no before any
+    table is built."""
     from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
 
     ff, _, _ = tiled_decaalanine(m, device="cpu")
-    need = tfused.campaign_shared_bytes(
-        104 * m, 183 * m, 273 * m, 0, gb=True, n_sasa=51 * m, slow_buffer=True)
-    if m == 1:
-        op = tfused.make_fused_campaign_op(ff, gb=True, sasa=True, sasa_every=5, **GBIS_OP)
+    cons = tcons.hydrogen_bond_constraints(ff)
+    sizes = (104 * m, 183 * m, 273 * m, 53 * m)
+    need = tfused.campaign_shared_bytes(*sizes, gb=True, n_sasa=51 * m, slow_buffer=True)
+    cfg = tsim.SimulationConfig(energy=GBIS, fused_campaign=True, constrain_h_bonds=True,
+                                sasa_every=5)
+    holds = tsim.campaign_holds(ff, cfg)
+    assert holds == (tfused.campaign_misfit(*sizes, True, 51 * m, True) is None)
+    assert holds == (GBIS_TIER_SHAPES[m] is not None)
+    build = lambda: tfused.make_fused_campaign_op(
+        ff, gb=True, sasa=True, sasa_every=5, constraints=cons, **GBIS_OP)
+    if holds:
+        op = build()
+        assert (op.instantiation, op.shared_bytes) == GBIS_TIER_SHAPES[m]
         assert op.shared_bytes == need <= tfused.SHARED_LIMIT_BYTES
+        assert op.gb_cached == (op.instantiation == "campaign_solvent")
     else:
         assert need > tfused.SHARED_LIMIT_BYTES
         with pytest.raises(ValueError, match=f"needs {need} bytes .* holds {tfused.SHARED_LIMIT_BYTES}"):
-            tfused.make_fused_campaign_op(ff, gb=True, sasa=True, sasa_every=5, **GBIS_OP)
+            build()
 
 
 # -- the analytic forces against -grad of the JAX energies -----------------------
@@ -350,19 +369,19 @@ def jax_one_step(sysm):
     m = np.asarray(jff64.masses)[:, None]
 
     def run(cfg):
-        force = jax.vmap(lambda p: -jax.grad(lambda q: jenergy.total_energy(q, jff64, config=cfg))(p))
-
-        def step(pos, vel):
-            f0 = force(pos)
-            vv = vel + 0.5 * dt * f0 / m
-            xx = pos + 0.5 * dt * vv
-            vv = c1 * vv
-            xx = xx + 0.5 * dt * vv
-            f1 = force(xx)
-            return f0, xx, vv + 0.5 * dt * f1 / m, f1
-
-        out = jax.jit(step)(jnp.asarray(sysm["pos_b"], jnp.float64), jnp.asarray(sysm["vel_b"], jnp.float64))
-        return [np.asarray(o) for o in out]
+        # one jitted force, called at both ends of the step; the step's
+        # arithmetic in numpy (float64 throughout)
+        jforce = jax.jit(jax.vmap(
+            lambda p: -jax.grad(lambda q: jenergy.total_energy(q, jff64, config=cfg))(p)))
+        force = lambda p: np.asarray(jforce(jnp.asarray(p)))
+        pos = np.asarray(sysm["pos_b"], np.float64)
+        f0 = force(pos)
+        vv = np.asarray(sysm["vel_b"], np.float64) + 0.5 * dt * f0 / m
+        xx = pos + 0.5 * dt * vv
+        vv = c1 * vv
+        xx = xx + 0.5 * dt * vv
+        f1 = force(xx)
+        return [f0, xx, vv + 0.5 * dt * f1 / m, f1]
 
     return {"gb": run(jenergy.GBIS_POLAR_CONFIG), "gb+sasa": run(jenergy.GBIS_CONFIG)}
 
@@ -627,6 +646,80 @@ def test_simulate_ensemble_gbis_campaign_matches_jax_composed(world):
             tlog[key].numpy(), np.asarray(jlog[key]), rtol=2e-3, atol=2e-3, err_msg=key)
 
 
+def test_simulate_ensemble_gbis_campaign_416_atoms_matches_jax_composed():
+    """The 416-atom tier (four copies 50 A apart) through the campaign op's
+    512-thread instantiation, which evaluates the GB derivatives again
+    instead of caching them: ``simulate_ensemble`` under GBIS_CONFIG with
+    ``fused_campaign=True`` (T = 0, rigid X-H, 2 replicas, 2 steps, the SMD
+    bias on copy 0's ends) against the JAX ``simulate_ensemble`` on its
+    composed path, from the same state, as at 104 atoms: frames within 1e-4
+    A. On the CPU the op runs its plain version, which the kernel is held
+    against on the card."""
+    from molecular_dynamics_tpu.examples import tiled_decaalanine as jtiled
+    from torch_parity import ff_to_numpy
+    from molecular_dynamics_tpu_torch import convert as tconvert
+
+    jff, _, _ = jtiled(4, dtype=jnp.float32)
+    tff = tconvert.ff_params_from_numpy(ff_to_numpy(jff), device="cpu", dtype=torch.float32)
+    pos = np.concatenate([minimized_full_da() + np.float32([50.0 * k, 0.0, 0.0]) for k in range(4)])
+    vel = thermal_velocities(np.asarray(jff.masses), 1, seed=15)[0]
+    d0 = float(np.linalg.norm(pos[103] - pos[0]))
+    bkw = dict(n_atoms=416, group1=[0], group2=[103], fk=1.0, cent_0=d0, cent_1=d0 + 22.0, T=500_000.0)
+    jb = jbias.HarmonicSMDBias.create(**bkw)
+    tb = tbias.HarmonicSMDBias.create(device="cpu", **bkw)
+    jforce = lambda p, b: -jax.grad(
+        lambda q: jenergy.total_energy(q, jff, config=jenergy.GBIS_CONFIG) + jb.energy(q, 0))(p)
+    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
+    jst = jax.jit(lambda s: jintegrate.initialize_forces(s, jforce))(jst)
+    jens = jsystem.replicate(jst, 2, seed=3)
+    tens = tsystem.replicate(tsystem.system_init(
+        pos, vel=vel, device="cpu", key=1).replace(forces=t(jst.forces)), 2, seed=3)
+    kw = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
+    cfg = tsim.SimulationConfig(energy=GBIS, fused_campaign=True, **kw)
+    assert tsim.campaign_holds(tff, cfg)
+    jfinal, jframes, _ = jsim.simulate_ensemble(
+        jens, jff, n_steps=2, save_every=2,
+        config=jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **kw), bias=jb)
+    calls = []
+    real = tfused.campaign_advance_reference
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfused, "campaign_advance_reference", lambda *a, **k: calls.append(1) or real(*a, **k))
+        tfinal, tframes, _ = tsim.simulate_ensemble(tens, tff, n_steps=2, save_every=2, config=cfg, bias=tb)
+    assert calls == [1] and tuple(tframes.shape) == jframes.shape == (1, 2, 416, 3)
+    np.testing.assert_allclose(tframes.numpy(), np.asarray(jframes), atol=1e-4)
+    np.testing.assert_allclose(tfinal.vel.numpy(), np.asarray(jfinal.vel), atol=5e-3)
+    np.testing.assert_allclose(tfinal.forces.numpy(), np.asarray(jfinal.forces), atol=0.15)
+
+
+@pytest.mark.parametrize("energy, m", [(GBIS, 5), (tenergy.GBIS_POLAR_CONFIG, 6)],
+                         ids=["gbis_520_atoms", "polar_624_atoms"])
+def test_campaign_dispatch_by_size_warns_and_runs_composed(energy, m):
+    """A system the campaign kernel does not hold (520 atoms under
+    GBIS_CONFIG: the LCPO lists alone pass the shared memory; 624 under
+    GBIS_POLAR_CONFIG: past the 512 atoms of the solvent instantiation)
+    makes ``simulate_ensemble(fused_campaign=True)`` warn and run the
+    composed path, decided by ``campaign_holds`` before anything is built:
+    its trajectory equals ``fused_campaign=False`` bit for bit (T = 0, 2
+    replicas, 2 steps). The same op called directly still raises."""
+    from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
+
+    ff, coords, _ = tiled_decaalanine(m, device="cpu")
+    ens = tsystem.replicate(tsystem.system_init(coords, device="cpu", key=1), 2, seed=3)
+    cfg = tsim.SimulationConfig(energy=energy, fused_campaign=True, temperature=0.0, dt_fs=1.0)
+    assert not tsim.campaign_holds(ff, cfg)
+    built = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfused, "build_campaign_tables", lambda *a, **k: built.append(1))
+        with pytest.warns(UserWarning, match=f"does not hold this system \\({104 * m} atoms"):
+            flagged = tsim.simulate_ensemble(ens, ff, n_steps=2, save_every=2, config=cfg)
+    plain = tsim.simulate_ensemble(ens, ff, n_steps=2, save_every=2,
+                                   config=dataclasses.replace(cfg, fused_campaign=False))
+    assert built == []
+    assert torch.equal(flagged[1], plain[1]) and torch.equal(flagged[0].forces, plain[0].forces)
+    with pytest.raises(ValueError, match="the kernel holds"):
+        tfused.make_fused_campaign_op(ff, gb=True, sasa="sasa" in energy.terms)
+
+
 @pytest.mark.parametrize(
     "cfg_kw",
     [dict(), dict(sasa_every=2), dict(gb_every=2, sasa_every=2), dict(energy=tenergy.GBIS_POLAR_CONFIG, gb_every=2)],
@@ -767,20 +860,26 @@ def test_composed_path_without_gb_tables_raises(world):
 @pytest.mark.parametrize("m", [1, 2, 4], ids=["104_atoms", "208_atoms", "416_atoms"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_solvent_kernel_predicates(m, dtype):
-    """The GB kernel holds float32 up to 236 atoms (its dI cache), the LCPO
-    kernel float32 up to the heavy-atom count whose lists fit a CTA's shared
-    memory (204 of the 416-atom system fit); a CPU input goes to the plain
-    versions at any dtype and size. Deca-alanine has 51 heavy atoms a copy."""
+    """The GB kernel holds float32 with its dI cache up to 236 atoms and
+    without it up to 6,456 (36 bytes an atom), the LCPO kernel float32 up to
+    the heavy-atom count whose lists fit a CTA's shared memory (204 of the
+    416-atom system fit); a CPU input goes to the plain versions at any
+    dtype and size. Deca-alanine has 51 heavy atoms a copy."""
     n, nc = 104 * m, 51 * m
     f32 = dtype == torch.float32
-    assert tgb.gb_forces_holds("cuda", dtype, n) == (f32 and n <= 236)
+    assert tgb.gb_forces_holds("cuda", dtype, n) == f32
     assert tsasa.sasa_forces_holds("cuda", dtype, n, nc) == f32
     assert tgb.gb_forces_holds("cpu", dtype, n) and tsasa.sasa_forces_holds("cpu", dtype, n, nc)
     # the size rule is the shared memory a CTA may opt in to, in one place
+    cached = tgb.gb_cached(n)
+    assert cached == (n <= tgb.GB_CACHE_MAX_ATOMS)
     assert tgb.gb_forces_holds("cuda", torch.float32, n) == (
-        tgb.gb_shared_bytes(n) + 24 * n <= SHARED_OPT_IN_BYTES)
-    assert tgb.gb_forces_holds("cuda", torch.float32, 236)
-    assert not tgb.gb_forces_holds("cuda", torch.float32, 237)
+        tgb.gb_shared_bytes(n, cached) + 24 * n <= SHARED_OPT_IN_BYTES)
+    assert tgb.gb_shared_bytes(n, False) == 12 * n < tgb.gb_shared_bytes(n, True)
+    assert tgb.GB_CACHE_MAX_ATOMS <= 236 and tgb.gb_shared_bytes(236) + 24 * 236 <= SHARED_OPT_IN_BYTES
+    assert not tgb.gb_shared_bytes(237) + 24 * 237 <= SHARED_OPT_IN_BYTES
+    assert tgb.gb_forces_holds("cuda", torch.float32, 6456)
+    assert not tgb.gb_forces_holds("cuda", torch.float32, 6457)
 
 
 def test_unflagged_gbis_step_off_the_kernels_matches_jax(world, monkeypatch):

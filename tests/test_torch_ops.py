@@ -256,32 +256,41 @@ def test_philox_normals_statistics_and_keying():
 
 
 def _jax_composed(sysm, n_steps, with_bias, with_cons, n_iter=30):
-    """n_steps of the JAX composed BAOAB step at T = 0 from (pos_b, vel_b)."""
-    jff = sysm["jff"]
-    bias = sysm["jbias"] if with_bias else None
+    """n_steps (at most 2) of the JAX composed BAOAB step at T = 0 from
+    (pos_b, vel_b): the start's forces and the state after them. Both step
+    counts come from one jitted run of two steps, kept on ``sysm`` for the
+    module's other cases."""
+    runs = sysm.setdefault("_jax_composed", {})
+    key = (with_bias, with_cons, n_iter)
+    if key not in runs:
+        jff = sysm["jff"]
+        bias = sysm["jbias"] if with_bias else None
 
-    def force_at(step):
-        def pot(q):
-            e = jenergy.total_energy(q, jff, config=jenergy.REFERENCE_CONFIG)
-            return e + bias.energy(q, step) if bias is not None else e
-        return lambda p, b: -jax.grad(pot)(p)
+        def force_at(step):
+            def pot(q):
+                e = jenergy.total_energy(q, jff, config=jenergy.REFERENCE_CONFIG)
+                return e + bias.energy(q, step) if bias is not None else e
+            return lambda p, b: -jax.grad(pot)(p)
 
-    def one(pos, vel):
-        from molecular_dynamics_tpu import integrate as jintegrate
+        def two(pos, vel):
+            from molecular_dynamics_tpu import integrate as jintegrate
 
-        st = jsystem.system_init(pos, vel=vel)
-        st = st.replace(forces=force_at(0)(pos, None))
-        f0 = st.forces
-        for i in range(n_steps):
-            if with_cons:
-                st = jcons.constrained_langevin_step(
-                    st, force_at(i), jff.masses, sysm["jcons"], 2.0, 0.0, 1.0, n_iter=n_iter
-                )
-            else:
-                st = jintegrate.langevin_step(st, force_at(i), jff.masses, 2.0, 0.0, 1.0)
-        return f0, st.pos, st.vel, st.forces
+            st = jsystem.system_init(pos, vel=vel)
+            st = st.replace(forces=force_at(0)(pos, None))
+            out = [st.forces]
+            for i in range(2):
+                if with_cons:
+                    st = jcons.constrained_langevin_step(
+                        st, force_at(i), jff.masses, sysm["jcons"], 2.0, 0.0, 1.0, n_iter=n_iter
+                    )
+                else:
+                    st = jintegrate.langevin_step(st, force_at(i), jff.masses, 2.0, 0.0, 1.0)
+                out.append((st.pos, st.vel, st.forces))
+            return out
 
-    return jax.jit(jax.vmap(one))(jnp.asarray(sysm["pos_b"]), jnp.asarray(sysm["vel_b"]))
+        runs[key] = jax.jit(jax.vmap(two))(jnp.asarray(sysm["pos_b"]), jnp.asarray(sysm["vel_b"]))
+    f0, *states = runs[key]
+    return (f0, *states[n_steps - 1]) if n_steps else (f0,)
 
 
 @pytest.mark.parametrize("with_cons", [False, True], ids=["bias", "bias+constraints"])
@@ -434,7 +443,8 @@ def test_campaign_cta_shape_at_the_tier_sizes(m, threads, kb):
     512 up to 512, 1024 above, and no warp owns more chunks of the pair loop
     than its instantiation keeps in registers (one, two at 1024 threads);
     the unconstrained tiled systems' shared memory fits the 227 KB a CTA may
-    opt in to up to 12 copies, and their atoms the vacuum kernel's limit."""
+    opt in to up to 12 copies, and their atoms the vacuum kernel's limit;
+    with GB or LCPO the 512-thread instantiation holds up to 4 copies."""
     n = 104 * m
     assert _pair_loop_threads(n) == threads
     nc = tnonbonded.chunk_count(n)
@@ -443,13 +453,15 @@ def test_campaign_cta_shape_at_the_tier_sizes(m, threads, kb):
     need = tfused.campaign_shared_bytes(n, 183 * m, 273 * m, 0)
     assert round(need / 1024, 1) == kb and need <= tfused.SHARED_LIMIT_BYTES
     assert n <= tfused.campaign_max_atoms(solvent=False) == tnonbonded.PAIR_LOOP_MAX_ATOMS
-    assert (n <= tfused.campaign_max_atoms(solvent=True)) == (m <= 2)
+    assert (n <= tfused.campaign_max_atoms(solvent=True)) == (m <= 4)
 
 
 def test_campaign_atom_limit_raises(sysm, monkeypatch):
     """The campaign op refuses a system past what its instantiation holds:
-    2,048 atoms in vacuum, 256 with GB or LCPO."""
-    assert tfused.campaign_max_atoms(False) == 2048 and tfused.campaign_max_atoms(True) == 256
+    2,048 atoms in vacuum, 512 with GB or LCPO (the 512-thread solvent
+    instantiation, a 32-atom chunk a warp)."""
+    assert tfused.campaign_max_atoms(False) == 2048 and tfused.campaign_max_atoms(True) == 512
+    assert tfused.SOLVENT_THREADS[1] == 512 and tfused.campaign_solvent_shape(513)[0] == 512
     monkeypatch.setattr(tfused, "PAIR_LOOP_MAX_ATOMS", 103)
     with pytest.raises(ValueError, match="104 atoms; the kernel holds 103$"):
         tfused.make_fused_campaign_op(sysm["tff"])

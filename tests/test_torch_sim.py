@@ -138,9 +138,19 @@ def test_campaign_path_options(world):
 
 
 def test_campaign_path_raises_instead_of_falling_back(world, monkeypatch):
+    """A system the campaign kernel holds runs through it, and an error of
+    the kernel (here its plain version, which the CPU runs) raises; nothing
+    runs the composed path instead. (A system the kernel does not hold is
+    dispatched by size before anything is built:
+    ``test_torch_gbis.py::test_campaign_dispatch_by_size_warns_and_runs_composed``.)"""
     cfg = tsim.SimulationConfig(fused_campaign=True)
-    monkeypatch.setattr(tfused, "SHARED_LIMIT_BYTES", 1024)
-    with pytest.raises(ValueError, match="shared memory"):
+    assert tsim.campaign_holds(world["tff"], cfg)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("campaign kernel launch failed: CUDA error 1")
+
+    monkeypatch.setattr(tfused, "campaign_advance_reference", broken)
+    with pytest.raises(RuntimeError, match="campaign kernel launch failed"):
         tsim.simulate_ensemble(world["tens"], world["tff"], n_steps=2, save_every=2, config=cfg)
     monkeypatch.undo()
     # the implicit-solvent campaign: no GB tables, or a cadence that does not
