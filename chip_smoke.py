@@ -56,10 +56,12 @@ Phases, one JSON line each on standard output:
    whose GB and LCPO forces are one ``gb_forces`` and one ``sasa_forces``
    launch a step); then the same entry point with no kernel flag on a state
    the GB and SASA kernels do not hold (104 atoms in float64), where those
-   forces come from autograd, against 104 and 416 atoms in float32, where
-   both kernels launch (``solvent_dispatch``; the GB kernel at 416 atoms
-   runs without its dI cache, and is held there against its plain version
-   at 192 replicas and timed).
+   forces come from autograd, against 104, 416 and 506 atoms in float32,
+   where both kernels launch (``solvent_dispatch``; the GB kernel at 416
+   atoms runs without its dI cache, and is held there against its plain
+   version at 192 replicas and timed; the SASA kernel at 506 atoms keeps its
+   lists in a global workspace, and is held there at 128 replicas and
+   timed).
    ``gbis_tiers``: the GBIS campaign through the campaign kernel at 208
    atoms x 384 replicas and 416 x 192 (``tiled_decaalanine(m)``, m = 2, 4,
    copies of the GBIS-minimised structure; SMD bias on copy 0's ends, atom
@@ -69,11 +71,19 @@ Phases, one JSON line each on standard output:
    its time a launch beside its bound; ``simulate_ensemble(fused_campaign)``
    for 2000 steps with the campaign gates and 40 launches, at 416 atoms
    under ``GBIS_CONFIG`` at ``sasa_every`` 1 and 5 and under
-   ``GBIS_POLAR_CONFIG`` at ``gb_every=5``, at 208 atoms at ``sasa_every=1``;
+   ``GBIS_POLAR_CONFIG`` at ``gb_every=5`` (at 208 atoms the checks and
+   the time a launch only);
    ``cli simulate`` under ``GBIS_CONFIG`` on the 416-atom system written as
-   a chamber prmtop; and both solvent instantiations and both GB kernels
-   (with and without the cache) at 104 and 208 atoms, timed in turns: the
-   measurement the switch point ``gb.GB_CACHE_MAX_ATOMS`` rests on.
+   a chamber prmtop; the 416-atom launch with the LCPO lists in shared
+   memory and in the global workspace, timed in turns (the measurement
+   ``fused_step.campaign_sasa_lists_global`` rests on); the same checks,
+   timing and 2000-step run at ``sasa_every=1`` on di-alanine tiled 23
+   times (506 atoms x 128 replicas, 230 heavy atoms: the LCPO lists in a
+   global workspace; copies on a grid 50 A apart, bias on copy 0's first
+   and last heavy atom), with no composed-path warning; and both solvent
+   instantiations and both GB kernels (with and without the cache) at 104
+   and 208 atoms, timed in turns: the measurement the switch point
+   ``gb.GB_CACHE_MAX_ATOMS`` rests on.
    ``cadence``: the cadences' long-run soundness: NVE traces (gamma = 0, 1
    fs, no constraints, 10,000 steps, E_tot once a launch) through the
    campaign kernel at 104 atoms x 1024 replicas under ``GBIS_POLAR_CONFIG``
@@ -255,6 +265,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -331,6 +342,15 @@ SOLVENT_PATH_STEPS = 4  # steps of the composed GBIS path, one gb_forces + one s
 #: the GBIS campaign at the tier sizes: tiled_decaalanine(m) at the tier
 #: table's replica count (416 x 192; 208 x 384 between it and 104 x 768)
 GBIS_TIERS = ((2, 384), (4, 192))
+#: the GBIS tier past the LCPO lists' room in shared memory: di-alanine
+#: tiled DIALA_TIER[0] times (506 atoms, 230 heavy atoms: K1 and K4 keep the
+#: lists in a global workspace) at DIALA_TIER[1] replicas, one wave of one
+#: CTA an SM on 132 SMs
+DIALA_TIER = (23, 128)
+#: FIRE steps of the di-alanine copy under GBIS_CONFIG: the largest force
+#: falls from 57 to about 1.3 kcal/mol/A in 100 (FIRE's steps are
+#: launch-bound, about 24 ms each on the card: 500 took 12 s)
+DIALA_FIRE_STEPS = 100
 #: the runs of simulate_ensemble(fused_campaign) at a GBIS tier: (label,
 #: energy, sasa_every, gb_every); the 208-atom tier runs the first only
 GBIS_TIER_RUNS = (("sasa_every=1", GBIS_CONFIG, 1, 1), ("sasa_every=5", GBIS_CONFIG, 5, 1),
@@ -375,6 +395,9 @@ PAIR_OP_SHAPES = ((1, 1024), (4, 192), (10, 96), (24, 4))
 K5_OPT_IN_SHAPE = (39, 2)
 TIER_STEPS = 500
 TIER_SAVE = 50
+#: the profile phase's composed ring run at 416 x 192: 413 launches a step,
+#: the same every step; at TIER_SAVE steps reading the trace back took 14 s
+PROFILE_COMPOSED_STEPS = 10
 GRAD_STEPS = 10  # the grad phase: 416 atoms x 8 replicas, T = 0
 CLI_CHECK_REPLICAS = 8   # the cli phase's fused_nonbonded runs: 8 replicas x 50 steps
 CLI_CHECK_STEPS = 50
@@ -413,6 +436,13 @@ HNN_SANITY_EPOCHS = 1
 #: two epochs they took 127 s of the phase's 268, H100 80GB HBM3 at 700 W:
 #: one epoch makes room for the GBIS tiers and the cadence phase)
 SEQUENCE_SANITY_EPOCHS = 1
+#: the sanity runs' unrolled fine-tunes at one epoch each (the drivers'
+#: defaults are 4, 6 and 4: at those ``transformer`` took 69.3 s, ``gat``
+#: 17.5 s and ``seq2seq-graph`` 18.7 s of the phase's 238.5, H100 80GB HBM3
+#: at 700 W); the live-budget families keep their drivers' defaults
+SEQUENCE_SANITY_FT = {"transformer": {"MDX_TRANSFORMER_FT_EPOCHS": "1"},
+                      "gat": {"MDX_GAT_FT_EPOCHS": "1"},
+                      "seq2seq-graph": {"MDX_GSEQ_FT_EPOCHS": "1"}}
 SEQUENCE_FAMILIES = ("lstm", "lstm-gat", "lstm-nll", "seq2seq", "seq2seq-gan", "transformer",
                      "gat", "seq2seq-graph")
 #: each sequence step kind on the card against float64: the loss, the
@@ -421,6 +451,21 @@ TOL_SEQUENCE_STEP = 1e-5
 #: the generative phase: the four families at DYNAMICS_EPOCHS under the
 #: sanity bound (they have no live budget in the JAX package's guard)
 GENERATIVE_FAMILIES = ("flow", "vae", "aae", "sde")
+DYNAMICS_FAMILIES = ("node", "hnn", "hnn-latent", "hnn-schnet")
+#: the dynamics, sequence and generative censuses' steps: every step of a
+#: kind launches the same kernels, and at 5 reading their traces back took
+#: 52 s (H100 80GB HBM3 at 700 W)
+CENSUS_STEPS = 2
+#: the ``cli train`` runs of the train, dynamics, sequence and generative
+#: phases go TRAIN_WORKERS at a time, each in a process of its own, in
+#: TRAIN_LONGEST_FIRST's order (the rest after): each run is host-bound (the
+#: device 5-16 % busy), and one after another they took about 400 s of the
+#: script (H100 80GB HBM3 at 700 W). Their wall seconds are read under that
+#: sharing; the phases' steps against float64, update rates and censuses
+#: run after the last of them, in this process alone
+TRAIN_WORKERS = 4
+TRAIN_LONGEST_FIRST = ("node", "lstm-gat", "lstm", "cgan", "transformer", "sde", "pretrain",
+                       "seq2seq-graph", "gat", "flow", "hnn-schnet")
 #: the host_io phase: the packaged 104-atom tables written as a chamber
 #: prmtop by the numpy writer of the CPU tests (loaded by path, the one file
 #: of tests/ this script reads)
@@ -678,6 +723,22 @@ def patched(patches):
     finally:
         for mod, name, old in saved:
             setattr(mod, name, old)
+
+
+@contextlib.contextmanager
+def environ(values):
+    """Set each environment variable of ``values`` for the block, restore
+    after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def census_by_source(step, sources, steps):
@@ -944,13 +1005,14 @@ def ptxas_summary(logs):
             for name, log in logs.items()}
 
 
-def max_heavy_atoms(atoms_per_heavy):
+def max_heavy_atoms(atoms_per_heavy, lists_global=True):
     """The largest LCPO set the SASA kernel holds in the shared memory a CTA
     may opt in to, with ``atoms_per_heavy`` atoms a heavy atom (their
-    coordinates and forces sit in shared memory too)."""
+    coordinates and forces sit in shared memory too), with its lists in
+    global memory (the kernel's bound) or beside them in shared memory."""
     nc = 1
-    while (sasa.sasa_shared_bytes(nc + 1) + 24 * math.ceil(atoms_per_heavy * (nc + 1))
-           <= _build.SHARED_OPT_IN_BYTES):
+    while (sasa.sasa_shared_bytes(nc + 1, lists_global)
+           + 24 * math.ceil(atoms_per_heavy * (nc + 1)) <= _build.SHARED_OPT_IN_BYTES):
         nc += 1
     return nc
 
@@ -1242,13 +1304,34 @@ def lever_library(run):
     return run.split("[")[0]
 
 
+def lever_defines(lib, runs):
+    """The compiler's defines of a lever build of ``lib`` timed in ``runs``:
+    a campaign_advance build compiles only the bodies those runs can reach
+    (MDX_CAMPAIGN_BODIES: the two solvent ones for "[gbis]", else the three
+    vacuum ones, whichever a lever's sizes pick), about half the build."""
+    if lib != "campaign_advance":
+        return []
+    bits = 0
+    for run in runs:
+        if lever_library(run) == lib:
+            bits |= 0x18 if run.endswith("[gbis]") else 0x07
+    return [f"-DMDX_CAMPAIGN_BODIES={bits}"]
+
+
+def lowest_priority():
+    """Run this process at the lowest CPU priority (in a child, before its
+    program starts)."""
+    os.nice(19)
+
+
 def start_lever_builds():
     """Copy csrc/ once per variant and library, change it, start one nvcc
-    each."""
+    each at the lowest CPU priority: they start with the kernels' own build
+    and take the cores it and the first checks leave idle."""
     started, skipped = {}, {}
-    jobs = [(lib, label, subs) for label, subs, runs in LEVERS
+    jobs = [(lib, label, subs, runs) for label, subs, runs in LEVERS
             for lib in dict.fromkeys(lever_library(r) for r in runs)]
-    for i, (lib, label, subs) in enumerate(jobs):
+    for i, (lib, label, subs, runs) in enumerate(jobs):
         d = LEVER_DIR / f"{lib}_{i}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
@@ -1267,10 +1350,11 @@ def start_lever_builds():
         if missing:
             skipped[f"{lib}: {label}"] = f"substitution no longer applies: {missing}"
             continue
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
-               str(d / f"{lib}.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *lever_defines(lib, runs), "-I", str(d),
+               "-o", str(d / "lib.so"), str(d / f"{lib}.cu")]
         started[(lib, label)] = (d, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lowest_priority))
     return started, skipped
 
 
@@ -1471,18 +1555,25 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
     state (``gb_forces_holds``, ``sasa_forces_holds``: float32 within their
     shared memory), else from autograd of the energy, as the JAX package
     does. 104 atoms in float64 (both from autograd), 416 atoms in float32 (K3
-    without its dI cache, K4 with the 204 heavy atoms) and 104 atoms in
-    float32 (both kernels), a few steps at T = 0 from the packaged
-    coordinates: the force each step carries equals autograd of the whole
-    energy at its positions, and the launch counters show the route. K3 at
-    416 atoms x 192 replicas against its plain version, timed. A direct
-    call of a wrapper on a state its kernel does not hold still raises."""
+    without its dI cache, K4 with the 204 heavy atoms), 506 atoms in float32
+    (the tiled di-alanine: K4 with 230 heavy atoms, its lists in a global
+    workspace) and 104 atoms in float32 (both kernels), a few steps at T = 0
+    from the packaged coordinates: the force each step carries equals
+    autograd of the whole energy at its positions, and the launch counters
+    show the route. K3 at 416 atoms x 192 replicas and K4 at 506 x 128
+    against their plain versions, timed. A direct call of a wrapper on a
+    state its kernel does not hold still raises."""
     res = {}
     cases = (("104_atoms_f64", 1, torch.float64, TOL_AUTOGRAD_F64),
              ("416_atoms_f32", 4, torch.float32, TOL_F32_VS_F64),
+             ("506_atoms_f32", "diala", torch.float32, TOL_F32_VS_F64),
              ("104_atoms_f32", 1, torch.float32, TOL_F32_VS_F64))
     for label, m, dtype, tol in cases:
-        ff_m, coords_m, _ = decaalanine_full(dtype=dtype) if m == 1 else tiled_decaalanine(m, dtype=dtype)
+        if m == "diala":
+            ff_m, coords_m, _ = diala_tier_system(dtype, minimise=False)
+        else:
+            ff_m, coords_m, _ = (decaalanine_full(dtype=dtype) if m == 1
+                                 else tiled_decaalanine(m, dtype=dtype))
         n_m = ff_m.n_atoms
         state = replicate(system_init(torch.as_tensor(coords_m, dtype=dtype, device="cuda"),
                                       dtype=dtype), n_rep, seed=1)
@@ -1509,10 +1600,10 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
     skipped = {"gb_forces": 0, "sasa_forces": 0}
     launched = {k: n_steps for k in skipped}
     check(res["104_atoms_f64"]["launches"] == skipped
-          and res["416_atoms_f32"]["launches"] == launched
-          and res["104_atoms_f32"]["launches"] == launched,
-          f"solvent dispatch: K3 and K4 skipped at float64, both launched at 416 and at "
+          and all(res[f"{n}_atoms_f32"]["launches"] == launched for n in (416, 506, 104)),
+          f"solvent dispatch: K3 and K4 skipped at float64, both launched at 416, 506 and "
           f"104 atoms in float32: {res}")
+    res["sasa_forces_506_atoms"] = sasa_forces_506()
     # K3 at 416 atoms without its dI cache, 192 replicas, against its plain version
     ff4, coords4, _ = tiled_decaalanine(4)
     consts = gb.gb_constants(GBIS_CONFIG.solvent_dielectric, GBIS_CONFIG.ion_concentration)
@@ -1560,12 +1651,77 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
     return res
 
 
+def sasa_forces_506(n_rep=DIALA_TIER[1]):
+    """K4 on the tiled di-alanine (506 atoms, 230 heavy atoms, whose lists
+    do not fit beside the rest: they lie in a global workspace) at 128
+    replicas, each the packaged copies on the grid jittered by 0.02 A,
+    against its plain version, timed beside its bound."""
+    ff_m, pos0, _ = diala_tier_system(minimise=False)
+    tab = sasa.build_sasa_tables(ff_m)
+    n, nc = ff_m.n_atoms, tab.n_compact
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    pos = (pos0[None] + 0.02 * torch.randn((n_rep, n, 3), generator=gen, device="cuda")
+           ).contiguous()
+    gamma = GBIS_CONFIG.surface_tension
+    f_k, e_k = sasa.sasa_forces(pos, tab, gamma)
+    torch.cuda.synchronize()
+    f_p, e_p = sasa.sasa_forces_reference(pos, tab, gamma)
+    tol_e = 2 * TOL_SASA_ENERGY  # 23 copies' energy, summed in another order
+    lists_global = sasa.sasa_lists_global(n, nc)
+    k4 = {"shape": list(pos.shape), "heavy_atoms": nc, "lists_global": lists_global,
+          "list_bytes_per_replica": sasa.sasa_list_bytes(nc),
+          "shared_bytes": sasa.sasa_shared_bytes(nc, lists_global) + 24 * n,
+          "max_degree": int(sasa.sasa_overlaps(pos, tab).sum(-1).max()),
+          "force_err_kernel_vs_plain": max_err(f_k, f_p),
+          "energy_err_kernel_vs_plain": max_err(e_k, e_p),
+          "tolerances": (TOL_SASA_FORCE, tol_e)}
+    check(lists_global and bool(torch.isfinite(f_k).all())
+          and k4["force_err_kernel_vs_plain"] <= TOL_SASA_FORCE
+          and k4["energy_err_kernel_vs_plain"] <= tol_e, f"sasa_forces at 506 atoms: {k4}")
+    bound, by, _, _ = sasa_bound_ms(n_rep, n, nc, sasa_work(pos, tab))
+    k4.update(ms=time_ms(lambda: sasa.sasa_forces(pos, tab, gamma), repeats=20),
+              plain_ms=time_ms(lambda: sasa.sasa_forces_reference(pos, tab, gamma), repeats=3),
+              bound_ms=bound, bound_by=by, sfu_bound_ms=sfu_ms(sasa_sfu_ops(n_rep, nc)),
+              **build_facts(_build.kernel_info("sasa_forces", "mdx_sasa_forces_info",
+                                               [ctypes.c_int] * 3, n, nc, int(lists_global)),
+                            n_ctas=n_rep))
+    return k4
+
+
 def tiled_start(pos, m, spacing=50.0):
     """``m`` copies of the 104-atom positions ``pos`` placed as
     ``tiled_decaalanine`` places its copies (``spacing`` A apart along x)."""
     shift = torch.zeros((m, 1, 3), dtype=pos.dtype, device=pos.device)
     shift[:, 0, 0] = spacing * torch.arange(m, dtype=pos.dtype, device=pos.device)
     return (pos[None] + shift).reshape(-1, 3)
+
+
+def grid_start(pos, m, spacing=50.0):
+    """``m`` copies of the positions ``pos`` (about their centroid) on a
+    cubic grid ``spacing`` A apart about the origin, at most 27. In a line
+    along x, 23 di-alanines would reach 1,100 A, where float32 resolves 1.2e-4
+    A, more than TOL_POS: the checks would measure float32's grain there,
+    not the kernel."""
+    ax = spacing * (torch.arange(3, dtype=pos.dtype, device=pos.device) - 1.0)
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)[:m]
+    return (grid[:, None] + (pos - pos.mean(0))).reshape(-1, 3).contiguous()
+
+
+def diala_tier_system(dtype=torch.float32, minimise=True):
+    """The tiled di-alanine of DIALA_TIER: its tables, one copy (FIRE under
+    GBIS_CONFIG, DIALA_FIRE_STEPS steps, where ``minimise``, else as
+    packaged) on ``grid_start``'s grid, and copy 0's first and last heavy
+    atom."""
+    ff1, coords1, _ = dialanine(dtype=dtype)
+    one = torch.as_tensor(coords1, dtype=dtype, device="cuda")
+    if minimise:
+        force = mdx.force_fn(GBIS_CONFIG)
+        one = minimize_fire(one, lambda p: force(p, ff1), n_steps=DIALA_FIRE_STEPS,
+                            dt_start=1e-3, dt_max=1e-2)
+    heavy = torch.nonzero(ff1.sasa_radii > 0).flatten().tolist()
+    return (tile_ff_params(ff1, DIALA_TIER[0]), grid_start(one, DIALA_TIER[0]),
+            (heavy[0], heavy[-1]))
 
 
 def with_forces(ens, ff_m, ecfg, bias_m=None):
@@ -1725,11 +1881,15 @@ def gbis_tier_run(ff_m, ens, bias_m, cons_m, ecfg, sasa_every, gb_every, tag):
     ens = with_forces(ens, ff_m, ecfg, bias_m)
     reset_launches()
     t0 = time.perf_counter()
-    final, frames, log = simulate_ensemble(ens, ff_m, n_steps=N_STEPS, save_every=N_INNER,
-                                           config=cfg, bias=bias_m)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        final, frames, log = simulate_ensemble(ens, ff_m, n_steps=N_STEPS, save_every=N_INNER,
+                                               config=cfg, bias=bias_m)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
+    composed = [str(w.message) for w in caught if "does not hold this system" in str(w.message)]
+    check(not composed, f"{tag}: simulate_ensemble ran the composed path: {composed}")
     check(tuple(frames.shape) == (n_saves, n_rep, n, 3), f"{tag}: frames {tuple(frames.shape)}")
     check(bool(torch.isfinite(frames).all()), f"{tag}: non-finite frames")
     check(launches["campaign_advance"] == n_saves,
@@ -1773,25 +1933,35 @@ def gbis_tiers_phase(pos_g, switch_inputs):
     """The GBIS campaign through the campaign kernel at the tier sizes
     (GBIS_TIERS): m copies of the GBIS-minimised 104-atom structure, the SMD
     bias on copy 0's ends (atom 0 against atom 103, from the measured
-    distance), Maxwell-Boltzmann velocities at 300 K. At each tier the
-    kernel against its plain version and its time a launch, then
-    ``simulate_ensemble(fused_campaign=True)`` for N_STEPS at each run of
-    GBIS_TIER_RUNS (the 208-atom tier at the first); at 416 atoms also
-    ``cli simulate`` on the system written as a chamber prmtop. Then both
-    solvent instantiations (and both GB kernels) at 104 and 208 atoms, the
-    measurement the switch points rest on (``switch_inputs``: the 104-atom
-    checks' states and plain outputs)."""
+    distance), Maxwell-Boltzmann velocities at 300 K; and at DIALA_TIER the
+    tiled di-alanine (``diala_tier_system``), whose LCPO lists the kernel
+    keeps in a global workspace, the bias on copy 0's first and last heavy
+    atom. At each tier the kernel against its plain version and its time a
+    launch, then ``simulate_ensemble(fused_campaign=True)`` for N_STEPS at
+    each run of GBIS_TIER_RUNS (the 506-atom tier at the first, the
+    208-atom tier at none);
+    at 416 atoms also ``cli simulate`` on the system written as a chamber
+    prmtop, and the launch with the lists in shared memory (as built) and in
+    the global workspace, the measurement ``campaign_sasa_lists_global``
+    rests on. Then both solvent instantiations (and both GB kernels) at 104
+    and 208 atoms, the measurement the switch points rest on
+    (``switch_inputs``: the 104-atom checks' states and plain outputs)."""
     res, by_tier, launches = {}, {}, {}
     starts = {}
-    for m, n_rep in GBIS_TIERS:
-        ff_m, _, meta_m = tiled_decaalanine(m)
+    tiers = [(m, n_rep, "deca") for m, n_rep in GBIS_TIERS] + [(*DIALA_TIER, "diala")]
+    for m, n_rep, kind in tiers:
+        if kind == "diala":
+            ff_m, pos0, (g1, g2) = diala_tier_system()
+            meta_m, n_cons = None, 12 * m
+        else:
+            ff_m, _, meta_m = tiled_decaalanine(m)
+            pos0, (g1, g2), n_cons = tiled_start(pos_g, m), (0, 103), 53 * m
         n_m = ff_m.n_atoms
-        pos0 = tiled_start(pos_g, m)
-        d0 = float(torch.linalg.norm(pos0[103] - pos0[0]))
-        bias_m = HarmonicSMDBias.create(n_atoms=n_m, group1=[0], group2=[103], fk=1.0,
+        d0 = float(torch.linalg.norm(pos0[g2] - pos0[g1]))
+        bias_m = HarmonicSMDBias.create(n_atoms=n_m, group1=[g1], group2=[g2], fk=1.0,
                                         cent_0=d0, cent_1=d0 + 22.0, T=500_000.0)
         cons_m = hydrogen_bond_constraints(ff_m)
-        check(cons_m.n_constraints == 53 * m, f"{n_m} atoms: {cons_m.n_constraints} X-H constraints")
+        check(cons_m.n_constraints == n_cons, f"{n_m} atoms: {cons_m.n_constraints} X-H constraints")
         gen = torch.Generator(device="cuda")
         gen.manual_seed(m)
         ens = replicate(system_init(pos0, vel=maxwell_boltzmann(gen, ff_m.masses, 300.0), key=m),
@@ -1800,7 +1970,15 @@ def gbis_tiers_phase(pos_g, switch_inputs):
         shape = f"{n_m}x{n_rep}"
         checks, times, tier_inputs = gbis_tier_checks(ff_m, pos0, bias_m, cons_m, n_rep, m, runs)
         starts[m] = (ff_m, pos0, tier_inputs)
-        row = {"campaign_advance_vs_plain": checks, "shared_bytes": times[runs[0][0]]["shared_bytes"]}
+        first = times[runs[0][0]]
+        row = {"campaign_advance_vs_plain": checks, "shared_bytes": first["shared_bytes"],
+               "sasa_lists": first["sasa_lists"],
+               "sasa_workspace_bytes_per_replica": first["sasa_workspace_bytes_per_replica"]}
+        # the 208-atom tier is checked and timed only: its 2000-step run
+        # was dropped to keep the script within 1,200 s
+        runs = () if m == 2 else runs
+        check(row["sasa_lists"] == ("global" if kind == "diala" else "shared"),
+              f"GBIS tier {shape}: the LCPO lists in {row['sasa_lists']} memory")
         for label, ecfg, sasa_every, gb_every in runs:
             tag = f"GBIS tier {shape} {label}"
             row[label] = gbis_tier_run(ff_m, ens, bias_m, cons_m, ecfg, sasa_every, gb_every, tag)
@@ -1810,6 +1988,9 @@ def gbis_tiers_phase(pos_g, switch_inputs):
         if m == 4:
             row["cli_prmtop"], cli_launches = gbis_tier_cli(ff_m, meta_m, pos0, n_rep)
             launches[f"gbis_tiers: cli simulate prmtop GBIS_CONFIG {shape} x {N_STEPS}"] = cli_launches
+            pos4, vel4, ops4 = tier_inputs
+            make_416, frc4 = ops4[GBIS_TIER_RUNS[0][0]]
+            row["sasa_lists_switch"] = sasa_lists_switch(make_416, (pos4, vel4, frc4))
         by_tier[shape] = times
         res[shape] = row
     make_104, pos_b, vel_b, frc_g, pos_pert, gb_tab, gb_consts = switch_inputs
@@ -1822,6 +2003,30 @@ def gbis_tiers_phase(pos_g, switch_inputs):
         {f"104x{N_REPLICAS}": (pos_pert, gb_tab, gb_consts),
          shape_208: (pos2, gb.build_gb_tables(ff2), gb_consts)})
     return res, by_tier, launches, starts
+
+
+def sasa_lists_switch(make_op, args):
+    """The campaign kernel at 416 x 192, the one tier where the LCPO lists
+    fit a CTA with the rest, with the lists in shared memory (as built) and
+    in the global workspace (``campaign_sasa_lists_global`` patched to say
+    so), timed in turns: the measurement the rule rests on. The same math in
+    the same order: each variant's positions after 50 steps against the
+    as-built launch's, within TOL_POS."""
+    op = make_op()
+    ref = op(*args, 0, 3)[0]
+
+    def make():
+        op = make_op()
+        return (lambda: op(*args, 0, 3)), op.kernel_info
+
+    rows = both_variants(make, (fused_step, "campaign_sasa_lists_global", lambda *sizes: True),
+                         lambda out: max_err(out[0], ref))
+    check(rows["as_built"]["sasa_lists"] == "shared" and rows["other"]["sasa_lists"] == "global"
+          and all(r["error_vs_plain"] <= TOL_POS for r in rows.values()),
+          f"the LCPO lists' switch at 416 atoms: {rows}")
+    return {("shared" if k == "as_built" else "global"): {
+        **{key: v for key, v in r.items() if key != "error_vs_plain"},
+        "pos_err_vs_as_built": r["error_vs_plain"]} for k, r in rows.items()}
 
 
 def gbis_tier_cli(ff_m, meta_m, pos0, n_rep):
@@ -1959,14 +2164,15 @@ def cadence_phase(ff, pos_g, ff4, pos4):
     return res
 
 
-def minimised_ensemble(ff_m, coords_m, n_rep, seed):
-    """The tiers' start: FIRE under REFERENCE_CONFIG, Maxwell-Boltzmann
-    velocities at 300 K, forces, ``n_rep`` replicas."""
+def minimised_ensemble(ff_m, one, n_rep, seed):
+    """The tiers' start: ``one`` (the 104-atom system FIRE-minimised under
+    REFERENCE_CONFIG) in as many copies as ``ff_m`` holds, laid out as
+    ``tiled_decaalanine`` lays them (50 A apart, past the 9 A cutoff: each
+    copy's minimum is the tiled system's; a FIRE run of the whole took 36 s
+    of the five tiers' starts), Maxwell-Boltzmann velocities at 300 K,
+    forces, ``n_rep`` replicas."""
     force = mdx.force_fn(REFERENCE_CONFIG)
-    pos0 = minimize_fire(
-        torch.as_tensor(coords_m, dtype=torch.float32, device="cuda"),
-        lambda p: force(p, ff_m), n_steps=500, dt_start=1e-3, dt_max=1e-2,
-    )
+    pos0 = tiled_start(one, ff_m.n_atoms // one.shape[0]).contiguous()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     state = system_init(pos0, vel=maxwell_boltzmann(gen, ff_m.masses, 300.0), key=seed)
@@ -2078,7 +2284,7 @@ def same_shape(times, shape):
           f"the pair-forces kernel {k2['threads_per_cta']}")
 
 
-def tiers_phase(lever_libs):
+def tiers_phase(lever_libs, pos_min):
     """The composed pair-op path (``fused_nonbonded`` at both
     ``kernel_variant``s) and the campaign kernel where it holds the system,
     at every TIERS size: aggregate steps/s and each kernel's launches, its
@@ -2086,15 +2292,16 @@ def tiers_phase(lever_libs):
     kernel's time a launch at the tier's shape and positions. Above 104
     atoms, first the campaign kernel against its plain version. Then the
     campaign kernel alone at 12 copies (1,248 atoms, the most it holds), and
-    the tier levers at 1,040 x 96."""
+    the tier levers at 1,040 x 96. Every start is ``pos_min`` (the
+    minimised 104-atom system) tiled."""
     counters = {"nonbonded_rows": nonbonded.nonbonded_rows, "pair_tiles": ring.pair_tiles,
                 "campaign_advance": fused_step.campaign_advance}
     path_kernel = {"ring": "pair_tiles", "dense": "nonbonded_rows", "campaign": "campaign_advance"}
     rows, times, starts, k1_checks, lever_rows = {}, {}, {}, {}, {}
     for m, n_rep in TIERS:
-        ff_m, coords_m, _ = tiled_decaalanine(m)
+        ff_m, _, _ = tiled_decaalanine(m)
         n_m = ff_m.n_atoms
-        pos0, ens = minimised_ensemble(ff_m, coords_m, n_rep, seed=m)
+        pos0, ens = minimised_ensemble(ff_m, pos_min, n_rep, seed=m)
         starts[m] = (ff_m, pos0, ens)
         if m > 1:
             k1_checks[f"{n_m}x8"], k1_error = campaign_check_at(ff_m, pos0, m)
@@ -2169,8 +2376,8 @@ def tiers_phase(lever_libs):
 
     # the largest system the campaign kernel holds: 12 copies, 96 replicas
     m, n_rep = 12, 96
-    ff_m, coords_m, _ = tiled_decaalanine(m)
-    pos0, ens = minimised_ensemble(ff_m, coords_m, n_rep, seed=m)
+    ff_m, _, _ = tiled_decaalanine(m)
+    pos0, ens = minimised_ensemble(ff_m, pos_min, n_rep, seed=m)
     k1_checks[f"{ff_m.n_atoms}x8"], _ = campaign_check_at(ff_m, pos0, m)
     k1_op = fused_step.make_fused_campaign_op(
         ff_m, n_inner=TIER_SAVE, dt_fs=1.0, temperature=300.0, gamma_ps=1.0)
@@ -2317,7 +2524,8 @@ COLLAPSE_T_K = 1000.0
 COLLAPSE_SHARE_BACKBONE = 0.25
 
 
-def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0, n_rep=N_REPLICAS):
+def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0, n_rep=N_REPLICAS,
+                     starts=None):
     """One ``cli simulate`` campaign of ``n_rep`` x N_STEPS through the
     campaign kernel into a temporary directory: the kernel's launches, the
     printed rate, the seconds outside ``simulate_ensemble`` (loading, FIRE,
@@ -2325,7 +2533,9 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0, n_rep=
     that the rest is the files), and the gates on what it wrote. A replica whose logged T
     passes COLLAPSE_T_K at some save has collapsed: at most
     ``collapse_share`` of them may, and the ensemble gates hold over the
-    others. Returns the result and replica 0's frames."""
+    others. Returns the result and replica 0's frames; the run's start
+    (what ``cli.prepare_campaign`` returned) is appended to ``starts`` where
+    that is a list."""
     n_saves = N_STEPS // N_INNER
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "out"
@@ -2341,6 +2551,8 @@ def cli_campaign_run(n_atoms, overrides, config=None, collapse_share=0.0, n_rep=
             start = prepare(*args, **kwargs)
             torch.cuda.synchronize()
             prepare_s.append(time.perf_counter() - t0)
+            if starts is not None:
+                starts.append(start)
             return start
 
         with patched([(cli, "prepare_campaign", timed_prepare)]):
@@ -2406,16 +2618,17 @@ def campaign_overrides(overrides, n_rep=N_REPLICAS):
             f"save_every={N_INNER}", "sim.fused_campaign=true"]
 
 
-def collapse_check(overrides, cli_collapsed):
+def collapse_check(overrides, cli_collapsed, start):
     """A cli run's collapse, taken apart: the run again in this process from
-    the CLI's own start (``cli.prepare_campaign``, the same config), segment
+    the CLI's own start (``start``, what its ``cli.prepare_campaign`` returned
+    for the same config), segment
     by segment through the op ``simulate_ensemble`` launches, then the
     segment in which the first replica collapses once more through the
     plain version with the kernel's noise. The kernel must carry that
     replica where the plain version does, so the collapse is the force
     field's, not the kernel's."""
     cfg = apply_overrides(CampaignConfig(), campaign_overrides(overrides))
-    ff_c, _, bias_c, ens = cli.prepare_campaign(cfg, torch.device("cuda"))
+    ff_c, _, bias_c, ens = start
     advance = _campaign_advance_fn(ff_c, cfg.save_every, cfg.sim, bias_c)
     key0 = int(ens.key[0])
 
@@ -2501,10 +2714,11 @@ def cli_phase(ff, coords):
         res["vacuum"], _ = cli_campaign_run(104, full)
         res["gbis"], _ = cli_campaign_run(104, full, config=str(cfg_path))
     # the generated backbone as the JAX CLI test runs it, at 1 fs
+    starts = []
     res["backbone"], _ = cli_campaign_run(40, ["sim.dt_fs=1.0"],
-                                       collapse_share=COLLAPSE_SHARE_BACKBONE)
+                                       collapse_share=COLLAPSE_SHARE_BACKBONE, starts=starts)
     res["backbone_collapse"] = collapse_check(["sim.dt_fs=1.0"],
-                                              res["backbone"]["collapsed_replicas"])
+                                              res["backbone"]["collapsed_replicas"], starts[0])
 
     res["energy_example_full"] = energy_printed_vs(["--topology", "example:full"], ff, coords)
     psf, yaml_path, pdb = (str(GOLDENS / f) for f in (
@@ -3099,11 +3313,72 @@ def train_run(argv):
             "generated": list(coords.shape)}, out
 
 
+def train_jobs(tmp):
+    """Every ``cli train`` run of the train, dynamics, sequence and
+    generative phases, and the regenerate phase's 104-atom cgan on its
+    frames (in ``tmp``): (phase, family) -> (argv, environment, epochs, the
+    ceiling its ``mean_abs_error`` is held to)."""
+    pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
+    budgets = {
+        **{("train", f): TRAIN_BUDGET[f] for f in ("pretrain", "cgan")},
+        ("dynamics", "node"): TRAIN_BUDGET["node"],
+        **{("dynamics", f): (HNN_SANITY_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-latent")},
+        ("dynamics", "hnn-schnet"): (SCHNET_EPOCHS, DYNAMICS_SANITY_A),
+        **{("sequence", f): TRAIN_BUDGET.get(f, (SEQUENCE_SANITY_EPOCHS, DYNAMICS_SANITY_A))
+           for f in SEQUENCE_FAMILIES},
+        **{("generative", f): (DYNAMICS_EPOCHS, DYNAMICS_SANITY_A) for f in GENERATIVE_FAMILIES},
+    }
+    out = {"train": tmp / "runs40", "dynamics": tmp / "dynamics", "sequence": tmp / "sequence",
+           "generative": tmp / "generative"}
+    jobs = {(phase, family): (
+        [family, "--data", pattern, "--epochs", str(epochs), "--batch-size", str(TRAIN_BATCH),
+         "--seed", "0", "--out-dir", str(out[phase])],
+        SEQUENCE_SANITY_FT.get(family, {}) if phase == "sequence" else {}, epochs, ceiling)
+        for (phase, family), (epochs, ceiling) in budgets.items()}
+    # the 104-atom pipeline of docs/TRAINING.md on the regenerate phase's
+    # frames, cut in depth (no ceiling: a run's own gates)
+    jobs["regenerate", "cgan"] = (
+        ["cgan", "--topology", "example:full", "--data", str(tmp / "smd" / "raw-traj_rep-*.npy"),
+         "--stride", "10", "--epochs", "1", "--batch-size", str(TRAIN_BATCH), "--seed", "0",
+         "--out-dir", str(tmp / "runs104")], {}, 1, None)
+    return jobs
+
+
+def train_job(argv, env):
+    """``train_run(argv)`` under the environment variables ``env``, in a
+    worker process: its result and the kernels' launches it made."""
+    reset_launches()
+    with environ(env):
+        run, _ = train_run(argv)
+    return run, read_launches()
+
+
+def train_runs_phase(tmp):
+    """Every run of ``train_jobs``, TRAIN_WORKERS at a time (spawned
+    processes on this card, ended before it returns): (phase, family) ->
+    (result, epochs, ceiling, launches), and the wall seconds of all. A
+    failed check in a worker fails the script here."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = train_jobs(tmp)
+    rank = {f: i for i, f in enumerate(TRAIN_LONGEST_FIRST)}
+    order = sorted(jobs, key=lambda key: rank.get(key[1], len(rank)))
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            TRAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {key: pool.submit(train_job, *jobs[key][:2]) for key in order}
+        done = {key: f.result() for key, f in futures.items()}
+    wall = time.perf_counter() - t0
+    return {key: (run, jobs[key][2], jobs[key][3], launches)
+            for key, (run, launches) in done.items()}, wall
+
+
 def regenerate_phase(tmp):
     """The SMD data-generation twin under GBIS (64 replicas x 20,000 steps,
-    every replica's frames written), through the campaign kernel, then the
-    104-atom cGAN pipeline on its frames at a reduced depth (into
-    ``tmp / "smd"`` and ``tmp / "runs104"``)."""
+    every replica's frames written into ``tmp / "smd"``), through the
+    campaign kernel; the 104-atom cGAN on its frames is one of
+    ``train_jobs``."""
     out = tmp / "smd"
     n_saves = REGEN_STEPS // N_INNER
     argv = ["--gbis", "--replicas", str(REGEN_REPLICAS), "--steps", str(REGEN_STEPS),
@@ -3138,15 +3413,7 @@ def regenerate_phase(tmp):
         check(full["T"].shape == (n_saves, REGEN_REPLICAS), f"{tag}: full_log T {full['T'].shape}")
     check((out / "sim_log.csv").exists(), f"{tag}: sim_log.csv not written")
 
-    # the 104-atom pipeline of docs/TRAINING.md on these frames, cut in depth
-    reset_launches()
-    cgan_res, _ = train_run([
-        "cgan", "--topology", "example:full", "--data", str(out / "raw-traj_rep-*.npy"),
-        "--stride", "10", "--epochs", "1", "--batch-size", str(TRAIN_BATCH), "--seed", "0",
-        "--out-dir", str(tmp / "runs104")])
-    cgan_launches = read_launches()
-    return {"argv": argv, "wall_seconds": wall, "summary": summary, "launches": launches,
-            "cgan_104": {**cgan_res, "launches": cgan_launches}}, launches, cgan_launches
+    return {"argv": argv, "wall_seconds": wall, "summary": summary, "launches": launches}, launches
 
 
 def train_systems(traj, n_atoms, weights, device, dtype):
@@ -3345,22 +3612,18 @@ def flagship_forward(dev):
             "energy_t0_finite": bool(torch.isfinite(energies[0]))}
 
 
-def train_phase(tmp, dev):
+def train_phase(tmp, dev, runs):
     """The training path on the card: the quality gates on the in-repo
-    40-atom data, the card's steps against float64, the informed step's
-    census at 40 atoms and at 104 (the regenerate phase's frames and
-    generator, in ``tmp``), the update rates and the flagship forward."""
+    40-atom data (the ``cli train`` runs of ``runs``), the card's steps
+    against float64, the informed step's census at 40 atoms and at 104 (the
+    regenerate phase's frames and generator, in ``tmp``), the update rates
+    and the flagship forward."""
     from molecular_dynamics_tpu_torch.train.datasets import TrajectoryData, frame_time_batches
 
     res, launches = {}, {}
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
     for family in ("pretrain", "cgan"):
-        epochs, ceiling = TRAIN_BUDGET[family]
-        reset_launches()
-        run, run_dir = train_run([family, "--data", pattern, "--epochs", str(epochs),
-                                  "--batch-size", str(TRAIN_BATCH), "--seed", "0",
-                                  "--out-dir", str(tmp / "runs40")])
-        launches[family] = read_launches()
+        run, epochs, ceiling, launches[family] = runs["train", family]
         e2e = run["eval"]["mean_abs_error"]
         check(e2e <= ceiling,
               f"train {family} --epochs {epochs}: mean_abs_error {e2e} A above the ceiling {ceiling}")
@@ -3590,7 +3853,7 @@ def dynamics_rates(runs, data, dev):
                                           dev, torch.float32))
 
 
-def dynamics_census(runs, data, dev, steps=5):
+def dynamics_census(runs, data, dev, steps=CENSUS_STEPS):
     """Kernel launches and host ms by source of one HNN informed step (the
     driver's ``informed_step``) and one node unroll update (10 chained
     frames), at 40 atoms x batch 32: the HNN field (its forward and its
@@ -3625,7 +3888,7 @@ def dynamics_census(runs, data, dev, steps=5):
     return out
 
 
-def dynamics_phase(tmp, dev):
+def dynamics_phase(tmp, dev, train_runs):
     """The Hamiltonian dynamics line on the card: ``cli train node`` at its
     live-quality budget, ``hnn`` and ``hnn-latent`` at HNN_SANITY_EPOCHS and
     ``hnn-schnet`` at SCHNET_EPOCHS under the sanity bound, on the in-repo
@@ -3634,16 +3897,8 @@ def dynamics_phase(tmp, dev):
     the census of an HNN informed step and a node unroll update."""
     res, launches = {}, {}
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
-    runs = tmp / "dynamics"
-    budgets = {"node": TRAIN_BUDGET["node"],
-               **{f: (HNN_SANITY_EPOCHS, DYNAMICS_SANITY_A) for f in ("hnn", "hnn-latent")},
-               "hnn-schnet": (SCHNET_EPOCHS, DYNAMICS_SANITY_A)}
-    for family, (epochs, ceiling) in budgets.items():
-        reset_launches()
-        run, _ = train_run([family, "--data", pattern, "--epochs", str(epochs),
-                            "--batch-size", str(TRAIN_BATCH), "--seed", "0",
-                            "--out-dir", str(runs)])
-        launches[family] = read_launches()
+    for family in DYNAMICS_FAMILIES:
+        run, epochs, ceiling, launches[family] = train_runs["dynamics", family]
         e2e = run["eval"]["mean_abs_error"]
         if family == "node":
             check(e2e <= ceiling, f"train node --epochs {epochs}: mean_abs_error {e2e} A above "
@@ -3651,6 +3906,7 @@ def dynamics_phase(tmp, dev):
         else:
             check(e2e < ceiling, f"train {family} --epochs {epochs}: mean_abs_error {e2e} A")
         res[family] = {**run, "epochs": epochs, "ceiling_A": ceiling, "launches": launches[family]}
+    runs = tmp / "dynamics"
     data = dynamics_data(pattern, dev)
     res["step_vs_float64"] = {**dynamics_vs_float64(runs, data, dev),
                               "tolerance": TOL_TRAIN_STEP}
@@ -3809,7 +4065,7 @@ def sequence_steps(models, data, device, dtype):
     ]
 
 
-def sequence_census(runs, data, dev, steps=5):
+def sequence_census(runs, data, dev, steps=CENSUS_STEPS):
     """Kernel launches and host ms by source of an lstm fine-tune update (8
     chained windows of 15 frames, 16 rows) and a seq2seq-graph fine-tune
     update (4 chained segments of 5 decodes, 16 rows x 40 atoms): the LSTM
@@ -3846,7 +4102,7 @@ def sequence_census(runs, data, dev, steps=5):
     return out
 
 
-def sequence_phase(tmp, dev):
+def sequence_phase(tmp, dev, train_runs):
     """The sequence and graph line on the card: ``cli train lstm`` and
     ``lstm-gat`` at their live-quality budgets, the other six at
     SEQUENCE_SANITY_EPOCHS under the sanity bound, on the in-repo 40-atom data;
@@ -3856,12 +4112,7 @@ def sequence_phase(tmp, dev):
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
     runs = tmp / "sequence"
     for family in SEQUENCE_FAMILIES:
-        epochs, ceiling = TRAIN_BUDGET.get(family, (SEQUENCE_SANITY_EPOCHS, DYNAMICS_SANITY_A))
-        reset_launches()
-        run, _ = train_run([family, "--data", pattern, "--epochs", str(epochs),
-                            "--batch-size", str(TRAIN_BATCH), "--seed", "0",
-                            "--out-dir", str(runs)])
-        launches[family] = read_launches()
+        run, epochs, ceiling, launches[family] = train_runs["sequence", family]
         e2e = run["eval"]["mean_abs_error"]
         if family in TRAIN_BUDGET:
             check(e2e <= ceiling, f"train {family} --epochs {epochs}: mean_abs_error {e2e} A "
@@ -4014,7 +4265,7 @@ def swa_vs_float64(runs, dev):
     return {"param_rel_err": err, "n_averaged": 5, "tolerance": TOL_SEQUENCE_STEP}
 
 
-def generative_census(runs, data, dev, steps=5):
+def generative_census(runs, data, dev, steps=CENSUS_STEPS):
     """Kernel launches and host ms by source of one SDE critic update with
     the gradient penalty and one potential-injection update, at 40 atoms x
     batch 32 with the driver's configuration: the generator's paths, the
@@ -4050,7 +4301,7 @@ def generative_census(runs, data, dev, steps=5):
     return out
 
 
-def generative_phase(tmp, dev):
+def generative_phase(tmp, dev, train_runs):
     """The generative line on the card: ``cli train flow``, ``vae``, ``aae``
     and ``sde`` at DYNAMICS_EPOCHS under the sanity bound, on the in-repo
     40-atom data; every step kind against float64 from the trained weights
@@ -4060,11 +4311,7 @@ def generative_phase(tmp, dev):
     pattern = str(TRAIN_DATA / "raw-traj_rep-*.npy")
     runs = tmp / "generative"
     for family in GENERATIVE_FAMILIES:
-        reset_launches()
-        run, _ = train_run([family, "--data", pattern, "--epochs", str(DYNAMICS_EPOCHS),
-                            "--batch-size", str(TRAIN_BATCH), "--seed", "0",
-                            "--out-dir", str(runs)])
-        launches[family] = read_launches()
+        run, _, _, launches[family] = train_runs["generative", family]
         e2e = run["eval"]["mean_abs_error"]
         check(e2e < DYNAMICS_SANITY_A,
               f"train {family} --epochs {DYNAMICS_EPOCHS}: mean_abs_error {e2e} A")
@@ -4112,11 +4359,11 @@ def main():
     dp_ranks = start_dp_ranks(dev)
 
     # -- build -------------------------------------------------------------
+    lever_builds = start_lever_builds()
     libs = _build.build_all(verbose=True)
     emit("build", seconds=round(_build.last_build_seconds, 2),
          libraries=sorted(libs), flags=" ".join(_build.NVCC_FLAGS),
          ptxas=ptxas_summary(_build.last_build_logs))
-    lever_builds = start_lever_builds()
 
     # -- the system: minimised 104-atom deca-alanine -------------------------
     ff, coords, meta_full = decaalanine_full()
@@ -4554,9 +4801,11 @@ def main():
         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
         "library_ms": None, "sfu_bound_ms": sfu_ms(sasa_sfu_ops(N_REPLICAS, nc)),
         **build_facts(_build.kernel_info(
-            "sasa_forces", "mdx_sasa_forces_info", [ctypes.c_int] * 2, n, nc)),
+            "sasa_forces", "mdx_sasa_forces_info", [ctypes.c_int] * 3, n, nc,
+            int(sasa.sasa_lists_global(n, nc)))),
         "list_capacity": sasa.sasa_capacity(nc),
         "largest_heavy_atom_count": max_heavy_atoms(n / nc),
+        "largest_heavy_atom_count_lists_in_shared": max_heavy_atoms(n / nc, lists_global=False),
         "library_note": "the two (nc, nc) products alone could be torch.bmm; the function "
                         "as a whole (overlap test, gate, cotangent, forces) has no single call",
         "shape": [N_REPLICAS, n, 3], "compact_atoms": nc, "flops": k4_flops, "bytes": k4_bytes,
@@ -5014,6 +5263,7 @@ def main():
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
     kernels["gb_forces"]["at_416_atoms"] = dispatch_res["gb_forces_416_atoms"]
+    kernels["sasa_forces"]["at_506_atoms"] = dispatch_res["sasa_forces_506_atoms"]
 
     # -- the GBIS campaign at 208 and 416 atoms, and the cadences over a long run
     t_phase = time.perf_counter()
@@ -5034,7 +5284,7 @@ def main():
          script_seconds=round(time.perf_counter() - t_script, 1))
 
     # -- the composed pair-op path at the tier sizes ---------------------------
-    tier_rows, tier_times, starts, k1_checks, tier_levers = tiers_phase(lever_libs)
+    tier_rows, tier_times, starts, k1_checks, tier_levers = tiers_phase(lever_libs, pos_min)
     emit("tiers", **tier_rows, campaign_advance_vs_plain=k1_checks,
          campaign_advance_by_tier=tier_times["campaign_advance"],
          pair_forces_by_tier=tier_times["pair_forces"], levers=tier_levers,
@@ -5097,31 +5347,75 @@ def main():
          seconds=round(bench_s, 1), device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          script_seconds=round(time.perf_counter() - t_script, 1))
 
+    # -- where the device's time goes in one campaign call ------------------
+    profile_res = {}
+    for label, every in (("obs_every_save", 1), ("obs_once", n_saves)):
+        res = profile_call(lambda: simulate_ensemble(
+            final2, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias,
+            obs_every=every))
+        check(res["device_seconds"] > 0.0,
+              "torch.profiler reported no device time: nothing was measured")
+        profile_res[label] = res
+    # the composed pair-op path at 416 x 192: how much of a step the device
+    # works, and how many kernels a step launches
+    cfg_ring = SimulationConfig(dt_fs=1.0, temperature=300.0, fused_nonbonded=True)
+    res = profile_call(lambda: simulate_ensemble(
+        ens4, ff4, n_steps=PROFILE_COMPOSED_STEPS, save_every=PROFILE_COMPOSED_STEPS,
+        config=cfg_ring))
+    check(res["device_seconds"] > 0.0, "torch.profiler reported no device time: nothing was measured")
+    res["kernel_launches_per_step"] = res["kernel_launches"] / PROFILE_COMPOSED_STEPS
+    profile_res[f"composed_ring_{ff4.n_atoms}x{ens4.pos.shape[0]}_{PROFILE_COMPOSED_STEPS}_steps"] = res
+    # one composed step at 416 x 192 taken apart by source, ring and dense,
+    # with the SMD bias on the chain's ends
+    pos4 = ens4.pos[0]
+    d4 = float(torch.linalg.norm(pos4[ff4.n_atoms - 1] - pos4[0]))
+    bias4 = HarmonicSMDBias.create(n_atoms=ff4.n_atoms, group1=[0], group2=[ff4.n_atoms - 1],
+                                   fk=1.0, cent_0=d4, cent_1=d4 + 22.0, T=500_000.0)
+    for variant in ("ring", "dense"):
+        profile_res[f"census_{variant}_{ff4.n_atoms}x{ens4.pos.shape[0]}"] = launch_census(
+            ff4, ens4, variant, bias4)
+    for every, (cfg_g, start_g) in finals_g.items():
+        res = profile_call(lambda: simulate_ensemble(
+            start_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g))
+        check(res["device_seconds"] > 0.0,
+              "torch.profiler reported no device time: nothing was measured")
+        profile_res[f"gbis_sasa_every={every}_obs_every_save"] = res
+    emit("profile", **profile_res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
+
     # -- the SMD data-generation twin, and the training path --------------------
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         t_phase = time.perf_counter()
-        regen_res, regen_launches, regen_train_launches = regenerate_phase(tmp)
+        regen_res, regen_launches = regenerate_phase(tmp)
         emit("regenerate", **regen_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
+        train_runs, train_wall = train_runs_phase(tmp)
+        emit("train_runs", runs=len(train_runs), workers=TRAIN_WORKERS,
+             seconds=round(train_wall, 1),
+             run_seconds={f"{p}/{f}": round(r[0]["wall_seconds"], 1)
+                          for (p, f), r in train_runs.items()},
+             script_seconds=round(time.perf_counter() - t_script, 1))
+        regen_cgan, _, _, regen_train_launches = train_runs["regenerate", "cgan"]
         t_phase = time.perf_counter()
-        train_res, train_launches = train_phase(tmp, dev)
-        emit("train", **train_res, seconds=round(time.perf_counter() - t_phase, 1),
+        train_res, train_launches = train_phase(tmp, dev, train_runs)
+        emit("train", **train_res, cgan_104={**regen_cgan, "launches": regen_train_launches},
+             seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
         t_phase = time.perf_counter()
-        dyn_res, dyn_launches = dynamics_phase(tmp, dev)
+        dyn_res, dyn_launches = dynamics_phase(tmp, dev, train_runs)
         emit("dynamics", **dyn_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
         t_phase = time.perf_counter()
-        seq_res, seq_launches = sequence_phase(tmp, dev)
+        seq_res, seq_launches = sequence_phase(tmp, dev, train_runs)
         emit("sequence", **seq_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
         t_phase = time.perf_counter()
-        gen_res, gen_launches = generative_phase(tmp, dev)
+        gen_res, gen_launches = generative_phase(tmp, dev, train_runs)
         emit("generative", **gen_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
@@ -5203,44 +5497,12 @@ def main():
     for label, arm in cad_res.items():
         gbis_paths[f"cadence: simulate_ensemble(fused_campaign, NVE, {label}) "
                    f"{arm['replicas']} x {arm['steps']}"] = arm["launches"]
-    kernels["gb_forces"]["launches_by_path"][
-        "gbis_campaign: solvent_dispatch, the unflagged GBIS step, 416 atoms x 4, 3 steps"] = (
-        dispatch_res["416_atoms_f32"]["launches"]["gb_forces"])
+    for name in ("gb_forces", "sasa_forces"):
+        for n_d in (416, 506):
+            kernels[name]["launches_by_path"][
+                f"gbis_campaign: solvent_dispatch, the unflagged GBIS step, {n_d} atoms x 4, "
+                "3 steps"] = dispatch_res[f"{n_d}_atoms_f32"]["launches"][name]
 
-    # -- where the device's time goes in one campaign call ------------------
-    profile_res = {}
-    for label, every in (("obs_every_save", 1), ("obs_once", n_saves)):
-        res = profile_call(lambda: simulate_ensemble(
-            final2, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg, bias=bias,
-            obs_every=every))
-        check(res["device_seconds"] > 0.0,
-              "torch.profiler reported no device time: nothing was measured")
-        profile_res[label] = res
-    # the composed pair-op path at 416 x 192: how much of a step the device
-    # works, and how many kernels a step launches
-    cfg_ring = SimulationConfig(dt_fs=1.0, temperature=300.0, fused_nonbonded=True)
-    res = profile_call(lambda: simulate_ensemble(
-        ens4, ff4, n_steps=TIER_SAVE, save_every=TIER_SAVE, config=cfg_ring))
-    check(res["device_seconds"] > 0.0, "torch.profiler reported no device time: nothing was measured")
-    res["kernel_launches_per_step"] = res["kernel_launches"] / TIER_SAVE
-    profile_res[f"composed_ring_{ff4.n_atoms}x{ens4.pos.shape[0]}_{TIER_SAVE}_steps"] = res
-    # one composed step at 416 x 192 taken apart by source, ring and dense,
-    # with the SMD bias on the chain's ends
-    pos4 = ens4.pos[0]
-    d4 = float(torch.linalg.norm(pos4[ff4.n_atoms - 1] - pos4[0]))
-    bias4 = HarmonicSMDBias.create(n_atoms=ff4.n_atoms, group1=[0], group2=[ff4.n_atoms - 1],
-                                   fk=1.0, cent_0=d4, cent_1=d4 + 22.0, T=500_000.0)
-    for variant in ("ring", "dense"):
-        profile_res[f"census_{variant}_{ff4.n_atoms}x{ens4.pos.shape[0]}"] = launch_census(
-            ff4, ens4, variant, bias4)
-    for every, (cfg_g, start_g) in finals_g.items():
-        res = profile_call(lambda: simulate_ensemble(
-            start_g, ff, n_steps=N_STEPS, save_every=N_INNER, config=cfg_g, bias=bias_g))
-        check(res["device_seconds"] > 0.0,
-              "torch.profiler reported no device time: nothing was measured")
-        profile_res[f"gbis_sasa_every={every}_obs_every_save"] = res
-    emit("profile", **profile_res, device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         script_seconds=round(time.perf_counter() - t_script, 1))
 
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": [

@@ -48,7 +48,13 @@
 // N = 104 under GBIS that keeps a CTA at 46.8 KB (48.0 with a cadence), so
 // that 4 CTAs fit an SM: 1024 replicas fill 528 slots in 1.94 waves. The
 // cache grows as N^2 (185 KB at 208 atoms); without it the LCPO lists set
-// the region, and 416 atoms take 221 KB, one CTA an SM.
+// the region, and 416 atoms take 221 KB, one CTA an SM. Past that the
+// 512-thread instantiation keeps the LCPO lists (14 bytes an entry, 64
+// entries a heavy atom) in a per-replica slice of a global workspace
+// (Dims::sasa_lists_global, Tables::sasa_lists) and only their per-atom
+// part in the region: 506 atoms with 230 heavy atoms then take 91.7 KB
+// with a cadence, and the lists (206 KB a replica, 26 MB at 128 replicas)
+// stay in L2.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -115,6 +121,9 @@ struct Tables {
   const int* tor_start; const int* tor_src; const float* tor_w;
   const int* cons_start; const int* cons_src; const float* cons_w;
   const float* gb_atom; const int* sasa_idx; const float* sasa_atom;
+  // the LCPO lists' workspace, sasa_list_words(n_sasa) floats a replica,
+  // where Dims::sasa_lists_global (a launch argument, not a table slot)
+  float* sasa_lists;
 };
 
 // Order of the integers (DIM_SLOTS in the wrapper).
@@ -128,6 +137,8 @@ struct Dims {
   int n_lj_types;  // LJ types of the pair layout
   int solvent_large;  // with GB or LCPO: 1 = the 512-thread instantiation
                       // without the dI cache, 0 = 256 threads with it
+  int sasa_lists_global;  // 1: the LCPO lists in Tables::sasa_lists (the
+                          // 512-thread instantiation only)
 };
 
 __host__ __device__ inline bool has_slow_buffer(const Dims& d) {
@@ -454,7 +465,14 @@ __device__ void slow_kick(const Shared& s, const Tables& t, const Dims& d,
   if (d.n_cons > 0) rattle<kThreads>(s, t, d, false);
 }
 
-__device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
+// The shared-memory layout of replica `rep`. kListsMayBeGlobal: whether
+// this instantiation reads Dims::sasa_lists_global (the 256-thread one never
+// needs it: at most 128 atoms, so at most 128 heavy atoms, whose lists take
+// 115 KB), so that elsewhere the list pointers are shared-memory addresses
+// the compiler can see.
+template <bool kListsMayBeGlobal>
+__device__ __forceinline__ Shared carve(float* smem, const Tables& t,
+                                        const Dims& d, int rep) {
   Shared s;
   const int n = d.n_atoms;
   float* p = smem;
@@ -473,7 +491,11 @@ __device__ __forceinline__ Shared carve(float* smem, const Dims& d) {
   s.dhat = p; p += 3 * d.n_cons;
   s.cbuf = p;
   s.gb = gb_carve(region, n);
-  s.sasa = sasa_carve(region, d.n_sasa);
+  s.sasa = sasa_carve(
+      region, d.n_sasa,
+      kListsMayBeGlobal && d.sasa_lists_global
+          ? t.sasa_lists + static_cast<size_t>(rep) * sasa_list_words(d.n_sasa)
+          : nullptr);
   return s;
 }
 
@@ -484,8 +506,8 @@ __host__ __device__ inline size_t shared_floats(const Dims& d) {
   const bool cached = !d.solvent_large;
   if (d.use_gb && gb_shared_floats(d.n_atoms, cached) > region)
     region = gb_shared_floats(d.n_atoms, cached);
-  if (d.n_sasa && sasa_shared_words(d.n_sasa) > region)
-    region = sasa_shared_words(d.n_sasa);
+  const size_t sasa = sasa_shared_words(d.n_sasa, d.sasa_lists_global != 0);
+  if (d.n_sasa && sasa > region) region = sasa;
   return 9 * static_cast<size_t>(d.n_atoms) +
          (has_slow_buffer(d) ? 3 * d.n_atoms : 0) + 6 * chunk_count(d.n_atoms) +
          region;
@@ -556,9 +578,9 @@ __device__ __forceinline__ void campaign_body(
     const Dims& d, const Consts& k, long long t0, unsigned long long seed,
     int* overflow) {
   extern __shared__ float smem[];
-  const Shared s = carve(smem, d);
   const int tid = threadIdx.x;
   const int rep = blockIdx.x;
+  const Shared s = carve<kSolvent && !kGbCached>(smem, t, d, rep);
   const int n = d.n_atoms;
   const size_t base = static_cast<size_t>(rep) * n * 3;
 
@@ -635,14 +657,24 @@ __device__ __forceinline__ void campaign_body(
 
 // The five instantiations; with GB or LCPO the solvent one dims name (the
 // wrapper picks it by size), else the vacuum one for the system's size.
+// MDX_CAMPAIGN_BODIES picks the bodies a build compiles, a bit each in this
+// order (vacuum, medium, large, solvent, solvent_large); every one unless
+// the compiler is told otherwise. The others launch as empty kernels: a
+// build that times one instantiation (chip_smoke.py's levers) compiles its
+// body alone, in a fraction of the time.
+#ifndef MDX_CAMPAIGN_BODIES
+#define MDX_CAMPAIGN_BODIES 0x1f
+#endif
 __global__ void __launch_bounds__(kSmallThreads, kVacuumCtasPerSm)
 campaign_vacuum(const float* __restrict__ pos, const float* __restrict__ vel,
                 const float* __restrict__ frc, float* __restrict__ opos,
                 float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
                 Dims d, Consts k, long long t0, unsigned long long seed,
                 int* overflow) {
+#if MDX_CAMPAIGN_BODIES & 1
   campaign_body<false, kSmallThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
                                       k, t0, seed, overflow);
+#endif
 }
 
 __global__ void __launch_bounds__(kMediumThreads, kMediumCtasPerSm)
@@ -651,8 +683,10 @@ campaign_medium(const float* __restrict__ pos, const float* __restrict__ vel,
                 float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
                 Dims d, Consts k, long long t0, unsigned long long seed,
                 int* overflow) {
+#if MDX_CAMPAIGN_BODIES & 2
   campaign_body<false, kMediumThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
                                        k, t0, seed, overflow);
+#endif
 }
 
 __global__ void __launch_bounds__(kLargeThreads)
@@ -661,8 +695,10 @@ campaign_large(const float* __restrict__ pos, const float* __restrict__ vel,
                float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
                Dims d, Consts k, long long t0, unsigned long long seed,
                int* overflow) {
+#if MDX_CAMPAIGN_BODIES & 4
   campaign_body<false, kLargeThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
                                       k, t0, seed, overflow);
+#endif
 }
 
 __global__ void __launch_bounds__(kSolventThreads, kSolventCtasPerSm)
@@ -671,8 +707,10 @@ campaign_solvent(const float* __restrict__ pos, const float* __restrict__ vel,
                  float* __restrict__ ovel, float* __restrict__ ofrc, Tables t,
                  Dims d, Consts k, long long t0, unsigned long long seed,
                  int* overflow) {
+#if MDX_CAMPAIGN_BODIES & 8
   campaign_body<true, kSolventThreads>(pos, vel, frc, opos, ovel, ofrc, t, d,
                                        k, t0, seed, overflow);
+#endif
 }
 
 __global__ void __launch_bounds__(kSolventLargeThreads, kSolventLargeCtasPerSm)
@@ -682,8 +720,10 @@ campaign_solvent_large(const float* __restrict__ pos,
                        float* __restrict__ ovel, float* __restrict__ ofrc,
                        Tables t, Dims d, Consts k, long long t0,
                        unsigned long long seed, int* overflow) {
+#if MDX_CAMPAIGN_BODIES & 16
   campaign_body<true, kSolventLargeThreads, false>(
       pos, vel, frc, opos, ovel, ofrc, t, d, k, t0, seed, overflow);
+#endif
 }
 
 // The normals the campaign kernel draws: out[(r, i, a, 0..2)] for replica r,
@@ -713,7 +753,7 @@ namespace {
 Dims dims_of(const int* dims) {
   return Dims{dims[0],  dims[1],  dims[2],  dims[3],  dims[4],  dims[5],
               dims[6],  dims[7],  dims[8],  dims[9],  dims[10], dims[11],
-              dims[12], dims[13], dims[14], dims[15]};
+              dims[12], dims[13], dims[14], dims[15], dims[16]};
 }
 
 using CampaignKernel = void (*)(const float*, const float*, const float*,
@@ -726,7 +766,7 @@ CampaignKernel pick_kernel(const Dims& d, int& threads) {
   if (d.use_gb || d.n_sasa) {
     const bool large = d.solvent_large != 0;
     threads = large ? kSolventLargeThreads : kSolventThreads;
-    if (d.n_atoms > threads / 32 * kChunk) {
+    if (d.n_atoms > threads / 32 * kChunk || (d.sasa_lists_global && !large)) {
       threads = 0;
       return nullptr;
     }
@@ -755,6 +795,8 @@ CampaignKernel pick_kernel(const Dims& d, int& threads) {
 // of Dims, `consts` the floats of Consts (all host arrays). The cadences
 // must divide dims[6]; the wrapper checks that. `overflow` (one device int)
 // is set to 1 when an LCPO neighbour list overflows; the wrapper reads it.
+// `sasa_lists`: with Dims::sasa_lists_global, the LCPO lists' workspace of
+// R * sasa_list_words(n_sasa) floats (no clearing needed), else unused.
 // Returns cudaGetLastError(), or the error that refused the shared memory
 // (the wrapper checks it against SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
@@ -763,8 +805,10 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
                                     const int* dims, const float* consts,
                                     int n_replicas, long long t0,
                                     unsigned long long seed, void* overflow,
-                                    void* stream) {
+                                    void* sasa_lists, void* stream) {
   const Dims d = dims_of(dims);
+  if (d.sasa_lists_global && sasa_lists == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   Tables t;
   t.pair = PairLayout{
       static_cast<const int*>(ptrs[kLjType]),
@@ -806,6 +850,7 @@ extern "C" int mdx_campaign_advance(const void* pos, const void* vel,
   t.gb_atom = static_cast<const float*>(ptrs[kGbAtom]);
   t.sasa_idx = static_cast<const int*>(ptrs[kSasaIdx]);
   t.sasa_atom = static_cast<const float*>(ptrs[kSasaAtom]);
+  t.sasa_lists = static_cast<float*>(sasa_lists);
 
   Consts k;
   k.half_dt = consts[0];

@@ -8,10 +8,13 @@
 // bytes in and N*3*4+4 out; it needs nc(nc-1)/2 pair geometries (a square
 // root and a division each) and, for every overlapping ordered pair, two sums
 // over the neighbours its two atoms share.
-// Design: see sasa_terms.cuh. Coordinates and the pass's scratch (overlap
-// bit masks and per-atom neighbour lists) in shared memory, every sum a
-// gather in a fixed order, no atomics. A list that would overflow sets a
-// flag in global memory, which the wrapper raises on.
+// Design: see sasa_terms.cuh. Coordinates, forces and the pass's per-atom
+// scratch (overlap bit masks, counts, offsets) in shared memory; the
+// per-atom neighbour lists there too where they fit beside them, else in a
+// global workspace of sasa_list_words(nc) words a replica
+// (kListsGlobal). Every sum a gather in a fixed order, no atomics. A list
+// that would overflow sets a flag in global memory, which the wrapper raises
+// on.
 #include <cuda_runtime.h>
 
 #include "sasa_terms.cuh"
@@ -24,11 +27,12 @@ namespace {
 // chip_smoke.py's levers).
 constexpr int kThreads = 256;
 
+template <bool kListsGlobal>
 __global__ void __launch_bounds__(kThreads)
 sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
                    float* __restrict__ energy, const int* __restrict__ idx,
                    const float* __restrict__ atom, int n, int nc,
-                   float gamma, int* __restrict__ overflow) {
+                   float gamma, int* __restrict__ overflow, float* lists) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + n;
@@ -36,7 +40,9 @@ sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
   float* fx = sz + n;
   float* fy = fx + n;
   float* fz = fy + n;
-  const SasaShared w = sasa_carve(fz + n, nc);
+  const SasaShared w = sasa_carve(
+      fz + n, nc,
+      kListsGlobal ? lists + blockIdx.x * sasa_list_words(nc) : nullptr);
   __shared__ float warp_sum[kThreads / 32];
 
   const int tid = threadIdx.x;
@@ -67,8 +73,9 @@ sasa_forces_kernel(const float* __restrict__ pos, float* __restrict__ frc,
   }
 }
 
-size_t shared_bytes(int n_atoms, int n_compact) {
-  return (6 * static_cast<size_t>(n_atoms) + sasa_shared_words(n_compact)) *
+size_t shared_bytes(int n_atoms, int n_compact, bool lists_global) {
+  return (6 * static_cast<size_t>(n_atoms) +
+          sasa_shared_words(n_compact, lists_global)) *
          sizeof(float);
 }
 
@@ -76,28 +83,35 @@ size_t shared_bytes(int n_atoms, int n_compact) {
 
 // pos (R, N, 3) -> frc (R, N, 3), energy (R,); idx (nc,) int32 and atom
 // (nc, 5) in SasaColumn order; overflow: one device int, set to 1 when a
-// neighbour list overflows (the forces are then wrong). Returns
-// cudaGetLastError(), or the error that refused the shared memory (the
-// wrapper checks it against SHARED_OPT_IN_BYTES first).
+// neighbour list overflows (the forces are then wrong); lists: null, or the
+// lists' global workspace, R * sasa_list_words(nc) floats (no clearing
+// needed). Returns cudaGetLastError(), or the error that refused the shared
+// memory (the wrapper checks it against SHARED_OPT_IN_BYTES first).
 extern "C" int mdx_sasa_forces(const void* pos, void* frc, void* energy,
                                const void* idx, const void* atom,
                                int n_replicas, int n_atoms, int n_compact,
-                               float gamma, void* overflow, void* stream) {
-  const size_t shmem = shared_bytes(n_atoms, n_compact);
-  const int err = allow_dynamic_shared(sasa_forces_kernel, shmem);
+                               float gamma, void* overflow, void* lists,
+                               void* stream) {
+  const bool global = lists != nullptr;
+  const size_t shmem = shared_bytes(n_atoms, n_compact, global);
+  const auto kernel =
+      global ? sasa_forces_kernel<true> : sasa_forces_kernel<false>;
+  const int err = allow_dynamic_shared(kernel, shmem);
   if (err != 0) return err;
-  sasa_forces_kernel<<<n_replicas, kThreads, shmem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_replicas, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<float*>(frc),
       static_cast<float*>(energy), static_cast<const int*>(idx),
       static_cast<const float*>(atom), n_atoms, n_compact, gamma,
-      static_cast<int*>(overflow));
+      static_cast<int*>(overflow), static_cast<float*>(lists));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Build facts of the kernel at (n_atoms, n_compact), into out[0..4]
-// (kernel_occupancy).
-extern "C" int mdx_sasa_forces_info(int n_atoms, int n_compact, int* out) {
-  return kernel_occupancy(sasa_forces_kernel, kThreads,
-                          shared_bytes(n_atoms, n_compact), out);
+// Build facts of the kernel at (n_atoms, n_compact), with the lists in
+// global memory where lists_global, into out[0..4] (kernel_occupancy).
+extern "C" int mdx_sasa_forces_info(int n_atoms, int n_compact,
+                                    int lists_global, int* out) {
+  const bool global = lists_global != 0;
+  return kernel_occupancy(
+      global ? sasa_forces_kernel<true> : sasa_forces_kernel<false>, kThreads,
+      shared_bytes(n_atoms, n_compact, global), out);
 }

@@ -45,7 +45,8 @@ constexpr int kSasaMaxNeighbours = 64;
 constexpr int kSasaLanes = 8;
 
 struct SasaShared {
-  float* a;   // per list entry: a_pq
+  // per list entry (shared or global memory)
+  float* a;   // a_pq
   float* at;  // a_qp
   float* b;   // B_pq, then c_pq in place
   float *cx, *cy, *cz;   // compact coordinates
@@ -55,7 +56,7 @@ struct SasaShared {
   int* cnt;              // nc: neighbours of each row
   int* rowptr;           // nc + 1: the rows' offsets among the listed pairs
   int* overflow;         // 1: a row has more neighbours than the capacity
-  unsigned short* nbr;   // per list entry: q
+  unsigned short* nbr;   // per list entry: q (shared or global memory)
 };
 
 enum SasaColumn { kSasaRadius, kSasaA0, kSasaP2, kSasaP3, kSasaP4, kSasaColumns };
@@ -66,27 +67,55 @@ __host__ __device__ inline int sasa_capacity(int nc) {
   return nc < 1 ? 0 : (nc - 1 < kSasaMaxNeighbours ? nc - 1 : kSasaMaxNeighbours);
 }
 
-// 32-bit words of shared memory the pass needs (ops/sasa.py
-// sasa_shared_bytes says the same).
-__host__ __device__ inline size_t sasa_shared_words(int nc) {
-  const size_t n = nc, cap = sasa_capacity(nc), words = sasa_words(nc);
-  return 3 * n * cap + 6 * n + 2 * n * words + 2 * n + 2 + (n * cap + 1) / 2;
+// The scratch comes in two parts. The per-atom part (compact coordinates,
+// gates, masks, counts, offsets, the flag) always lies in shared memory. The
+// per-entry lists (a, at, b and the 16-bit nbr: 14 bytes for each of
+// nc * sasa_capacity(nc) entries) lie after it in shared memory, or in one
+// replica's slice of a global workspace where the caller's CTA cannot hold
+// them. A pass writes every entry before it reads one, so the workspace needs
+// no clearing, and within a CTA a barrier makes global writes as visible as
+// shared ones. ops/sasa.py sasa_list_bytes and sasa_shared_bytes say the same.
+
+// 32-bit words of the per-entry lists.
+__host__ __device__ inline size_t sasa_list_words(int nc) {
+  const size_t entries = static_cast<size_t>(nc) * sasa_capacity(nc);
+  return 3 * entries + (entries + 1) / 2;
 }
 
-__device__ __forceinline__ SasaShared sasa_carve(float* p, int nc) {
+// 32-bit words of the per-atom part.
+__host__ __device__ inline size_t sasa_atom_words(int nc) {
+  const size_t n = nc, words = sasa_words(nc);
+  return 6 * n + 2 * n * words + 2 * n + 2;
+}
+
+// 32-bit words of shared memory the pass needs.
+__host__ __device__ inline size_t sasa_shared_words(int nc, bool lists_global) {
+  return sasa_atom_words(nc) + (lists_global ? 0 : sasa_list_words(nc));
+}
+
+// The scratch of one replica: the per-atom part at p, in shared memory. The
+// lists lie in shared memory too where `lists` is null (a, at, b before the
+// per-atom part, nbr after it), else at `lists`, sasa_list_words(nc) words
+// in global memory. Only the list pointers depend on the choice, so the
+// per-atom ones stay shared-memory addresses either way.
+__device__ __forceinline__ SasaShared sasa_carve(float* p, int nc,
+                                                 float* lists) {
   const int cap = sasa_capacity(nc), words = sasa_words(nc);
+  const size_t entries = static_cast<size_t>(nc) * cap;
+  float* q = p + (lists ? 0 : 3 * entries);  // the per-atom part
+  float* l = lists ? lists : p;
   SasaShared w;
-  w.a = p; p += nc * cap;
-  w.at = p; p += nc * cap;
-  w.b = p; p += nc * cap;
-  w.cx = p; p += nc; w.cy = p; p += nc; w.cz = p; p += nc;
-  w.g = p; p += nc; w.g3 = p; p += nc; w.g4 = p; p += nc;
-  w.bits = reinterpret_cast<unsigned*>(p); p += nc * words;
-  w.wbase = reinterpret_cast<int*>(p); p += nc * words;
-  w.cnt = reinterpret_cast<int*>(p); p += nc;
-  w.rowptr = reinterpret_cast<int*>(p); p += nc + 1;
-  w.overflow = reinterpret_cast<int*>(p); p += 1;
-  w.nbr = reinterpret_cast<unsigned short*>(p);
+  w.a = l;
+  w.at = l + entries;
+  w.b = l + 2 * entries;
+  w.cx = q; q += nc; w.cy = q; q += nc; w.cz = q; q += nc;
+  w.g = q; q += nc; w.g3 = q; q += nc; w.g4 = q; q += nc;
+  w.bits = reinterpret_cast<unsigned*>(q); q += nc * words;
+  w.wbase = reinterpret_cast<int*>(q); q += nc * words;
+  w.cnt = reinterpret_cast<int*>(q); q += nc;
+  w.rowptr = reinterpret_cast<int*>(q); q += nc + 1;
+  w.overflow = reinterpret_cast<int*>(q); q += 1;
+  w.nbr = reinterpret_cast<unsigned short*>(lists ? lists + 3 * entries : q);
   return w;
 }
 

@@ -38,10 +38,15 @@ replicas run in 1.94 waves. The cache grows as N^2 (185 KB at 208 atoms), so
 the 512-thread solvent instantiation evaluates the GB derivatives again
 instead of caching them, and the LCPO lists set its region: the 416-atom
 GBIS system with rigid X-H bonds and a cadence takes 221 KB, one CTA an SM.
-Its limit is the 227 KB of shared memory a CTA may opt in to (the 416-atom
-unconstrained vacuum system needs 70.5 KB, the 1,040-atom one 176.2 KB, 12
-copies 211.4 KB; under GBIS_CONFIG an LCPO set of about 210 heavy atoms);
-``campaign_shared_bytes`` says what a system needs, ``campaign_misfit``
+Where the lists do not fit (from about 215 heavy atoms) that instantiation
+keeps them in a per-replica slice of a global workspace (14 bytes an entry,
+64 entries a heavy atom; 206 KB a replica at 230 heavy atoms, which stays in
+L2) and only their per-atom part in shared memory
+(``campaign_sasa_lists_global``), so that it holds every GBIS system of up
+to 512 atoms whose bonded buffers fit, as the JAX kernel does. The limit is
+the 227 KB of shared memory a CTA may opt in to (the 416-atom unconstrained
+vacuum system needs 70.5 KB, the 1,040-atom one 176.2 KB, 12 copies 211.4
+KB); ``campaign_shared_bytes`` says what a system needs, ``campaign_misfit``
 whether the kernel holds it.
 
 ``campaign_advance_reference`` is the plain PyTorch version (any device, any
@@ -87,9 +92,11 @@ from molecular_dynamics_tpu_torch.ops.nonbonded import (
 from molecular_dynamics_tpu_torch.ops.sasa import (
     SasaTables,
     build_sasa_tables,
+    list_workspace,
     overflow_possible,
     raise_on_overflow,
     sasa_forces_reference,
+    sasa_list_bytes,
     sasa_shared_bytes,
 )
 
@@ -131,6 +138,35 @@ def campaign_solvent_shape(n_atoms: int) -> Tuple[int, bool]:
     return SOLVENT_THREADS[1], False
 
 
+def _cta_bytes(n_atoms, n_angles, n_tors, n_cons, gb, n_sasa, slow_buffer, lists_global):
+    region = 4 * (6 * n_angles + 9 * n_tors + 9 * n_cons)
+    if gb:
+        region = max(region, gb_shared_bytes(n_atoms, campaign_solvent_shape(n_atoms)[1]))
+    if n_sasa:
+        region = max(region, sasa_shared_bytes(n_sasa, lists_global))
+    return (4 * 9 * n_atoms + (4 * 3 * n_atoms if slow_buffer else 0)
+            + 4 * 6 * chunk_count(n_atoms) + region)
+
+
+def campaign_sasa_lists_global(
+    n_atoms: int, n_angles: int, n_tors: int, n_cons: int,
+    gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
+) -> bool:
+    """Whether the campaign kernel keeps the LCPO neighbour lists in a
+    global workspace: with LCPO in the 512-thread solvent instantiation,
+    where the CTA with the lists in shared memory would pass what a CTA may
+    opt in to. The 256-thread instantiation keeps them in shared memory (at
+    most 128 atoms). Where both fit, shared memory: at 416 x 192, the one
+    tier where they do, a launch of 50 steps took 61.39 ms with the lists in
+    shared memory and 61.39 in the workspace, with the same bits (H100 80GB
+    HBM3 at 700 W, ``chip_smoke.py``'s ``gbis_tiers``)."""
+    if not n_sasa or campaign_solvent_shape(n_atoms)[1]:
+        return False
+    return _cta_bytes(
+        n_atoms, n_angles, n_tors, n_cons, gb, n_sasa, slow_buffer, False
+    ) > SHARED_LIMIT_BYTES
+
+
 def campaign_shared_bytes(
     n_atoms: int, n_angles: int, n_tors: int, n_cons: int,
     gb: bool = False, n_sasa: int = 0, slow_buffer: bool = False,
@@ -141,14 +177,10 @@ def campaign_shared_bytes(
     what is never live at once, as large as the largest of the angle (2
     vectors a term), torsion (3) and constraint (3) buffers, the GB scratch
     (``gb``; with the dI cache where ``campaign_solvent_shape`` keeps it) and
-    the LCPO scratch (``n_sasa`` heavy atoms)."""
-    region = 4 * (6 * n_angles + 9 * n_tors + 9 * n_cons)
-    if gb:
-        region = max(region, gb_shared_bytes(n_atoms, campaign_solvent_shape(n_atoms)[1]))
-    if n_sasa:
-        region = max(region, sasa_shared_bytes(n_sasa))
-    return (4 * 9 * n_atoms + (4 * 3 * n_atoms if slow_buffer else 0)
-            + 4 * 6 * chunk_count(n_atoms) + region)
+    the LCPO scratch (``n_sasa`` heavy atoms; its lists only where
+    ``campaign_sasa_lists_global`` leaves them in shared memory)."""
+    sizes = (n_atoms, n_angles, n_tors, n_cons, gb, n_sasa, slow_buffer)
+    return _cta_bytes(*sizes, campaign_sasa_lists_global(*sizes))
 
 
 def campaign_max_atoms(solvent: bool) -> int:
@@ -686,7 +718,7 @@ def _library():
     if not adv.argtypes:
         adv.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         adv.restype = ctypes.c_int
         noise = lib.mdx_campaign_noise
@@ -727,9 +759,11 @@ def campaign_advance(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the campaign kernel on CUDA tensors ``(R, N, 3)`` (float32,
     contiguous, or it raises). ``dims`` and ``consts`` are the ctypes arrays
-    ``make_fused_campaign_op`` builds. Does not synchronise, unless an LCPO
-    neighbour list can overflow (above 65 heavy atoms): then it reads the
-    kernel's flag and raises on it. Each launch is counted in
+    ``make_fused_campaign_op`` builds; where ``dims`` puts the LCPO lists in
+    global memory (its last entry) the wrapper allocates their workspace on
+    the device, ``(R, sasa_list_bytes(nc))`` bytes. Does not synchronise,
+    unless an LCPO neighbour list can overflow (above 65 heavy atoms): then
+    it reads the kernel's flag and raises on it. Each launch is counted in
     ``campaign_advance.launches``."""
     shape = (pos.shape[0], tab.n_atoms, 3)
     for name, t in (("pos", pos), ("vel", vel), ("forces", frc)):
@@ -741,13 +775,15 @@ def campaign_advance(
     lib = _library()
     out = [torch.empty_like(pos) for _ in range(3)]
     overflow = torch.zeros(1, dtype=torch.int32, device=pos.device)
+    lists = list_workspace(shape[0], tab.sasa.n_compact, pos.device) if dims[-1] else None
     ptrs = tab.pointer_array()
     with torch.cuda.device(pos.device):
         err = lib.mdx_campaign_advance(
             pos.data_ptr(), vel.data_ptr(), frc.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             ptrs, dims, consts, shape[0], t0, seed & 0xFFFFFFFFFFFFFFFF,
-            overflow.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            overflow.data_ptr(), None if lists is None else lists.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     campaign_advance.launches += 1
     if err != 0:
@@ -839,6 +875,7 @@ def make_fused_campaign_op(
     if misfit is not None:
         raise ValueError(f"campaign op: {misfit}")
     need = campaign_shared_bytes(*sizes)
+    lists_global = campaign_sasa_lists_global(*sizes)
     solvent = use_gb or use_sasa
     gb_cache = solvent and campaign_solvent_shape(tab.n_atoms)[1]
     pair_consts = pair_constants(cutoff, switch_dist, rfa, solvent_dielectric)
@@ -861,11 +898,11 @@ def make_fused_campaign_op(
     def dims():
         # built at the first launch: n_lj_types builds the pair layout,
         # which only the kernel reads
-        return (ctypes.c_int * 16)(
+        return (ctypes.c_int * 17)(
             tab.n_atoms, tab.n_angles, tab.n_tors, tab.max_t, tab.n_cons,
             tab.n_bias, n_inner, shake_iters, rattle_iters, int(use_noise),
             int(use_gb), n_sasa, sasa_every, gb_every, tab.pair.n_lj_types,
-            int(solvent and not gb_cache),
+            int(solvent and not gb_cache), int(lists_global),
         )
 
     consts = (ctypes.c_float * 17)(
@@ -904,10 +941,16 @@ def make_fused_campaign_op(
     advance.instantiation = _instantiation(tab.n_atoms, solvent)
     #: whether its GB passes keep the dI cache (False without GB)
     advance.gb_cached = use_gb and gb_cache
+    #: where the LCPO neighbour lists live: "shared", "global" (a workspace
+    #: of ``sasa_workspace_bytes`` a replica), or None without LCPO
+    advance.sasa_lists = ("global" if lists_global else "shared") if use_sasa else None
+    advance.sasa_workspace_bytes = sasa_list_bytes(n_sasa) if lists_global else 0
     #: build facts of that instantiation on the current CUDA device
     #: (``_build.kernel_info``): registers, shared bytes, threads and CTAs an SM
     advance.kernel_info = lambda: {
         "instantiation": advance.instantiation, "gb_cached": advance.gb_cached,
+        "sasa_lists": advance.sasa_lists,
+        "sasa_workspace_bytes_per_replica": advance.sasa_workspace_bytes,
         **kernel_info("campaign_advance", "mdx_campaign_kernel_info",
                       [ctypes.c_void_p], dims())}
     advance.tables = tab

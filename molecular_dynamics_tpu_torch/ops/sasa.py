@@ -30,9 +30,13 @@ beside each), built by a warp a row from ballots and prefix counts. The two
 neighbour sums run one lane a listed pair and walk the AND of the two rows'
 masks. Distances come from exact coordinate differences (a Gram matrix loses
 26x in force error at |r| ~ 30 A), with IEEE ``1.0f / sqrtf``. One CTA per
-replica, no atomics: every sum is a gather in a fixed order. A row with more
-than ``SASA_MAX_NEIGHBOURS`` overlapping heavy atoms cannot be listed; the
-kernel sets a flag in global memory and the wrapper raises
+replica, no atomics: every sum is a gather in a fixed order. The per-atom
+scratch (coordinates, masks, counts) lies in shared memory, and so do the
+lists (14 bytes an entry) where they fit beside it; else they lie in a
+per-replica slice of a global workspace the wrapper allocates
+(``sasa_lists_global``), which no pass reads before pass A writes it. A row
+with more than ``SASA_MAX_NEIGHBOURS`` overlapping heavy atoms cannot be
+listed; the kernel sets a flag in global memory and the wrapper raises
 (``raise_on_overflow``). Below 65 heavy atoms no list can overflow and the
 flag is not read.
 
@@ -170,33 +174,59 @@ def overflow_possible(n_compact: int) -> bool:
     return sasa_capacity(n_compact) < n_compact - 1
 
 
-def sasa_shared_bytes(n_compact: int) -> int:
-    """Shared memory the LCPO pass needs a replica (``sasa_shared_words`` in
+def sasa_list_bytes(n_compact: int) -> int:
+    """Bytes of a replica's neighbour lists (``sasa_list_words`` in
     ``csrc/sasa_terms.cuh``): per list entry a_pq, a_qp, B_pq (then c_pq) and
-    a 16-bit neighbour index; per atom the compact coordinates, three gate
+    a 16-bit neighbour index, ``sasa_capacity(nc)`` entries an atom."""
+    entries = n_compact * sasa_capacity(n_compact)
+    return 4 * (3 * entries + (entries + 1) // 2)
+
+
+def sasa_shared_bytes(n_compact: int, lists_global: bool = False) -> int:
+    """Shared memory the LCPO pass needs a replica (``sasa_shared_words`` in
+    ``csrc/sasa_terms.cuh``): per atom the compact coordinates, three gate
     vectors, the count and the offset of its list; per atom and mask word
     (one 32-bit word per 32 atoms) the overlap bits and the list slots of
-    the earlier words; the overflow flag."""
-    cap = sasa_capacity(n_compact)
-    words = (n_compact + 31) // 32
+    the earlier words; the overflow flag; and the lists
+    (``sasa_list_bytes``) unless they lie in global memory."""
     n = n_compact
-    return 4 * (3 * n * cap + 6 * n + 2 * n * words + 2 * n + 2 + (n * cap + 1) // 2)
+    words = (n + 31) // 32
+    per_atom = 4 * (6 * n + 2 * n * words + 2 * n + 2)
+    return per_atom + (0 if lists_global else sasa_list_bytes(n))
+
+
+def sasa_lists_global(n_atoms: int, n_compact: int) -> bool:
+    """Whether the LCPO kernel keeps a replica's lists in global memory:
+    where they do not fit the shared memory a CTA may opt in to beside the
+    per-atom scratch and the replica's coordinates and forces (``24 n``
+    bytes), from 225 heavy atoms of deca-alanine's mix."""
+    return sasa_shared_bytes(n_compact) + 4 * 6 * n_atoms > SHARED_OPT_IN_BYTES
 
 
 def sasa_forces_holds(device_type: str, dtype: torch.dtype, n_atoms: int, n_compact: int) -> bool:
     """Whether :func:`sasa_forces` answers an input of this device type,
     dtype and size (``n_atoms`` atoms, ``n_compact`` of them in the LCPO
     set): off CUDA its plain version answers any; on CUDA the kernel takes
-    float32 only, and a replica's lists, coordinates and forces
-    (``sasa_shared_bytes(nc) + 24 n``) must fit the shared memory a CTA may
-    opt in to (224 heavy atoms of deca-alanine's mix). The wrapper raises
-    where this is false."""
+    float32 only, and a replica's per-atom scratch, coordinates and forces
+    (``sasa_shared_bytes(nc, lists_global=True) + 24 n``) must fit the
+    shared memory a CTA may opt in to (about 800 heavy atoms of
+    deca-alanine's mix; the lists go to global memory where they do not
+    fit beside them). The wrapper raises where this is false."""
     if device_type != "cuda":
         return True
     return (
         dtype == torch.float32
-        and sasa_shared_bytes(n_compact) + 4 * 6 * n_atoms <= SHARED_OPT_IN_BYTES
+        and sasa_shared_bytes(n_compact, lists_global=True) + 4 * 6 * n_atoms
+        <= SHARED_OPT_IN_BYTES
     )
+
+
+def list_workspace(n_replicas: int, n_compact: int, device) -> Tensor:
+    """The global workspace of ``n_replicas`` replicas' neighbour lists,
+    ``sasa_list_bytes(nc)`` bytes each (float32 words; uninitialised: the
+    kernels write every entry before they read it)."""
+    return torch.empty(n_replicas * sasa_list_bytes(n_compact) // 4,
+                       dtype=torch.float32, device=device)
 
 
 def raise_on_overflow(flag: Tensor, n_compact: int, where: str) -> None:
@@ -217,8 +247,10 @@ def sasa_forces(
     """``pos (R, N, 3) -> (forces (R, N, 3), energy (R,))``.
 
     A CUDA tensor goes through the kernel (float32, contiguous, or it raises;
-    the launch is counted in ``sasa_forces.launches``); a CPU tensor takes
-    :func:`sasa_forces_reference`. Not differentiable.
+    the launch is counted in ``sasa_forces.launches``), with the lists in a
+    workspace of ``(R, sasa_list_bytes(nc))`` bytes on its device where
+    ``sasa_lists_global``; a CPU tensor takes :func:`sasa_forces_reference`.
+    Not differentiable.
     """
     if not pos.is_cuda:
         return sasa_forces_reference(pos, tables, surface_tension)
@@ -230,22 +262,25 @@ def sasa_forces(
     if tables.atom.device != pos.device or tables.idx.device != pos.device:
         raise ValueError("tables and pos live on different devices")
     if not sasa_forces_holds(pos.device.type, pos.dtype, n, nc):
+        need = sasa_shared_bytes(nc, lists_global=True) + 4 * 6 * n
         raise ValueError(
-            f"sasa_forces: {nc} heavy atoms need {sasa_shared_bytes(nc) + 4 * 6 * n} "
-            f"bytes of shared memory a replica; the kernel holds {SHARED_OPT_IN_BYTES}"
+            f"sasa_forces: {nc} heavy atoms need {need} bytes of shared memory a "
+            f"replica; the kernel holds {SHARED_OPT_IN_BYTES}"
         )
     fn = kernel_function(
         "sasa_forces", "mdx_sasa_forces",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2,
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 3,
     )
     forces = torch.empty_like(pos)
     energy = torch.empty(n_rep, dtype=torch.float32, device=pos.device)
     overflow = torch.zeros(1, dtype=torch.int32, device=pos.device)
+    lists = list_workspace(n_rep, nc, pos.device) if sasa_lists_global(n, nc) else None
     with torch.cuda.device(pos.device):
         err = fn(
             pos.data_ptr(), forces.data_ptr(), energy.data_ptr(),
             tables.idx.data_ptr(), tables.atom.data_ptr(), n_rep, n, nc,
             float(surface_tension), overflow.data_ptr(),
+            None if lists is None else lists.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     sasa_forces.launches += 1

@@ -18,6 +18,7 @@ kcal/mol/A as ``tests/test_fused_gb.py``.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -224,41 +225,115 @@ def test_sasa_overflow_flag_raises(n_compact, flag):
         tsasa.raise_on_overflow(overflow, n_compact, "sasa_forces")
 
 
-#: m -> (the solvent instantiation, its shared bytes with rigid X-H bonds
-#: and a cadence under GBIS_CONFIG), or None where the kernel does not hold it
-GBIS_TIER_SHAPES = {1: ("campaign_solvent", 49184), 2: ("campaign_solvent_large", 108080),
-                    4: ("campaign_solvent_large", 221024), 5: None, 8: None, 10: None}
+def _cuh_words(name):
+    """The word count ``name(nc)`` of ``csrc/sasa_terms.cuh`` as a Python
+    function, read from the source: its ``const size_t`` declarations and its
+    return expression, with integer division."""
+    import re
+    from molecular_dynamics_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "sasa_terms.cuh").read_text()
+    body = re.search(rf"size_t {name}\(int nc\) \{{\n(.*?)\n\}}", src, re.S).group(1)
+    body = re.sub(r"static_cast<size_t>\((\w+)\)", r"\1", body).replace("/", "//")
+    decl = re.search(r"const size_t (.*?);", body)
+    ret = re.search(r"return (.*?);", body).group(1)
+
+    def words(nc):
+        scope = {"nc": nc, "sasa_capacity": tsasa.sasa_capacity,
+                 "sasa_words": lambda k: (k + 31) // 32}
+        for part in re.split(r",\s*(?=\w+ = )", decl.group(1)) if decl else ():
+            key, value = part.split(" = ", 1)
+            scope[key] = eval(value, scope)
+        return eval(ret, scope)
+
+    return words
 
 
-@pytest.mark.parametrize("m", sorted(GBIS_TIER_SHAPES))
+@pytest.mark.parametrize("nc", [1, 2, 51, 65, 66, 102, 204, 230, 244])
+def test_sasa_scratch_splits_into_lists_and_per_atom_part(nc):
+    """The LCPO scratch in two parts: the lists (``sasa_list_bytes``: 14
+    bytes an entry, rounded up to a word) and the per-atom part, which alone
+    stays in shared memory where the lists live in global memory. Together
+    they are the single count of before the split, and each equals the
+    formula of ``csrc/sasa_terms.cuh`` the kernels carve by. The wrapper's
+    workspace holds R replicas' lists."""
+    cap, words = tsasa.sasa_capacity(nc), (nc + 31) // 32
+    whole = 4 * (3 * nc * cap + 6 * nc + 2 * nc * words + 2 * nc + 2 + (nc * cap + 1) // 2)
+    lists, per_atom = tsasa.sasa_list_bytes(nc), tsasa.sasa_shared_bytes(nc, lists_global=True)
+    assert lists + per_atom == tsasa.sasa_shared_bytes(nc) == whole
+    assert lists == 4 * ((14 * nc * cap + 3) // 4)
+    assert (lists, per_atom) == (4 * _cuh_words("sasa_list_words")(nc),
+                                 4 * _cuh_words("sasa_atom_words")(nc))
+    assert tsasa.list_workspace(3, nc, "cpu").numel() * 4 == 3 * lists
+
+
+#: system -> (the solvent instantiation, its shared bytes with rigid X-H
+#: bonds and a cadence under GBIS_CONFIG, where the LCPO lists live), or None
+#: where the kernel does not hold it: m tiled deca-alanines, or "diala_xk",
+#: di-alanine tiled k times (484 and 506 atoms, 220 and 230 heavy atoms:
+#: their lists, 197,120 and 206,080 bytes a replica, cannot share the CTA's
+#: 227 KB with the rest)
+GBIS_TIER_SHAPES = {1: ("campaign_solvent", 49184, "shared"),
+                    2: ("campaign_solvent_large", 108080, "shared"),
+                    4: ("campaign_solvent_large", 221024, "shared"),
+                    "diala_x22": ("campaign_solvent_large", 87768, "global"),
+                    "diala_x23": ("campaign_solvent_large", 91740, "global"),
+                    5: None, 8: None, 10: None}
+
+
+def _gbis_tier_system(key):
+    """The system of a GBIS_TIER_SHAPES key and its sizes (atoms, angles,
+    torsions, X-H constraints, LCPO atoms)."""
+    from molecular_dynamics_tpu_torch.examples import dialanine, tiled_decaalanine
+    from molecular_dynamics_tpu_torch.ff.params import tile_ff_params
+
+    if str(key).startswith("diala_x"):
+        k = int(key[len("diala_x"):])
+        ff = tile_ff_params(dialanine(device="cpu")[0], k)
+        return ff, (22 * k, 36 * k, 45 * k, 12 * k, 10 * k)
+    ff, _, _ = tiled_decaalanine(key, device="cpu")
+    return ff, (104 * key, 183 * key, 273 * key, 53 * key, 51 * key)
+
+
+@pytest.mark.parametrize("m", list(GBIS_TIER_SHAPES))
 def test_gbis_campaign_shared_memory_at_the_tier_sizes(m):
-    """The GBIS campaign op holds the tiled systems up to the 416-atom tier:
-    104 atoms in the 256-thread instantiation with GB's dI cache, 208 and
-    416 in the 512-thread one without it, where the LCPO lists set the
-    shared memory (221 KB at 416 atoms). At 520 atoms and above the op
-    raises, naming the limit, and ``campaign_holds`` says no before any
-    table is built."""
-    from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
-
-    ff, _, _ = tiled_decaalanine(m, device="cpu")
+    """The GBIS campaign op holds the tiled systems up to 512 atoms: 104 in
+    the 256-thread instantiation with GB's dI cache, 208 and 416 in the
+    512-thread one without it, where the LCPO lists set the shared memory
+    (221 KB at 416 atoms), and the tiled di-alanines of 484 and 506 atoms
+    (220 and 230 heavy atoms) with the lists in a global workspace, the rest
+    of the CTA in 87.8 and 91.7 KB. At 520 atoms and above
+    the op raises, naming the limit, and ``campaign_holds`` says no before
+    any table is built."""
+    ff, (n, n_a, n_t, n_c, n_sasa) = _gbis_tier_system(m)
     cons = tcons.hydrogen_bond_constraints(ff)
-    sizes = (104 * m, 183 * m, 273 * m, 53 * m)
-    need = tfused.campaign_shared_bytes(*sizes, gb=True, n_sasa=51 * m, slow_buffer=True)
+    assert (ff.n_atoms, int(ff.angles.shape[0]), cons.n_constraints) == (n, n_a, n_c)
+    assert int(ff.dihedrals.shape[0]) + int(ff.impropers.shape[0]) == n_t
+    sizes = (n, n_a, n_t, n_c)
+    need = tfused.campaign_shared_bytes(*sizes, gb=True, n_sasa=n_sasa, slow_buffer=True)
+    lists_global = tfused.campaign_sasa_lists_global(*sizes, True, n_sasa, True)
     cfg = tsim.SimulationConfig(energy=GBIS, fused_campaign=True, constrain_h_bonds=True,
                                 sasa_every=5)
     holds = tsim.campaign_holds(ff, cfg)
-    assert holds == (tfused.campaign_misfit(*sizes, True, 51 * m, True) is None)
+    misfit = tfused.campaign_misfit(*sizes, True, n_sasa, True)
+    assert holds == (misfit is None)
     assert holds == (GBIS_TIER_SHAPES[m] is not None)
+    # up to 512 atoms the lists leave shared memory only where the CTA could
+    # not hold them
+    with_lists = need + (tsasa.sasa_list_bytes(n_sasa) if lists_global else 0)
+    if n <= 512:
+        assert lists_global == (with_lists > tfused.SHARED_LIMIT_BYTES)
     build = lambda: tfused.make_fused_campaign_op(
         ff, gb=True, sasa=True, sasa_every=5, constraints=cons, **GBIS_OP)
     if holds:
         op = build()
-        assert (op.instantiation, op.shared_bytes) == GBIS_TIER_SHAPES[m]
+        assert (op.instantiation, op.shared_bytes, op.sasa_lists) == GBIS_TIER_SHAPES[m]
         assert op.shared_bytes == need <= tfused.SHARED_LIMIT_BYTES
         assert op.gb_cached == (op.instantiation == "campaign_solvent")
+        assert op.sasa_workspace_bytes == (tsasa.sasa_list_bytes(n_sasa) if lists_global else 0)
     else:
-        assert need > tfused.SHARED_LIMIT_BYTES
-        with pytest.raises(ValueError, match=f"needs {need} bytes .* holds {tfused.SHARED_LIMIT_BYTES}"):
+        assert n > tfused.campaign_max_atoms(solvent=True)
+        with pytest.raises(ValueError, match=f"{n} atoms; the kernel holds 512 with GB or LCPO"):
             build()
 
 
@@ -691,12 +766,88 @@ def test_simulate_ensemble_gbis_campaign_416_atoms_matches_jax_composed():
     np.testing.assert_allclose(tfinal.forces.numpy(), np.asarray(jfinal.forces), atol=0.15)
 
 
+@functools.lru_cache(maxsize=None)
+def minimized_diala() -> np.ndarray:
+    """FIRE-minimised float32 coordinates of the 22-atom di-alanine under
+    the reference config (300 steps, the campaign's settings), from the
+    port's minimiser."""
+    from molecular_dynamics_tpu_torch.energy import force_fn
+    from molecular_dynamics_tpu_torch.integrate import minimize_fire
+
+    tff, coords = torch_system("diala", f64=False)
+    force = force_fn()
+    return minimize_fire(torch.as_tensor(coords, dtype=torch.float32), lambda p: force(p, tff),
+                         n_steps=300, dt_start=1e-3, dt_max=1e-2).numpy()
+
+
+def grid_offsets(m: int, spacing: float = 50.0) -> np.ndarray:
+    """Offsets ``(m, 3)`` of ``m`` copies on a cubic grid ``spacing`` A apart
+    about the origin (at most 27). In a line along x, 23 copies reach 1,100
+    A, where float32 resolves 1.2e-4 A, more than the 1e-4 A the trajectories
+    are held to; on the grid they stay within 50 A of the origin."""
+    ax = spacing * (np.arange(3) - 1.0)
+    return np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)[:m]
+
+
+def test_simulate_ensemble_gbis_campaign_506_atoms_matches_jax_composed():
+    """The 506-atom tiled di-alanine (23 copies on a grid 50 A apart, 230
+    heavy atoms),
+    whose LCPO lists the campaign kernel keeps in a global workspace:
+    ``simulate_ensemble`` under GBIS_CONFIG with ``fused_campaign=True`` (T =
+    0, rigid X-H, 2 replicas, 2 steps, the SMD bias on copy 0 between its
+    first and last heavy atom) runs the campaign op without a warning, and
+    its frames equal the JAX ``simulate_ensemble`` on its composed path from
+    the same state within 1e-4 A, as at 416 atoms."""
+    import warnings
+
+    from molecular_dynamics_tpu.examples import dialanine as jdiala
+    from molecular_dynamics_tpu.ff.params import tile_ff_params as jtile
+    from torch_parity import ff_to_numpy
+    from molecular_dynamics_tpu_torch import convert as tconvert
+
+    jff = jtile(jdiala(dtype=jnp.float32)[0], 23)
+    tff = tconvert.ff_params_from_numpy(ff_to_numpy(jff), device="cpu", dtype=torch.float32)
+    one = minimized_diala()
+    pos = (grid_offsets(23)[:, None] + (one - one.mean(0))).reshape(-1, 3).astype(np.float32)
+    heavy = np.flatnonzero(np.asarray(jff.sasa_radii)[:22] > 0)
+    g1, g2 = int(heavy[0]), int(heavy[-1])
+    vel = thermal_velocities(np.asarray(jff.masses), 1, seed=16)[0]
+    d0 = float(np.linalg.norm(pos[g2] - pos[g1]))
+    bkw = dict(n_atoms=506, group1=[g1], group2=[g2], fk=1.0, cent_0=d0, cent_1=d0 + 22.0,
+               T=500_000.0)
+    jb = jbias.HarmonicSMDBias.create(**bkw)
+    tb = tbias.HarmonicSMDBias.create(device="cpu", **bkw)
+    jforce = lambda p, b: -jax.grad(
+        lambda q: jenergy.total_energy(q, jff, config=jenergy.GBIS_CONFIG) + jb.energy(q, 0))(p)
+    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
+    jst = jax.jit(lambda s: jintegrate.initialize_forces(s, jforce))(jst)
+    jens = jsystem.replicate(jst, 2, seed=3)
+    tens = tsystem.replicate(tsystem.system_init(
+        pos, vel=vel, device="cpu", key=1).replace(forces=t(jst.forces)), 2, seed=3)
+    kw = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
+    cfg = tsim.SimulationConfig(energy=GBIS, fused_campaign=True, **kw)
+    assert tsim.campaign_holds(tff, cfg)
+    jfinal, jframes, _ = jsim.simulate_ensemble(
+        jens, jff, n_steps=2, save_every=2,
+        config=jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **kw), bias=jb)
+    calls = []
+    real = tfused.campaign_advance_reference
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        warnings.simplefilter("error")
+        mp.setattr(tfused, "campaign_advance_reference", lambda *a, **k: calls.append(1) or real(*a, **k))
+        tfinal, tframes, _ = tsim.simulate_ensemble(tens, tff, n_steps=2, save_every=2, config=cfg, bias=tb)
+    assert calls == [1] and tuple(tframes.shape) == jframes.shape == (1, 2, 506, 3)
+    np.testing.assert_allclose(tframes.numpy(), np.asarray(jframes), atol=1e-4)
+    np.testing.assert_allclose(tfinal.vel.numpy(), np.asarray(jfinal.vel), atol=5e-3)
+    np.testing.assert_allclose(tfinal.forces.numpy(), np.asarray(jfinal.forces), atol=0.15)
+
+
 @pytest.mark.parametrize("energy, m", [(GBIS, 5), (tenergy.GBIS_POLAR_CONFIG, 6)],
                          ids=["gbis_520_atoms", "polar_624_atoms"])
 def test_campaign_dispatch_by_size_warns_and_runs_composed(energy, m):
     """A system the campaign kernel does not hold (520 atoms under
-    GBIS_CONFIG: the LCPO lists alone pass the shared memory; 624 under
-    GBIS_POLAR_CONFIG: past the 512 atoms of the solvent instantiation)
+    GBIS_CONFIG, 624 under GBIS_POLAR_CONFIG: past the 512 atoms of the
+    solvent instantiation, as the JAX kernel is past its design point)
     makes ``simulate_ensemble(fused_campaign=True)`` warn and run the
     composed path, decided by ``campaign_holds`` before anything is built:
     its trajectory equals ``fused_campaign=False`` bit for bit (T = 0, 2
@@ -862,14 +1013,24 @@ def test_composed_path_without_gb_tables_raises(world):
 def test_solvent_kernel_predicates(m, dtype):
     """The GB kernel holds float32 with its dI cache up to 236 atoms and
     without it up to 6,456 (36 bytes an atom), the LCPO kernel float32 up to
-    the heavy-atom count whose lists fit a CTA's shared memory (204 of the
-    416-atom system fit); a CPU input goes to the plain versions at any
-    dtype and size. Deca-alanine has 51 heavy atoms a copy."""
+    the heavy-atom count whose per-atom scratch, coordinates and forces fit
+    a CTA's shared memory (804 heavy atoms of deca-alanine's mix), with its
+    lists beside them where they fit too (204 heavy atoms of the 416-atom
+    system do) and in global memory where not (230 of the 506-atom tiled
+    di-alanine); a CPU input goes to the plain versions at any dtype and
+    size. Deca-alanine has 51 heavy atoms a copy."""
     n, nc = 104 * m, 51 * m
     f32 = dtype == torch.float32
     assert tgb.gb_forces_holds("cuda", dtype, n) == f32
     assert tsasa.sasa_forces_holds("cuda", dtype, n, nc) == f32
     assert tgb.gb_forces_holds("cpu", dtype, n) and tsasa.sasa_forces_holds("cpu", dtype, n, nc)
+    assert not tsasa.sasa_lists_global(n, nc)
+    for n_k, nc_k, lists_global in ((506, 230, True), (1640, 804, True), (1644, 806, True)):
+        assert tsasa.sasa_lists_global(n_k, nc_k) == lists_global == (
+            tsasa.sasa_shared_bytes(nc_k) + 24 * n_k > SHARED_OPT_IN_BYTES)
+        assert tsasa.sasa_forces_holds("cuda", dtype, n_k, nc_k) == (f32 and nc_k <= 804) == (
+            f32 and tsasa.sasa_shared_bytes(nc_k, lists_global=True) + 24 * n_k
+            <= SHARED_OPT_IN_BYTES)
     # the size rule is the shared memory a CTA may opt in to, in one place
     cached = tgb.gb_cached(n)
     assert cached == (n <= tgb.GB_CACHE_MAX_ATOMS)
