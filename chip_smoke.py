@@ -61,7 +61,12 @@ Phases, one JSON line each on standard output:
    atoms runs without its dI cache, and is held there against its plain
    version at 192 replicas and timed; the SASA kernel at 506 atoms keeps its
    lists in a global workspace, and is held there at 128 replicas and
-   timed).
+   timed). ``option_dispatch``: a kernel flag beside an option its kernels
+   do not cover, at 1024 x 104 (fault C11): ``fused_campaign`` with
+   ``GBIS_CONFIG`` and ``integrator="nve"`` (run A, 20 steps) and
+   ``fused_nonbonded`` with ``pbc=True`` (run B) warn and equal the
+   unflagged runs bit for bit; run A launches the GB and SASA kernels a step
+   each and the campaign kernel never, run B neither pair-op kernel.
    ``gbis_tiers``: the GBIS campaign through the campaign kernel at 208
    atoms x 384 replicas and 416 x 192 (``tiled_decaalanine(m)``, m = 2, 4,
    copies of the GBIS-minimised structure; SMD bias on copy 0's ends, atom
@@ -1648,6 +1653,79 @@ def solvent_dispatch_check(n_steps=3, n_rep=4):
             raised[label] = True
     res["wrappers_raise"] = raised
     check(all(raised.values()), f"solvent dispatch: a wrapper ran on a state it does not hold: {raised}")
+    return res
+
+
+def option_dispatch_check(n_rep=N_REPLICAS, n_steps=20, save_every=10):
+    """Fault C11 on the card: a kernel flag beside an option its kernels do
+    not cover warns and runs the unflagged path, as the JAX package does.
+    The packaged 104-atom deca-alanine at ``n_rep`` replicas in float32, 1
+    fs, from its packaged coordinates. Run A: ``GBIS_CONFIG`` with
+    ``fused_campaign=True`` and ``integrator="nve"``: the composed per-step
+    path, its GB and LCPO forces from K3 and K4 a step each and K1 never
+    launched, its frames and final forces equal to the unflagged run's bit
+    for bit, the carried force within ``TOL_F32_VS_F64`` of autograd at the
+    last positions; its seconds a step (the flagged call first, then the
+    unflagged one, each with its observables once). Run B: ``REFERENCE_CONFIG`` with
+    ``fused_nonbonded=True`` and ``pbc=True`` in a 100 A box at T = 0: the
+    unflagged step bit for bit, K5 and K6 never launched. The launch counts
+    are those of the flagged runs alone."""
+    ff1, coords1, _ = decaalanine_full()
+    state = replicate(system_init(coords1, device="cuda"), n_rep, seed=1)
+    res = {"replicas": n_rep, "atoms": ff1.n_atoms, "steps": n_steps, "save_every": save_every}
+    runs = {
+        "A": (dict(energy=GBIS_CONFIG, integrator="nve", dt_fs=1.0), "fused_campaign",
+              "integrator='nve'", state),
+        "B": (dict(energy=REFERENCE_CONFIG, pbc=True, temperature=0.0, dt_fs=1.0),
+              "fused_nonbonded", "pbc=True",
+              state.replace(box=torch.full((n_rep, 3), 100.0, device="cuda"))),
+    }
+    for run, (kw, flag, option, st) in runs.items():
+        ecfg = kw["energy"]
+        box = st.box if kw.get("pbc") else None
+        energy = lambda q, ecfg=ecfg, box=box: total_energy(q, ff1, box=box, config=ecfg)
+        st = st.replace(forces=_neg_grad(energy, st.pos).detach())
+        go = lambda **flags: simulate_ensemble(
+            st, ff1, n_steps=n_steps, save_every=save_every, obs_every=n_steps // save_every,
+            config=SimulationConfig(**kw, **flags))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            final, frames, _ = go(**{flag: True})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        said = [str(w.message) for w in caught if issubclass(w.category, UserWarning)]
+        t0 = time.perf_counter()
+        plain_final, plain_frames, _ = go()
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - t0
+        res[run] = {
+            "config": {**{k: v for k, v in kw.items() if k != "energy"},
+                       "terms": list(ecfg.terms), flag: True},
+            "warned": any(f"{flag} requested" in m and option in m for m in said),
+            "warning": said[:1],
+            "frames_equal_unflagged": torch.equal(frames, plain_frames),
+            "forces_equal_unflagged": torch.equal(final.forces, plain_final.forces),
+            "finite": bool(torch.isfinite(frames).all()),
+            "launches": launches,
+            "force_err_vs_autograd": max_err(final.forces, _neg_grad(energy, final.pos)),
+            "tolerance": TOL_F32_VS_F64,
+            "seconds": seconds, "seconds_per_step": seconds / n_steps,
+            "unflagged_seconds_per_step": plain_seconds / n_steps,
+        }
+        check(all(res[run][k] for k in ("warned", "frames_equal_unflagged",
+                                         "forces_equal_unflagged", "finite")),
+              f"option dispatch, run {run}: {res[run]}")
+        check(res[run]["force_err_vs_autograd"] <= TOL_F32_VS_F64,
+              f"option dispatch, run {run}: carried force vs autograd: {res[run]}")
+    a, b = res["A"]["launches"], res["B"]["launches"]
+    check(a["gb_forces"] == n_steps and a["sasa_forces"] == n_steps and a["campaign_advance"] == 0,
+          f"option dispatch, run A: K3 and K4 {n_steps} launches each, K1 none: {a}")
+    check(b["nonbonded_rows"] == 0 and b["pair_tiles"] == 0,
+          f"option dispatch, run B: K5 and K6 never launched: {b}")
     return res
 
 
@@ -5254,6 +5332,12 @@ def main():
     # fault C8: the same entry point with no kernel flag on states its
     # kernels do not hold (float64, 416 atoms)
     dispatch_res = solvent_dispatch_check()
+    # fault C11: a kernel flag beside an option its kernels do not cover
+    t_phase = time.perf_counter()
+    option_res = option_dispatch_check()
+    emit("option_dispatch", **option_res, seconds=round(time.perf_counter() - t_phase, 2),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         script_seconds=round(time.perf_counter() - t_script, 1))
 
     emit("gbis_campaign", replicas=N_REPLICAS, atoms=n, steps=N_STEPS, save_every=N_INNER,
          fire_seconds=round(fire_g_s, 2), energy_terms_at_minimum=terms_g,
@@ -5497,6 +5581,17 @@ def main():
     for label, arm in cad_res.items():
         gbis_paths[f"cadence: simulate_ensemble(fused_campaign, NVE, {label}) "
                    f"{arm['replicas']} x {arm['steps']}"] = arm["launches"]
+    option_path = (f"option_dispatch: simulate_ensemble(fused_campaign, GBIS_CONFIG, "
+                   f"integrator='nve') on the composed path, {option_res['replicas']} x "
+                   f"{option_res['steps']}")
+    for name, counter in (("campaign_advance", "campaign_advance"),
+                          ("campaign_advance[gbis]", "campaign_advance"),
+                          ("gb_forces", "gb_forces"), ("sasa_forces", "sasa_forces")):
+        kernels[name]["launches_by_path"][option_path] = option_res["A"]["launches"][counter]
+    for name in ("nonbonded_rows", "pair_tiles"):
+        kernels[name]["launches_by_path"][
+            f"option_dispatch: simulate_ensemble(fused_nonbonded, pbc=True) {option_res['replicas']}"
+            f" x {option_res['steps']}"] = option_res["B"]["launches"][name]
     for name in ("gb_forces", "sasa_forces"):
         for n_d in (416, 506):
             kernels[name]["launches_by_path"][

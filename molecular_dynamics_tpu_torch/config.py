@@ -45,8 +45,9 @@ class CampaignConfig:
     minimize_steps: int = 500
     seed: int = 0
     out_dir: str = "out"
-    #: shard the replica axis over an N-device mesh (0/1 = single device);
-    #: more than one device is not ported yet (ROADMAP A14) and raises
+    #: shard the replica axis over an N-device mesh (0/1 = single device):
+    #: ``parallel.get_mesh`` over the first N CUDA devices (N CPU entries with
+    #: ``--device cpu``); more devices than are visible raise before any work
     devices: int = 0
     #: log the (expensive) per-term energy observables every Nth saved frame
     obs_every: int = 1

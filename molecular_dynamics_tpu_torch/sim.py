@@ -66,7 +66,8 @@ class SimulationConfig:
     #: Urey-Bradley, 1-4) from a pair op (``kernel_variant``), angles and
     #: torsions from ``ops.bonded.make_angle_torsion_op``, the bias from
     #: autograd. Differentiable: the pair ops carry their own backward.
-    #: Requires the default term set and no PBC.
+    #: Covers the default term set without PBC; with another term set or a
+    #: box the step warns and takes the unflagged path, as the JAX package's.
     fused_nonbonded: bool = False
     #: the pair op of ``fused_nonbonded``: ``"ring"`` (each unordered pair
     #: once, ``ops.ring.make_pair_ring_op``) or ``"dense"`` (every pair from
@@ -74,8 +75,10 @@ class SimulationConfig:
     kernel_variant: str = "ring"
     #: run whole save_every-step segments inside ONE launch of the campaign
     #: kernel (state resident on chip, in-kernel noise + analytic bonded
-    #: forces). Fastest simulation path; not differentiable. Langevin + no
-    #: PBC only.
+    #: forces). Fastest simulation path; not differentiable. Covers Langevin
+    #: dynamics without PBC on the default term set, alone or with gb or
+    #: gb + sasa; another option, or a system too large for the kernel,
+    #: warns and runs the composed per-step path, as the JAX package does.
     fused_campaign: bool = False
     #: constrain all bonds to hydrogen (NAMD rigidBonds all) via SHAKE/RATTLE:
     #: in the kernel on the campaign path, batched projection steps on the
@@ -83,11 +86,12 @@ class SimulationConfig:
     constrain_h_bonds: bool = False
     #: campaign path only: evaluate the LCPO SASA force once per this many
     #: steps and hold it (r-RESPA held-force cadence; 1 = every step). Must
-    #: divide ``save_every``.
+    #: divide ``save_every`` where the campaign kernel runs.
     sasa_every: int = 1
     #: campaign path only: apply the whole GB polar force (and the LCPO force
     #: when ``sasa_every`` equals it) as Verlet-I impulses once per this many
-    #: steps (1 = every step). Must divide ``save_every``.
+    #: steps (1 = every step). Must divide ``save_every`` where the campaign
+    #: kernel runs.
     gb_every: int = 1
 
     def __post_init__(self):
@@ -126,49 +130,47 @@ def make_step_fn(
     return make_ensemble_step_fn(ff, config, bias)
 
 
-#: term sets the campaign kernel covers beyond the default one; both need
-#: the GB tables on the force field
-_CAMPAIGN_SOLVENT_TERM_SETS = (
-    frozenset(DEFAULT_TERMS + ("gb",)),
-    frozenset(DEFAULT_TERMS + ("gb", "sasa")),
-)
+#: the term sets each kernel flag covers: ``fused_nonbonded`` the default
+#: one, ``fused_campaign`` the default one alone or with ``gb`` or ``gb`` +
+#: ``sasa`` (the last two only where the force field carries the GB tables)
+_KERNEL_TERM_SETS = {
+    "fused_nonbonded": (frozenset(DEFAULT_TERMS),),
+    "fused_campaign": (
+        frozenset(DEFAULT_TERMS),
+        frozenset(DEFAULT_TERMS + ("gb",)),
+        frozenset(DEFAULT_TERMS + ("gb", "sasa")),
+    ),
+}
 
 
-def _require_kernel_coverage(
-    flag: str, config: SimulationConfig, langevin_only: bool, ff: FFParams
-):
-    """Raise where ``config`` asks for a kernel path (``flag``) together with
-    an option that kernel does not cover. A kernel flag never gives way to
-    the autograd path: that path is taken only when the flag is off.
-
-    ``fused_nonbonded`` covers the default term set. ``fused_campaign``
-    (``langevin_only``) covers exactly three: the default set, the default
-    set + ``gb``, and the default set + ``gb`` + ``sasa``, the last two only
-    where ``ff`` carries the GB tables."""
+def _uncovered_option(flag: str, config: SimulationConfig) -> Optional[str]:
+    """The option of ``config`` that the kernels of ``flag``
+    (``"fused_campaign"`` or ``"fused_nonbonded"``) do not cover, or None.
+    Neither covers a box; the campaign kernel runs Langevin dynamics only.
+    The same options as the JAX package's ``use_campaign`` and ``use_fused``:
+    where one is uncovered, the step runs the composed path."""
     if config.pbc:
-        raise ValueError(f"{flag}=True does not cover pbc=True: the kernel has no box")
-    if langevin_only and config.integrator != "langevin":
-        raise ValueError(
-            f"{flag}=True covers integrator='langevin' only, "
-            f"got {config.integrator!r}"
-        )
+        return "pbc=True (the kernels have no box)"
+    if flag == "fused_campaign" and config.integrator != "langevin":
+        return f"integrator={config.integrator!r} (the kernel runs Langevin dynamics only)"
     term_set = frozenset(config.energy.terms)
-    if term_set == frozenset(DEFAULT_TERMS):
-        return
-    if langevin_only and term_set in _CAMPAIGN_SOLVENT_TERM_SETS:
-        if not ff.has_gb:
-            raise ValueError(
-                f"{flag}=True with the term set {sorted(term_set)} needs GB "
-                "tables on the FFParams (solvent.attach_gb_params)"
-            )
-        return
-    covered = "the default term set" + (
-        ", alone or with gb or gb + sasa" if langevin_only else ""
-    )
-    raise ValueError(
-        f"{flag}=True covers {covered} ({sorted(DEFAULT_TERMS)}), "
-        f"got the term set {sorted(term_set)}"
-    )
+    if term_set not in _KERNEL_TERM_SETS[flag]:
+        return f"the term set {sorted(term_set)}"
+    return None
+
+
+def _require_campaign_coverage(ff: FFParams, config: SimulationConfig):
+    """Raise where the campaign kernel does not cover ``config``, or where
+    its term set takes ``gb`` but ``ff`` carries no GB tables (as the JAX
+    package raises there)."""
+    uncovered = _uncovered_option("fused_campaign", config)
+    if uncovered is not None:
+        raise ValueError(f"fused_campaign=True does not cover {uncovered}")
+    if "gb" in config.energy.terms and not ff.has_gb:
+        raise ValueError(
+            f"fused_campaign=True with the term set {sorted(config.energy.terms)} "
+            "needs GB tables on the FFParams (solvent.attach_gb_params)"
+        )
 
 
 def make_ensemble_step_fn(
@@ -192,18 +194,27 @@ def make_ensemble_step_fn(
     size before any launch); a term they do not hold stays on autograd, as
     the JAX package computes every force. Positions that carry a graph keep
     every force on autograd. ``fused_nonbonded`` with PBC or a term set its
-    kernels do not cover raises. ``step_fn(states, noise=None,
+    kernels do not cover warns once, here, and takes the unflagged path, as
+    the JAX package's ``use_fused`` does. ``step_fn(states, noise=None,
     generator=None)``.
     """
     potential = _potential(ff, config, bias)
     use_fused = config.fused_nonbonded
+    uncovered = _uncovered_option("fused_nonbonded", config) if use_fused else None
+    if uncovered is not None:
+        warnings.warn(
+            f"fused_nonbonded requested, but its pair and angle-torsion kernels do "
+            f"not cover {uncovered}; the step takes the unflagged path (autograd of "
+            "the total energy) on the same device",
+            stacklevel=2,
+        )
+        use_fused = False
     ecfg = config.energy
     # without the GB tables the energy itself raises, at the first step
     solvent_terms = (
         tuple(t for t in ecfg.terms if t in ("gb", "sasa")) if ff.has_gb else ()
     )
     if use_fused:
-        _require_kernel_coverage("fused_nonbonded", config, langevin_only=False, ff=ff)
         from molecular_dynamics_tpu_torch.ops.bonded import make_angle_torsion_op
         from molecular_dynamics_tpu_torch.ops.nonbonded import make_nonbonded_op
         from molecular_dynamics_tpu_torch.ops.ring import make_pair_ring_op
@@ -416,7 +427,7 @@ def _campaign_advance_fn(ff: FFParams, save_every: int, config: SimulationConfig
     cover it."""
     from molecular_dynamics_tpu_torch.ops.fused_step import make_fused_campaign_op
 
-    _require_kernel_coverage("fused_campaign", config, langevin_only=True, ff=ff)
+    _require_campaign_coverage(ff, config)
     cons = _campaign_constraints(ff, config)
     term_set = set(config.energy.terms)
     return make_fused_campaign_op(
@@ -460,10 +471,11 @@ def simulate_ensemble(
     the default term set, alone or with ``gb`` or ``gb`` + ``sasa``
     (``GBIS_POLAR_CONFIG``, ``GBIS_CONFIG``; ``config.sasa_every`` and
     ``config.gb_every`` set their cadences and must divide ``save_every``);
-    any other integrator, PBC, another term set or a force field without GB
-    tables raises. A system the kernel cannot hold (``campaign_holds``:
-    decided by size before anything is built) warns and runs the composed
-    per-step path on the same device, as the JAX package does past its
+    a ``gb`` term set on a force field without GB tables raises. Another
+    integrator, PBC or another term set, checked first, and then a system
+    the kernel cannot hold (``campaign_holds``: decided by size before
+    anything is built), warn and run the composed per-step path on the same
+    device, as the JAX package does for the same options and past its
     kernel's design point; there the GB and LCPO forces come from their
     kernels where those hold the state, else from autograd, and the
     cadences do not apply. An error of the campaign kernel itself still
@@ -537,14 +549,20 @@ def simulate_ensemble(
     logs = []
 
     if config.fused_campaign:
-        _require_kernel_coverage("fused_campaign", config, langevin_only=True, ff=ff)
-        misfit = _campaign_misfit(ff, config)
-        if misfit is not None:
+        # the options first, then the size (read for a covered term set only)
+        uncovered = _uncovered_option("fused_campaign", config)
+        if uncovered is not None:
+            reason = f"the campaign kernel does not cover {uncovered}"
+        else:
+            _require_campaign_coverage(ff, config)
+            misfit = _campaign_misfit(ff, config)
+            reason = None if misfit is None else (
+                f"the campaign kernel does not hold this system ({ff.n_atoms} atoms "
+                f"under the terms {sorted(config.energy.terms)}: {misfit})")
+        if reason is not None:
             warnings.warn(
-                f"fused_campaign requested, but the campaign kernel does not hold "
-                f"this system ({ff.n_atoms} atoms under the terms "
-                f"{sorted(config.energy.terms)}: {misfit}); dispatching to the "
-                "composed per-step path",
+                f"fused_campaign requested, but {reason}; dispatching to the "
+                "composed per-step path on the same device",
                 stacklevel=2,
             )
             config = dataclasses.replace(config, fused_campaign=False)

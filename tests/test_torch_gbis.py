@@ -685,31 +685,41 @@ def world():
     bkw = dict(n_atoms=104, group1=[0], group2=[103], fk=1.0, cent_0=d0, cent_1=d0 + 22.0, T=500_000.0)
     jb = jbias.HarmonicSMDBias.create(**bkw)
     tb = tbias.HarmonicSMDBias.create(device="cpu", **bkw)
-    jforce = lambda p, b: -jax.grad(
-        lambda q: jenergy.total_energy(q, jff, config=jenergy.GBIS_CONFIG) + jb.energy(q, 0))(p)
-    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
-    jst = jax.jit(lambda s: jintegrate.initialize_forces(s, jforce))(jst)
+    # the start's forces from the port's energy, the same numbers for both
     tforce = lambda p, b: tenergy._neg_grad(
         lambda q: tenergy.total_energy(q, tff, config=GBIS) + tb.energy(q, 0), p)
     tst = tintegrate.initialize_forces(tsystem.system_init(pos, vel=vel, device="cpu", key=1), tforce)
+    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
+    jst = jst.replace(forces=jnp.asarray(tst.forces.numpy()))
     return dict(jff=jff, tff=tff, jb=jb, tb=tb, jens=jsystem.replicate(jst, R, seed=3),
                 tens=tsystem.replicate(tst, R, seed=3))
 
 
-def test_simulate_ensemble_gbis_campaign_matches_jax_composed(world):
+#: the composed GBIS run both packages are held to below: T = 0, rigid X-H
+COMPOSED_GBIS = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
+
+
+@pytest.fixture(scope="module")
+def jax_gbis_composed(world):
+    """The JAX ``simulate_ensemble`` under GBIS_CONFIG on its composed path
+    (``COMPOSED_GBIS``, 2 saves of 2 steps), run once for the tests that
+    hold the port's campaign op and its composed path to it."""
+    return jsim.simulate_ensemble(
+        world["jens"], world["jff"], n_steps=4, save_every=2,
+        config=jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **COMPOSED_GBIS), bias=world["jb"])
+
+
+def test_simulate_ensemble_gbis_campaign_matches_jax_composed(world, jax_gbis_composed):
     """``simulate_ensemble`` under GBIS_CONFIG with ``fused_campaign=True``
     (T = 0, rigid X-H, 4 replicas, 2 saves of 2 steps) against the JAX
     ``simulate_ensemble`` on its composed path (``fused_campaign=False``,
     same config): the JAX campaign kernel with GB and SASA in interpret mode
     takes minutes here, its composed path seconds. Frames within 1e-4 A."""
-    kw = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
-    jfinal, jframes, jlog = jsim.simulate_ensemble(
-        world["jens"], world["jff"], n_steps=4, save_every=2,
-        config=jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **kw), bias=world["jb"],
-    )
+    jfinal, jframes, jlog = jax_gbis_composed
     tfinal, tframes, tlog = tsim.simulate_ensemble(
         world["tens"], world["tff"], n_steps=4, save_every=2,
-        config=tsim.SimulationConfig(energy=GBIS, fused_campaign=True, **kw), bias=world["tb"],
+        config=tsim.SimulationConfig(energy=GBIS, fused_campaign=True, **COMPOSED_GBIS),
+        bias=world["tb"],
     )
     assert tuple(tframes.shape) == jframes.shape == (2, R, 104, 3)
     np.testing.assert_allclose(tframes.numpy(), np.asarray(jframes), atol=1e-4)
@@ -719,6 +729,19 @@ def test_simulate_ensemble_gbis_campaign_matches_jax_composed(world):
     for key in ("epot", "ekin", "colvar_value", "colvar_energy"):
         np.testing.assert_allclose(
             tlog[key].numpy(), np.asarray(jlog[key]), rtol=2e-3, atol=2e-3, err_msg=key)
+
+
+def _start_both(pos, vel, tff, tb):
+    """Two replicas of one start in both packages, with the start's forces
+    (GBIS_CONFIG + the bias at step 0) from the port's energy: the same
+    numbers on both sides."""
+    f0 = tenergy._neg_grad(
+        lambda q: tenergy.total_energy(q, tff, config=GBIS) + tb.energy(q, 0), t(pos))
+    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
+    jens = jsystem.replicate(jst.replace(forces=jnp.asarray(f0.numpy())), 2, seed=3)
+    tens = tsystem.replicate(tsystem.system_init(
+        pos, vel=vel, device="cpu", key=1).replace(forces=f0), 2, seed=3)
+    return jens, tens
 
 
 def test_simulate_ensemble_gbis_campaign_416_atoms_matches_jax_composed():
@@ -742,13 +765,7 @@ def test_simulate_ensemble_gbis_campaign_416_atoms_matches_jax_composed():
     bkw = dict(n_atoms=416, group1=[0], group2=[103], fk=1.0, cent_0=d0, cent_1=d0 + 22.0, T=500_000.0)
     jb = jbias.HarmonicSMDBias.create(**bkw)
     tb = tbias.HarmonicSMDBias.create(device="cpu", **bkw)
-    jforce = lambda p, b: -jax.grad(
-        lambda q: jenergy.total_energy(q, jff, config=jenergy.GBIS_CONFIG) + jb.energy(q, 0))(p)
-    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
-    jst = jax.jit(lambda s: jintegrate.initialize_forces(s, jforce))(jst)
-    jens = jsystem.replicate(jst, 2, seed=3)
-    tens = tsystem.replicate(tsystem.system_init(
-        pos, vel=vel, device="cpu", key=1).replace(forces=t(jst.forces)), 2, seed=3)
+    jens, tens = _start_both(pos, vel, tff, tb)
     kw = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
     cfg = tsim.SimulationConfig(energy=GBIS, fused_campaign=True, **kw)
     assert tsim.campaign_holds(tff, cfg)
@@ -817,13 +834,7 @@ def test_simulate_ensemble_gbis_campaign_506_atoms_matches_jax_composed():
                T=500_000.0)
     jb = jbias.HarmonicSMDBias.create(**bkw)
     tb = tbias.HarmonicSMDBias.create(device="cpu", **bkw)
-    jforce = lambda p, b: -jax.grad(
-        lambda q: jenergy.total_energy(q, jff, config=jenergy.GBIS_CONFIG) + jb.energy(q, 0))(p)
-    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
-    jst = jax.jit(lambda s: jintegrate.initialize_forces(s, jforce))(jst)
-    jens = jsystem.replicate(jst, 2, seed=3)
-    tens = tsystem.replicate(tsystem.system_init(
-        pos, vel=vel, device="cpu", key=1).replace(forces=t(jst.forces)), 2, seed=3)
+    jens, tens = _start_both(pos, vel, tff, tb)
     kw = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
     cfg = tsim.SimulationConfig(energy=GBIS, fused_campaign=True, **kw)
     assert tsim.campaign_holds(tff, cfg)
@@ -922,20 +933,32 @@ _D = tenergy.DEFAULT_TERMS
 )
 def test_fused_campaign_refuses_uncovered_term_sets(world, terms):
     """A term set that merely contains gb or sasa is not covered: only the
-    default set, default + gb and default + gb + sasa are."""
+    default set, default + gb and default + gb + sasa are. The campaign
+    refuses it before anything is built, warns, and the run is the unflagged
+    composed one bit for bit (300 K: both draw the same noise stream), as
+    the JAX package dispatches it (fault C11)."""
     cfg = tsim.SimulationConfig(fused_campaign=True, energy=tenergy.EnergyConfig(terms=terms))
-    with pytest.raises(ValueError, match="term set"):
-        tsim.simulate_ensemble(world["tens"], world["tff"], n_steps=2, save_every=2, config=cfg)
+    run = lambda c: tsim.simulate_ensemble(world["tens"], world["tff"], n_steps=2, save_every=2, config=c)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfused, "build_campaign_tables", lambda *a, **k: pytest.fail("built the campaign op"))
+        with pytest.warns(UserWarning, match="does not cover the term set"):
+            flagged = run(cfg)
+    plain = run(dataclasses.replace(cfg, fused_campaign=False))
+    assert torch.equal(flagged[1], plain[1]) and torch.equal(flagged[0].forces, plain[0].forces)
 
 
 @pytest.mark.parametrize("cname", ["GBIS_CONFIG", "GBIS_POLAR_CONFIG"])
 def test_kernel_flags_and_solvent_term_sets(world, cname):
     ecfg = getattr(tenergy, cname)
-    # fused_nonbonded stays default-terms only
-    with pytest.raises(ValueError, match="term set"):
-        tsim.simulate_ensemble(
-            world["tens"], world["tff"], n_steps=2, save_every=2,
-            config=tsim.SimulationConfig(fused_nonbonded=True, energy=ecfg))
+    # fused_nonbonded covers the default terms only: with a solvent term set
+    # it warns and the step is the unflagged one, bit for bit (fault C11)
+    run = lambda **kw: tsim.simulate_ensemble(
+        world["tens"], world["tff"], n_steps=2, save_every=2,
+        config=tsim.SimulationConfig(energy=ecfg, **kw))
+    with pytest.warns(UserWarning, match="fused_nonbonded requested, but .* the term set"):
+        flagged = run(fused_nonbonded=True)
+    plain = run()
+    assert torch.equal(flagged[1], plain[1]) and torch.equal(flagged[0].forces, plain[0].forces)
     # the campaign covers it only with GB tables on the force field
     bare = dataclasses.replace(
         world["tff"], gb_radii=None, gb_screen=None, sasa_radii=None, sasa_params=None)
@@ -981,17 +1004,14 @@ def test_composed_step_takes_analytic_solvent_forces_unless_differentiated(
     np.testing.assert_allclose(analytic.forces.numpy(), graph.forces.detach().numpy(), rtol=0, atol=1e-6)
 
 
-def test_composed_gbis_path_matches_jax_composed(world):
+def test_composed_gbis_path_matches_jax_composed(world, jax_gbis_composed):
     """``simulate_ensemble`` on the composed path (``fused_campaign=False``)
     under GBIS_CONFIG, T = 0, rigid X-H, float32, against the JAX package's
     composed path: frames within 1e-4 A over 4 steps."""
-    kw = dict(dt_fs=2.0, temperature=0.0, constrain_h_bonds=True)
-    _, jframes, jlog = jsim.simulate_ensemble(
-        world["jens"], world["jff"], n_steps=4, save_every=2,
-        config=jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **kw), bias=world["jb"])
+    _, jframes, jlog = jax_gbis_composed
     final, tframes, tlog = tsim.simulate_ensemble(
         world["tens"], world["tff"], n_steps=4, save_every=2,
-        config=tsim.SimulationConfig(energy=GBIS, **kw), bias=world["tb"])
+        config=tsim.SimulationConfig(energy=GBIS, **COMPOSED_GBIS), bias=world["tb"])
     np.testing.assert_allclose(tframes.numpy(), np.asarray(jframes), atol=1e-4)
     np.testing.assert_allclose(tlog["epot"].numpy(), np.asarray(jlog["epot"]), rtol=2e-3, atol=2e-3)
     assert final.step.tolist() == [4] * R
@@ -1054,18 +1074,17 @@ def test_unflagged_gbis_step_off_the_kernels_matches_jax(world, monkeypatch):
     tff64, _ = torch_system("full_da", f64=True)
     pos = minimized_full_da().astype(np.float64)
     vel = thermal_velocities(np.asarray(jff64.masses), 2, seed=21).astype(np.float64)
-    f0 = -jax.jit(jax.vmap(jax.grad(
-        lambda q: jenergy.total_energy(q, jff64, config=jenergy.GBIS_CONFIG))))(
-            jnp.asarray(np.stack([pos, pos])))
+    # the start's forces from the port's float64 energy, for both packages
+    f0 = tenergy.force_fn(GBIS)(torch.as_tensor(np.stack([pos, pos])), tff64).numpy()
     kw = dict(dt_fs=2.0, temperature=0.0)
     jst = jsystem.replicate(jsystem.system_init(
         jnp.asarray(pos), key=jax.random.PRNGKey(1), dtype=jnp.float64), 2, seed=3)
-    jst = jst.replace(vel=jnp.asarray(vel), forces=f0)
+    jst = jst.replace(vel=jnp.asarray(vel), forces=jnp.asarray(f0))
     jstep = jax.jit(jsim.make_ensemble_step_fn(
         jff64, jsim.SimulationConfig(energy=jenergy.GBIS_CONFIG, **kw)))
     tst = tsystem.replicate(tsystem.system_init(
         torch.as_tensor(pos), device="cpu", key=1, dtype=torch.float64), 2, seed=3)
-    tst = tst.replace(vel=torch.as_tensor(vel), forces=torch.as_tensor(np.array(f0)))
+    tst = tst.replace(vel=torch.as_tensor(vel), forces=torch.as_tensor(f0))
 
     monkeypatch.setattr(tgb, "gb_forces_holds", lambda *a: False)
     monkeypatch.setattr(tsasa, "sasa_forces_holds", lambda *a: False)

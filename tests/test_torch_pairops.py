@@ -407,9 +407,14 @@ def _near_chunks(pos, cutoff):
     return (gap * gap).sum(-1) <= cutoff * cutoff * 1.0001
 
 
-def _within(pos, cutoff):
+@functools.lru_cache(maxsize=None)
+def _within(n, cutoff):
+    """within[i, j]: atoms i != j of ``schedule_system(n)`` lie within the
+    cutoff (kept for both schedules' tests: at 2,496 atoms the distance
+    matrix takes a second)."""
+    pos = schedule_system(n)
     d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1)
-    return (d2 <= cutoff * cutoff) & ~np.eye(len(pos), dtype=bool)
+    return (d2 <= cutoff * cutoff) & ~np.eye(n, dtype=bool)
 
 
 SCHEDULE_SIZES = [22, 104, 416, 2496]
@@ -457,7 +462,8 @@ def test_pair_tiles_schedule_meets_every_near_pair_once(n):
         pairs = met + met.T
         assert groups == tring.tile_pair_count(n)
         assert pairs.max() <= 1
-        assert np.array_equal(pairs[_within(pos, cutoff)], np.ones(int(_within(pos, cutoff).sum())))
+        within = _within(n, cutoff)
+        assert np.array_equal(pairs[within], np.ones(int(within.sum())))
         if n == 2496:
             assert live < groups  # the tiles of far copies meet nothing
 
@@ -480,7 +486,7 @@ def test_nonbonded_rows_schedule_meets_every_near_pair_once_from_its_row(n):
                 cols = np.arange(j_chunk * cs, min(n, (j_chunk + 1) * cs))
                 met[np.ix_(rows, cols)] += 1
         np.fill_diagonal(met, 0)  # an atom's own exclusion bit
-        within = _within(pos, cutoff)
+        within = _within(n, cutoff)
         assert met.max() <= 1
         assert np.array_equal(met[within], np.ones(int(within.sum())))
         if n == 2496:

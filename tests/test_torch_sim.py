@@ -7,6 +7,7 @@ this test; nothing in the JAX package changes). Frames agree to 1e-4 A.
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import jax
@@ -17,7 +18,6 @@ import torch
 import molecular_dynamics_tpu.ops.fused_step as jfused
 from molecular_dynamics_tpu import bias as jbias
 from molecular_dynamics_tpu import energy as jenergy
-from molecular_dynamics_tpu import integrate as jintegrate
 from molecular_dynamics_tpu import sim as jsim
 from molecular_dynamics_tpu import system as jsystem
 from molecular_dynamics_tpu_torch import bias as tbias
@@ -43,18 +43,14 @@ def world():
     jb = jbias.HarmonicSMDBias.create(**bkw)
     tb = tbias.HarmonicSMDBias.create(device="cpu", **bkw)
 
-    jforce = lambda p, b: -jax.grad(
-        lambda q: jenergy.total_energy(q, jff, config=jenergy.REFERENCE_CONFIG) + jb.energy(q, 0)
-    )(p)
-    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
-    jst = jax.jit(lambda s: jintegrate.initialize_forces(s, jforce))(jst)
-    jens = jsystem.replicate(jst, R, seed=3)
-
+    # the start's forces from the port's energy, the same numbers for both
     tforce = lambda p, b: tenergy._neg_grad(
         lambda q: tenergy.total_energy(q, tff) + tb.energy(q, 0), p
     )
     tst = tintegrate.initialize_forces(tsystem.system_init(pos, vel=vel, device="cpu", key=1), tforce)
     tens = tsystem.replicate(tst, R, seed=3)
+    jst = jsystem.system_init(jnp.asarray(pos), vel=jnp.asarray(vel), key=jax.random.PRNGKey(1))
+    jens = jsystem.replicate(jst.replace(forces=jnp.asarray(tst.forces.numpy())), R, seed=3)
     return dict(jff=jff, tff=tff, jb=jb, tb=tb, jens=jens, tens=tens)
 
 
@@ -168,24 +164,103 @@ def test_campaign_path_raises_instead_of_falling_back(world, monkeypatch):
         )
 
 
-_REDUCED_TERMS = tenergy.EnergyConfig(terms=("bonds", "angles"))
+# -- a kernel flag beside an option its kernels do not cover (fault C11) ---------
+
+#: the box of the ``pbc=True`` cases, A (the molecule spans less than half)
+C11_BOX = 60.0
+#: the physics of each case, at T = 0 or NVE (no noise enters), 1 fs
+C11_PHYSICS = {
+    "pbc": dict(pbc=True, temperature=0.0),
+    "nve": dict(integrator="nve"),
+    "reduced_terms": dict(energy=("bonds", "angles"), temperature=0.0),
+    "gbis_nve": dict(energy="GBIS_CONFIG", integrator="nve"),
+}
+
+
+def _c11_config(sim, energy, physics, **flags):
+    kw = dict(dt_fs=1.0, **C11_PHYSICS[physics], **flags)
+    terms = kw.pop("energy", None)
+    if terms is not None:
+        kw["energy"] = (getattr(energy, terms) if isinstance(terms, str)
+                        else energy.EnergyConfig(terms=terms))
+    return sim.SimulationConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def c11_world(world):
+    """The first two replicas of ``world``'s start in float64, in both
+    packages, with a 60 A box (read only under ``pbc=True``), and a runner of
+    each package's ``simulate_ensemble`` (2 steps, one frame) that computes
+    every JAX reference once a physics: JAX's flagged run is its unflagged
+    composed one (``use_campaign``, ``use_fused``), so its reference is the
+    unflagged run, jitted inside ``simulate_ensemble``."""
+    from molecular_dynamics_tpu_torch import convert as tconvert
+
+    jff, _ = jax_system("full_da")
+    tff, _ = torch_system("full_da")
+    pos, vel, frc = (getattr(world["tens"], k)[:2].double().numpy() for k in ("pos", "vel", "forces"))
+    box = np.full((2, 3), C11_BOX)
+    jens = jsystem.replicate(
+        jsystem.system_init(jnp.asarray(pos[0]), key=jax.random.PRNGKey(1), dtype=jnp.float64), 2
+    ).replace(pos=jnp.asarray(pos), vel=jnp.asarray(vel), forces=jnp.asarray(frc), box=jnp.asarray(box))
+    tens = tconvert.state_from_numpy(
+        pos, vel=vel, forces=frc, box=box, key=[1, 2], device="cpu", dtype=torch.float64)
+    # the world's float32 bias parameters, exactly, in float64
+    jb = jax.tree.map(lambda x: x.astype(jnp.float64), world["jb"])
+    tb = dataclasses.replace(world["tb"], **{
+        f.name: getattr(world["tb"], f.name).double() for f in dataclasses.fields(world["tb"])})
+    jax_refs = {}
+
+    def jax_run(physics):
+        if physics not in jax_refs:
+            final, frames, _ = jsim.simulate_ensemble(
+                jens, jff, n_steps=2, save_every=2,
+                config=_c11_config(jsim, jenergy, physics), bias=jb)
+            jax_refs[physics] = {"frames": np.asarray(frames), "vel": np.asarray(final.vel),
+                                 "forces": np.asarray(final.forces)}
+        return jax_refs[physics]
+
+    def port_run(physics, **flags):
+        final, frames, _ = tsim.simulate_ensemble(
+            tens, tff, n_steps=2, save_every=2,
+            config=_c11_config(tsim, tenergy, physics, **flags), bias=tb)
+        return {"frames": frames, "vel": final.vel, "forces": final.forces}
+
+    return jax_run, port_run
 
 
 @pytest.mark.parametrize(
-    "flag, option, match",
+    "flag, physics, extra, names",
     [
-        ("fused_campaign", dict(pbc=True), "pbc"),
-        ("fused_campaign", dict(energy=_REDUCED_TERMS), "term set"),
-        ("fused_campaign", dict(integrator="nve"), "integrator"),
-        ("fused_nonbonded", dict(pbc=True), "pbc"),
-        ("fused_nonbonded", dict(energy=_REDUCED_TERMS), "term set"),
+        ("fused_campaign", "pbc", {}, "pbc=True"),
+        ("fused_campaign", "nve", {}, "integrator='nve'"),
+        ("fused_campaign", "reduced_terms", {}, "term set"),
+        ("fused_campaign", "gbis_nve", {}, "integrator='nve'"),
+        # the composed path reads no cadence: 5 need not tile the segment
+        ("fused_campaign", "gbis_nve", dict(sasa_every=5), "integrator='nve'"),
+        ("fused_nonbonded", "pbc", {}, "pbc=True"),
+        ("fused_nonbonded", "gbis_nve", {}, "term set"),
     ],
 )
-def test_kernel_flags_raise_on_options_the_kernels_do_not_cover(world, flag, option, match):
-    """A kernel flag never gives way to the autograd path."""
-    cfg = tsim.SimulationConfig(**{flag: True}, **option)
-    with pytest.raises(ValueError, match=match):
-        tsim.simulate_ensemble(world["tens"], world["tff"], n_steps=2, save_every=2, config=cfg)
+def test_kernel_flag_beside_an_uncovered_option_runs_the_composed_path(
+    c11_world, flag, physics, extra, names
+):
+    """A kernel flag beside an option its kernels do not cover warns, names
+    the option and runs what the unflagged config runs, bit for bit, as the
+    JAX package does (fault C11). Float64, 2 replicas, 2 steps of 1 fs:
+    frames and velocities within 1e-10 of JAX's, forces within 1e-8
+    kcal/mol/A."""
+    jax_run, port_run = c11_world
+    with pytest.warns(UserWarning, match=f"{flag} requested, but .*{names}"):
+        flagged = port_run(physics, **{flag: True}, **extra)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        plain = port_run(physics)
+    want = jax_run(physics)
+    for key, tol in (("frames", 1e-10), ("vel", 1e-10), ("forces", 1e-8)):
+        assert torch.equal(flagged[key], plain[key]), key
+        assert tuple(flagged[key].shape) == want[key].shape
+        np.testing.assert_allclose(flagged[key].numpy(), want[key], atol=tol, err_msg=key)
 
 
 def test_single_system_step_honours_fused_nonbonded(world):
@@ -197,8 +272,14 @@ def test_single_system_step_honours_fused_nonbonded(world):
     fused = tsim.make_step_fn(world["tff"], tsim.SimulationConfig(fused_nonbonded=True, **kw))(single)
     np.testing.assert_allclose(fused.pos.numpy(), plain.pos.numpy(), atol=1e-5)
     np.testing.assert_allclose(fused.forces.numpy(), plain.forces.numpy(), atol=2e-3)
-    with pytest.raises(ValueError, match="pbc"):
-        tsim.make_step_fn(world["tff"], tsim.SimulationConfig(fused_nonbonded=True, pbc=True))
+    # with a box the kernels do not cover, the flag warns and the step is the
+    # unflagged one (fault C11)
+    boxed = single.replace(box=torch.full((3,), C11_BOX))
+    plain = tsim.make_step_fn(world["tff"], tsim.SimulationConfig(pbc=True, **kw))(boxed)
+    with pytest.warns(UserWarning, match="fused_nonbonded requested, but .*pbc=True"):
+        step = tsim.make_step_fn(world["tff"], tsim.SimulationConfig(fused_nonbonded=True, pbc=True, **kw))
+    fused = step(boxed)
+    assert torch.equal(fused.pos, plain.pos) and torch.equal(fused.forces, plain.forces)
 
 
 def test_simulate_single_system_and_nve(world):
@@ -229,8 +310,8 @@ def test_smd_campaign_config_matches_jax():
 @pytest.fixture(scope="module")
 def tiled_world():
     """Two tiled copies (208 atoms) in float64, 2 replicas jittered from a
-    seed, with velocities and the initial forces (the JAX package's) as
-    numpy: the same inputs for both packages."""
+    seed, with velocities and the initial forces (the port's) as numpy: the
+    same inputs for both packages."""
     from molecular_dynamics_tpu.examples import tiled_decaalanine as jtiled
     from molecular_dynamics_tpu_torch import convert as tconvert
     from molecular_dynamics_tpu_torch.examples import tiled_decaalanine
@@ -240,8 +321,7 @@ def tiled_world():
     rng = np.random.default_rng(17)
     pos = np.asarray(coords)[None] + rng.normal(0.0, 0.02, (2,) + np.shape(coords))
     vel = thermal_velocities(np.asarray(jff.masses), 2, seed=4).astype(np.float64)
-    frc = np.array(jax.jit(jax.vmap(jax.grad(
-        lambda q: -jenergy.total_energy(q, jff, config=jenergy.REFERENCE_CONFIG))))(jnp.asarray(pos)))
+    frc = tenergy.force_fn()(torch.as_tensor(pos), tff).numpy()
     jens = jsystem.replicate(
         jsystem.system_init(jnp.asarray(pos[0]), key=jax.random.PRNGKey(0), dtype=jnp.float64), 2
     ).replace(pos=jnp.asarray(pos), vel=jnp.asarray(vel), forces=jnp.asarray(frc))
