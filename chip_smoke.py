@@ -4,7 +4,8 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, ``nvcc`` and ``g++``; without a device it exits
 non-zero and prints no result. It imports ``molecular_dynamics_tpu_torch``
-only, and loads the numpy file writer ``tests/torch_files.py`` by its path.
+only, and loads the numpy file writer ``tests/torch_files.py`` and the
+trained generation maps of ``tests/torch_trained.py`` by their paths.
 
 Phases, one JSON line each on standard output:
 
@@ -224,6 +225,14 @@ Phases, one JSON line each on standard output:
    penalty and of an injection step (generator, critic, penalty, energy,
    backward, optimizer) with the device's busy share. No kernel launches
    there either; the run fails if one does.
+   ``trained_generation``: the generation maps of ``gat``, ``hnn-schnet``
+   and ``seq2seq-graph`` from the JAX package's trained weights (the drivers
+   at ``epochs=0``, two starts of the in-repo data at the full rollout
+   length, seq2seq-graph's decoder draws replayed), each eval.json key
+   within 2e-3 A of the JAX package's on the CPU; the weights, draws and
+   numbers are kept in ``tests/goldens/trained_generation`` and the map in
+   ``tests/torch_trained.py`` (loaded by path). No kernel launches there;
+   the run fails if one does.
 5. ``profile``: the campaign call again under ``torch.profiler``: device
    time summed over kernel rows, the device's busy and idle share; the same
    for 50 steps of the composed pair-op path at 416 x 192, with the kernels
@@ -475,6 +484,9 @@ TRAIN_LONGEST_FIRST = ("node", "lstm-gat", "lstm", "cgan", "transformer", "sde",
 #: prmtop by the numpy writer of the CPU tests (loaded by path, the one file
 #: of tests/ this script reads)
 TEST_FILES = pathlib.Path(__file__).resolve().parent / "tests" / "torch_files.py"
+#: the trained_generation phase: the port's generation maps from the JAX
+#: package's trained weights, and the goldens they are held to
+TEST_TRAINED = pathlib.Path(__file__).resolve().parent / "tests" / "torch_trained.py"
 FULL_DA_NPZ = (pathlib.Path(__file__).resolve().parent / "molecular_dynamics_tpu_torch"
                / "examples" / "data" / "full_da.npz")
 #: the prmtop system against the packaged one in float64 on the card, term
@@ -2830,10 +2842,10 @@ def cli_phase(ff, coords):
 # -- host I/O: prmtop, CHARMM .prm with CMAP, trajectories ------------------------
 
 
-def load_test_files():
+def load_test_files(path=TEST_FILES):
     """``tests/torch_files.py``, the numpy-only writer of the prmtop, .prm
-    and PSF fixtures, loaded by its path."""
-    spec = importlib.util.spec_from_file_location("torch_files", TEST_FILES)
+    and PSF fixtures (or another helper of ``tests/``), loaded by its path."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -4423,6 +4435,35 @@ def generative_phase(tmp, dev, train_runs):
     return res, launches
 
 
+def trained_generation_phase(tmp):
+    """``gat``, ``hnn-schnet`` and ``seq2seq-graph``'s generation maps on the
+    card from the JAX package's trained weights, each eval.json key against
+    the JAX package's on the CPU (``tests/goldens/trained_generation``); the
+    kernel launches of each map."""
+    trained = load_test_files(TEST_TRAINED)
+    goldens = trained.golden_eval()
+    res, launches = {"tolerance_A": trained.TOL, "data": trained.DATA}, {}
+    for family in sorted(trained.FAMILIES):
+        kept = trained.golden(family)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = trained.port_generation(family, tmp / "trained_generation", "cuda",
+                                      kept["state_dict"], kept["noise"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[family] = read_launches()
+        want = goldens[family]
+        check(sorted(got) == sorted(want), f"trained {family}: eval keys {sorted(got)}")
+        errs = {k: abs(got[k] - want[k]) for k in want}
+        res[family] = {"eval": got, "jax_cpu": want, "max_abs_err_A": max(errs.values()),
+                       "worst_key": max(errs, key=errs.get), "seconds": seconds,
+                       "launches": launches[family]}
+        check(max(errs.values()) <= trained.TOL,
+              f"trained {family}: the card's eval.json {errs} A from the JAX package's on the "
+              f"CPU (tolerance {trained.TOL})")
+    return res, launches
+
+
 def main():
     t_script = time.perf_counter()
     dev = torch.device("cuda")
@@ -5503,6 +5544,12 @@ def main():
         emit("generative", **gen_res, seconds=round(time.perf_counter() - t_phase, 1),
              device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              script_seconds=round(time.perf_counter() - t_script, 1))
+        t_phase = time.perf_counter()
+        trained_res, trained_launches = trained_generation_phase(tmp)
+        emit("trained_generation", **trained_res,
+             seconds=round(time.perf_counter() - t_phase, 2),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             script_seconds=round(time.perf_counter() - t_script, 1))
     # the training path reaches no kernel: the energy of a generated batch is
     # the plain PyTorch energy, differentiated by autograd
     train_total = {name: regen_train_launches[name] + sum(run[name] for run in train_launches.values())
@@ -5518,6 +5565,11 @@ def main():
     # the injection's plain energy
     gen_total = {name: sum(run[name] for run in gen_launches.values()) for name in train_total}
     check(not any(gen_total.values()), f"cli train (generative) launched kernels: {gen_total}")
+    # nor do the trained generation maps: GAT, SchNet and LSTM rollouts
+    trained_total = {name: sum(run[name] for run in trained_launches.values())
+                     for name in train_total}
+    check(not any(trained_total.values()),
+          f"trained generation maps launched kernels: {trained_total}")
 
     kernels["campaign_advance"]["launches_by_path"] = {
         f"simulate_ensemble(fused_campaign) {N_REPLICAS} x {N_STEPS}": launches_k1,
@@ -5553,6 +5605,8 @@ def main():
     dyn_path = "dynamics: cli train node, hnn, hnn-schnet, hnn-latent (40 atoms)"
     seq_path = ("sequence: cli train " + ", ".join(SEQUENCE_FAMILIES) + " (40 atoms)")
     gen_path = ("generative: cli train " + ", ".join(GENERATIVE_FAMILIES) + " (40 atoms)")
+    trained_path = ("trained_generation: the generation maps of "
+                    + ", ".join(sorted(trained_launches)) + " from trained weights (40 atoms)")
     for row, counter in (("pair_forces", "pair_forces"), ("campaign_advance", None),
                          ("gb_forces", "gb_forces"), ("sasa_forces", "sasa_forces"),
                          ("campaign_advance[gbis]", "campaign_advance"),
@@ -5564,6 +5618,7 @@ def main():
         by_path[dyn_path] = dyn_total["campaign_advance" if counter is None else counter]
         by_path[seq_path] = seq_total["campaign_advance" if counter is None else counter]
         by_path[gen_path] = gen_total["campaign_advance" if counter is None else counter]
+        by_path[trained_path] = trained_total["campaign_advance" if counter is None else counter]
         by_path[host_cmap] = host_launches[host_cmap]["campaign_advance" if counter is None
                                                        else counter]
         for path, counts in par_launches.items():

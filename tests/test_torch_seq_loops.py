@@ -15,10 +15,14 @@ driver's training draws (``drivers._noise``) replay JAX's: the keys the JAX
 driver splits, in its order. Only the loops are compared: JAX's generation
 rollouts are replaced by constant ones where they are library functions
 (their parity is in ``test_torch_seq_train.py``) and its loss plot
-skipped.
+skipped. ``gat`` also runs the full data's path: an in-repo trajectory of
+320 frames (strided by 2) and the default 8-step fine-tune, its rollout
+and eval.json compared too.
 """
 
 import csv
+import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +56,14 @@ def data(tmp_path_factory):
     return str(root / "*.npy")
 
 
+@pytest.fixture(scope="module")
+def long_data():
+    """One in-repo backbone trajectory of 320 frames: ``gat`` strides it by
+    2, as it does the full data."""
+    return str(pathlib.Path(__file__).resolve().parents[1] / "datasets" / "backbone_smd"
+               / "raw-traj_rep-0.npy")
+
+
 def _log_rows(path):
     with open(path) as fh:
         return [(int(r["epoch"]), int(r["step"]), float(r["loss"])) for r in csv.DictReader(fh)]
@@ -61,11 +73,13 @@ def _constant(x0, n):
     return jnp.broadcast_to(x0, (n,) + x0.shape)
 
 
-def _compare(family, data, tmp_path, monkeypatch, rows, epochs, batch, carried, constant=None):
+def _compare(family, data, tmp_path, monkeypatch, rows, epochs, batch, carried, constant=None,
+             eval_tol=None):
     """Run the JAX driver, recording the initial weights of each flax class
     of ``carried`` (``(flax class, port module, port class name)``) as its
     driver makes them; then the port's driver, its modules built with those
-    weights; then compare the logs."""
+    weights; then compare the logs, and with ``eval_tol`` every eval.json
+    key within that many Angstrom."""
     inits = {}
     with pytest.MonkeyPatch.context() as mp:
         for jcls, _, name in carried:
@@ -85,6 +99,12 @@ def _compare(family, data, tmp_path, monkeypatch, rows, epochs, batch, carried, 
     got = _log_rows(tmp_path / "torch" / family / "train_log.csv")
     assert [r[:2] for r in got] == [r[:2] for r in want] == rows
     np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want], rtol=1e-3)
+    if eval_tol is not None:
+        want, got = (json.loads((tmp_path / sub / family / "eval.json").read_text())
+                     for sub in ("jax", "torch"))
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert abs(got[key] - want[key]) <= eval_tol, (key, got[key], want[key])
 
 
 def _recording(init, inits, name):
@@ -156,6 +176,13 @@ def test_gat_loop_matches_jax(data, tmp_path, monkeypatch):
     rollout is its own jitted scan and runs as it is."""
     monkeypatch.setenv("MDX_GAT_FT_W", "2")
     monkeypatch.setenv("MDX_GAT_FT_EPOCHS", "1")
+    _gat_draws(monkeypatch)
+    _compare("gat", data, tmp_path, monkeypatch, [(0, 10), (1, 20)], 1, 4,
+             [(jgat.GATSimulator, tgat, "GATSimulator")])
+
+
+def _gat_draws(monkeypatch):
+    """The GNS input noise: JAX's default-dtype normal of each batch's subkey."""
     keys = {"key": jax.random.PRNGKey(0)}
 
     def draw(shape):
@@ -163,8 +190,19 @@ def test_gat_loop_matches_jax(data, tmp_path, monkeypatch):
         return jax.random.normal(sub, shape)
 
     _replay(monkeypatch, draw)
-    _compare("gat", data, tmp_path, monkeypatch, [(0, 10), (1, 20)], 1, 4,
-             [(jgat.GATSimulator, tgat, "GATSimulator")])
+
+
+def test_gat_loop_at_stride_2_matches_jax(long_data, tmp_path, monkeypatch):
+    """The full data's path: 320 frames strided by 2 (157 GNS rows), batch
+    8: 19 noisy updates, then 9 of the default 8-step unroll
+    (``MDX_GAT_FT_W`` unset, one fine-tune epoch of 38 windows): rows at 10
+    | 20; then the 160-frame rollout from the trained weights, every
+    eval.json key within 2e-3 A of JAX's."""
+    monkeypatch.delenv("MDX_GAT_FT_W", raising=False)
+    monkeypatch.setenv("MDX_GAT_FT_EPOCHS", "1")
+    _gat_draws(monkeypatch)
+    _compare("gat", long_data, tmp_path, monkeypatch, [(0, 10), (1, 20)], 1, 8,
+             [(jgat.GATSimulator, tgat, "GATSimulator")], eval_tol=2e-3)
 
 
 def test_seq2seq_graph_loop_matches_jax(data, tmp_path, monkeypatch):

@@ -113,5 +113,19 @@ def float64_lstm_carries(monkeypatch):
     monkeypatch.setattr(nn.OptimizedLSTMCell, "initialize_carry", carry64)
 
 
+def jitted_rollout(rollout):
+    """The JAX ``models.hnn.rollout``, jitted once a (model, length,
+    options): the same scan. Called op by op, as the JAX hnn driver calls
+    it, it is traced and compiled anew at every start and probe candidate."""
+    cache = {}
+
+    def roll(model, params, x0, n_steps, **kw):
+        key = (id(model), n_steps, tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = jax.jit(lambda p, x: rollout(model, p, x, n_steps, **kw))
+        return cache[key](params, x0)
+    return roll
+
+
 if __name__ == "__main__":
     np.save(MINIMIZED_FULL_DA, fire_full_da())
